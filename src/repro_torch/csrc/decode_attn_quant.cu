@@ -1,0 +1,219 @@
+// One-token GQA decode attention straight on the int8 ring KV cache.
+//
+// Replaces the TPU kernel src/repro/kernels/quant_attention.py:_qdec_kernel
+// (decode_attn_quant).
+//
+// What it computes, per slot b and query head (kv head h, group row g):
+//   logit[s] = (q . k_codes[b, s, h]) * k_scale[b, s, h]
+//              + (0 <= pos[b, s] <= q_pos[b] [and q_pos - pos < window]
+//                 ? 0 : -1e30)
+//   out      = sum_s (p[s] * v_scale[b, s, h]) * v_codes[b, s, h] / max(l, 1e-30)
+// with p the online-softmax probabilities and l their sum. q arrives
+// pre-scaled by hd^-0.5 (the wrapper does it, as the TPU wrapper did). Scales
+// multiply, never divide, so an all-zero row gives exactly 0. Slots carry
+// absolute positions, so ring wraparound needs no special case and evicted
+// or empty slots (pos = -1) are masked wherever they sit.
+//
+// What bounds it on an H100: every call reads the whole cache of codes and
+// scales once (2 * B * Sc * KV * (hd + 4) bytes) and does 4 * B * H * Sc * hd
+// float operations: bytes over 3.35 TB/s bound it by far.
+//
+// Design (simple and right first; splitting Sc across blocks is later work):
+// one block of 256 threads per (slot, kv head) holds the G query rows that
+// share the head, so each K/V row is read once per group. A loop over Sc in
+// tiles of 64 positions takes the place of the TPU's sequential grid
+// dimension. Per tile: each warp dots 8 key rows against the G queries (a
+// lane takes 4 bytes of the row, a 128-byte coalesced load per row, then a
+// shuffle reduction); one warp per query row runs the online-softmax update
+// in f32 registers and stores p * v_scale in shared memory; then each thread
+// owns one head dimension and half of the tile's positions and accumulates
+// sum p * v_scale * v_code in registers. The two halves combine at the end.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 64;          // cache positions per loop step
+constexpr int MAX_G = 8;          // query rows per kv head
+constexpr int MAX_HD = 256;
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
+                         const int8_t* __restrict__ kc,    // (B, Sc, KV, hd)
+                         const float* __restrict__ ks,     // (B, Sc, KV)
+                         const int8_t* __restrict__ vc,    // (B, Sc, KV, hd)
+                         const float* __restrict__ vs,     // (B, Sc, KV)
+                         const int* __restrict__ pos,      // (B, Sc)
+                         const int* __restrict__ qpos,     // (B,)
+                         float* __restrict__ out,          // (B, KV, G, hd)
+                         int Sc, int KV, int G, int hd, int window) {
+  __shared__ float qs[MAX_G][MAX_HD];
+  __shared__ float logit[MAX_G][TILE];
+  __shared__ float pvs[MAX_G][TILE];
+  __shared__ float vscale[TILE];
+  __shared__ float m_s[MAX_G], l_s[MAX_G], alpha_s[MAX_G];
+  __shared__ float part[MAX_G][MAX_HD];
+
+  const int bh = blockIdx.x;            // b * KV + h
+  const int b = bh / KV;
+  const int h = bh % KV;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qp = qpos[b];
+
+  for (int i = tid; i < G * hd; i += THREADS)
+    qs[i / hd][i % hd] = q[(size_t)bh * G * hd + i];
+  if (tid < G) {
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  // PV ownership: dimension d (and d + 128 when hd > 128), positions of one
+  // parity within each tile
+  const int d0 = tid % 128;
+  const int half = tid / 128;
+  float acc[MAX_G][2];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) acc[g][0] = acc[g][1] = 0.f;
+  __syncthreads();
+
+  for (int t0 = 0; t0 < Sc; t0 += TILE) {
+    // ---- logits: warp w takes positions w, w + WARPS, ... of the tile
+    for (int t = warp; t < TILE; t += WARPS) {
+      const int s = t0 + t;
+      float dot[MAX_G];
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) dot[g] = 0.f;
+      if (s < Sc) {
+        const int8_t* row = kc + (((size_t)b * Sc + s) * KV + h) * hd;
+        for (int d = lane * 4; d < hd; d += 128) {
+          const char4 c = *reinterpret_cast<const char4*>(row + d);
+          const float c0 = c.x, c1 = c.y, c2 = c.z, c3 = c.w;
+#pragma unroll
+          for (int g = 0; g < MAX_G; ++g) {
+            if (g < G)
+              dot[g] += qs[g][d] * c0 + qs[g][d + 1] * c1 + qs[g][d + 2] * c2 +
+                        qs[g][d + 3] * c3;
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) dot[g] = warp_sum(dot[g]);
+      if (lane == 0) {
+        if (s < Sc) {
+          const size_t r = ((size_t)b * Sc + s) * KV + h;
+          const int p = pos[(size_t)b * Sc + s];
+          bool valid = p >= 0 && p <= qp;
+          if (window > 0) valid = valid && (qp - p < window);
+          const float bias = valid ? 0.f : NEG_INF;
+          const float kscale = ks[r];
+#pragma unroll
+          for (int g = 0; g < MAX_G; ++g)
+            if (g < G) logit[g][t] = dot[g] * kscale + bias;
+          vscale[t] = vs[r];
+        } else {  // past the end of the cache: contributes nothing
+          for (int g = 0; g < G; ++g) logit[g][t] = -INFINITY;
+          vscale[t] = 0.f;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- online softmax: warp g owns query row g
+    for (int g = warp; g < G; g += WARPS) {
+      const float a = logit[g][lane];
+      const float c = logit[g][lane + 32];
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(a, c)));
+      const float pa = expf(a - m_new);
+      const float pc = expf(c - m_new);
+      const float psum = warp_sum(pa + pc);
+      pvs[g][lane] = pa * vscale[lane];
+      pvs[g][lane + 32] = pc * vscale[lane + 32];
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        l_s[g] = l_s[g] * alpha + psum;
+        m_s[g] = m_new;
+        alpha_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // ---- PV on the codes, V-scale riding on p
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g < G) {
+        acc[g][0] *= alpha_s[g];
+        acc[g][1] *= alpha_s[g];
+      }
+    }
+    const int tend = min(TILE, Sc - t0);
+    for (int t = half; t < tend; t += 2) {
+      const int8_t* row = vc + (((size_t)b * Sc + t0 + t) * KV + h) * hd;
+      const float v0 = d0 < hd ? static_cast<float>(row[d0]) : 0.f;
+      const float v1 = d0 + 128 < hd ? static_cast<float>(row[d0 + 128]) : 0.f;
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        if (g < G) {
+          acc[g][0] += pvs[g][t] * v0;
+          acc[g][1] += pvs[g][t] * v1;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- combine the two position halves and normalise
+  if (half == 1) {
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g < G && d0 < hd) part[g][d0] = acc[g][0];
+      if (g < G && d0 + 128 < hd) part[g][d0 + 128] = acc[g][1];
+    }
+  }
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g >= G) continue;
+      const float l = fmaxf(l_s[g], 1e-30f);
+      float* o = out + ((size_t)bh * G + g) * hd;
+      if (d0 < hd) o[d0] = (acc[g][0] + part[g][d0]) / l;
+      if (d0 + 128 < hd) o[d0 + 128] = (acc[g][1] + part[g][d0 + 128]) / l;
+    }
+  }
+}
+
+}  // namespace
+
+// Shapes as in the comments of the kernel's arguments; G <= 8, hd <= 256 and
+// hd % 4 == 0 (the wrapper checks). window <= 0 means no window.
+extern "C" int decode_attn_quant(const void* q, const void* kc, const void* ks,
+                                 const void* vc, const void* vs,
+                                 const void* pos, const void* qpos, void* out,
+                                 int B, int Sc, int KV, int G, int hd,
+                                 int window, void* stream) {
+  decode_attn_quant_kernel<<<B * KV, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(qpos), static_cast<float*>(out), Sc, KV, G, hd,
+      window);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,35 @@
+"""Weights across frameworks: the reference package's flat checkpoint keys
+(``checkpoint._flatten``: "/"-joined tree paths such as ``body/0/wq/w``,
+``body/0/wq/s_w`` or ``embed/w``, with the stacked leading axis kept on
+``body/*``) to this package's nested parameter tree, whose key paths are
+the same. A JAX ``arrays.npz`` therefore loads directly:
+
+    params = params_from_numpy(dict(np.load("arrays.npz")), "cuda")
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(flat: Dict[str, np.ndarray], device) -> dict:
+    """Nested param dict of tensors on ``device`` from flat "/"-keyed
+    arrays (float arrays become float32)."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        node = tree
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"key {key!r} nests under a leaf")
+        a = np.asarray(arr)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        node[parts[-1]] = torch.tensor(a, device=device)
+    # segments with no layers are empty dicts in the tree (no arrays to key)
+    for seg in ("prefix", "body", "suffix"):
+        tree.setdefault(seg, {})
+    return tree

@@ -1,0 +1,403 @@
+"""Continuous-batching decode engine (ring KV layout, greedy decode).
+
+``slots`` concurrent sequences share one decode step over per-slot KV
+caches, and a ``launch.scheduler.Scheduler`` decides admission. A finished
+sequence frees its slot mid-flight, so a staggered workload completes in
+fewer decode steps than padding everything to the longest request.
+
+The model behind the engine is pluggable: a *model adapter* supplies
+``prefill`` / ``decode`` / ``init_state`` / ``state_per_slot``. The default
+``LMAdapter`` is the fake-quant ``models.lm`` graph (the reference);
+``runtime.session.QuantizedSession`` is the packed-weights implementation
+of the same interface.
+
+Execution model (host loop, eager device calls):
+
+* ``prefill`` -- one request at a time, the whole prompt at its true length,
+  the cache sized ``cache_len``.
+* ``insert``  -- writes the prefilled per-layer state into slot row ``i``.
+* ``decode``  -- one token for all slots at once with a per-slot position
+  vector. Free slots ride along at position -1: their row writes land with
+  position -1 (never valid to attend), so an evicted slot can never leak
+  KV entries into a later occupant.
+
+Phase timers stop after ``torch.cuda.synchronize()`` on a CUDA device (the
+host reads the sampled tokens anyway), so a phase's time covers its device
+work, not its launch latency.
+
+For every emitted token the engine also records the top-2 logit margin
+(``margins[rid]``), which tells a comparison of two engines' greedy tokens
+which steps are decisive.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.scheduler import Completion, Request, Scheduler
+from repro_torch.models import lm
+from repro_torch.obs import metrics as obs_metrics
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Engine knobs."""
+
+    slots: int = 4  # concurrent sequences
+    cache_len: int = 64  # per-slot KV capacity (prompt + generation)
+    prefill_chunk: int = 128  # prefill tokens granted per iteration (> 0)
+    policy: str = "continuous"  # continuous | continuous-sjf | fixed
+    state_dtype: Any = torch.float32
+    max_iters: int = 100_000  # hard stop for the host loop
+    kv_quant: str = "none"  # "none" | "int8" | "fake" (reference numerics)
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """A snapshot of the engine's metrics registry (the fields this path
+    fills)."""
+
+    iterations: int = 0  # scheduler ticks (admission and/or decode)
+    decode_steps: int = 0  # decode launches
+    slot_steps: int = 0  # sum over decode steps of slots emitting a token
+    padded_slot_steps: int = 0  # sum of *occupied* slots
+    prefill_calls: int = 0
+    prefill_tokens: int = 0
+    act_quant_reused: int = 0  # activation quantizes elided
+    decode_attn_route: str = "fp"  # fused | dequant-fp | fp
+    admitted: int = 0
+    completed: int = 0
+    tokens_generated: int = 0
+    t_prefill_s: float = 0.0
+    t_decode_s: float = 0.0
+    latency: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def decode_tokens_per_s(self) -> float:
+        return self.tokens_generated / max(self.t_decode_s, 1e-9)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d.update(d.pop("latency"))
+        d["decode_tokens_per_s"] = self.decode_tokens_per_s
+        return d
+
+
+class LMAdapter:
+    """Default model adapter: the fake-quant ``models.lm`` graph. The 8-bit
+    fake-quantized embedding table is computed once per params object."""
+
+    def __init__(self, cfg: ModelConfig, bits, ctx):
+        self.cfg = cfg
+        self.bits = bits
+        self.ctx = ctx
+        self._table = (None, None)
+
+    @property
+    def kv_quant(self) -> str:
+        return self.ctx.kv_quant
+
+    def _table_for(self, params):
+        w = params["embed"]["w"]
+        if self._table[0] is not w:
+            from repro_torch.models.quant_layers import pinned_table
+            self._table = (w, pinned_table(params["embed"], self.ctx))
+        return self._table[1]
+
+    def prefill(self, params, tokens, *, prefill_cap, true_len=None):
+        return lm.apply_prefill(params, self.cfg, tokens, self.bits, self.ctx,
+                                prefill_cap=prefill_cap, true_len=true_len,
+                                table=self._table_for(params))
+
+    def decode(self, params, tok, pos, state):
+        return lm.apply_decode(params, self.cfg, tok, pos, state, self.bits,
+                               self.ctx, table=self._table_for(params))
+
+    def init_state(self, batch, capacity, dtype, per_slot=True, device=None):
+        return lm.init_decode_state(
+            self.cfg, batch, capacity, dtype=dtype, per_slot=per_slot,
+            kv_quant="int8" if self.ctx.kv_quant == "int8" else "none",
+            device=device)
+
+    def state_per_slot(self, row):
+        return lm.decode_state_per_slot(row)
+
+
+class _Slot:
+    """Host-side bookkeeping for one engine slot."""
+
+    __slots__ = ("req", "next_tok", "next_pos", "gen", "done", "admitted_at")
+
+    def __init__(self, req: Request, first_tok: int, now: int):
+        self.req = req
+        self.next_tok = first_tok
+        self.next_pos = req.prompt_len
+        self.gen: List[int] = [first_tok]
+        self.done = False
+        self.admitted_at = now
+
+
+def _insert(full, row, slot: int) -> None:
+    """Write a one-row per-slot state into row ``slot`` of the engine state
+    (in place: the engine owns its state tensors)."""
+    for key, c in full["sites"].items():
+        r = row["sites"][key]
+        for f, t in zip(c._fields, c):
+            t[slot] = getattr(r, f)[0].to(t.dtype)
+
+
+class DecodeEngine:
+    """Slot-based continuous-batching decode engine over a quantized LM."""
+
+    def __init__(self, params, cfg: ModelConfig, bits, ctx, *,
+                 ecfg: Optional[EngineConfig] = None, adapter=None,
+                 device=None):
+        self.params = params
+        self.cfg = cfg
+        self.ecfg = ecfg or EngineConfig()
+        if self.ecfg.prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be > 0, got "
+                             f"{self.ecfg.prefill_chunk}")
+        if adapter is None:
+            if self.ecfg.kv_quant != "none" and ctx.kv_quant == "none":
+                ctx = dataclasses.replace(ctx, kv_quant=self.ecfg.kv_quant)
+            adapter = LMAdapter(cfg, bits, ctx)
+        self.adapter = adapter
+        self.device = torch.device(device) if device is not None else \
+            params["embed"]["w"].device
+        kv_mode = getattr(adapter, "kv_quant", self.ecfg.kv_quant)
+        if kv_mode == "int8":
+            self.decode_attn_route = \
+                "fused" if self.device.type == "cuda" else "dequant-fp"
+        else:
+            self.decode_attn_route = "fp"
+        self.prefill_chunk = int(self.ecfg.prefill_chunk)
+        self.reset()
+
+    def reset(self) -> None:
+        """Clear queue, slots, metrics and decode state."""
+        self.metrics = obs_metrics.MetricsRegistry()
+        self.metrics.gauge("engine.slots").set(self.ecfg.slots)
+        self.scheduler = Scheduler(self.ecfg.policy, self.prefill_chunk,
+                                   metrics=self.metrics)
+        self.slots: List[Optional[_Slot]] = [None] * self.ecfg.slots
+        self.completions: Dict[int, Completion] = {}
+        self.margins: Dict[int, List[float]] = {}
+        self._act_reuse_base = getattr(self.adapter, "act_quant_reused", 0)
+        self.state = self.adapter.init_state(
+            self.ecfg.slots, self.ecfg.cache_len, self.ecfg.state_dtype,
+            per_slot=True, device=self.device)
+
+    @property
+    def stats(self) -> EngineStats:
+        m = self.metrics
+
+        def c(name: str) -> int:
+            return int(m.value(f"engine.{name}"))
+
+        lat: Dict[str, float] = {}
+        for key in ("ttft", "itl", "decode_step", "prefill"):
+            h = m.get(f"engine.{key}_ms")
+            if isinstance(h, obs_metrics.Histogram) and h.count:
+                lat[f"{key}_p50_ms"] = h.percentile(0.50)
+                lat[f"{key}_p95_ms"] = h.percentile(0.95)
+        return EngineStats(
+            iterations=c("iterations"), decode_steps=c("decode_steps"),
+            slot_steps=c("slot_steps"),
+            padded_slot_steps=c("padded_slot_steps"),
+            prefill_calls=c("prefill_calls"),
+            prefill_tokens=c("prefill_tokens"),
+            act_quant_reused=(getattr(self.adapter, "act_quant_reused", 0)
+                              - self._act_reuse_base),
+            decode_attn_route=self.decode_attn_route,
+            admitted=c("admitted"), completed=c("completed"),
+            tokens_generated=c("tokens_generated"),
+            t_prefill_s=m.value("engine.t_prefill_s"),
+            t_decode_s=m.value("engine.t_decode_s"), latency=lat)
+
+    # -- queue --------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Validate and enqueue a request."""
+        if req.prompt_len < 1 or req.max_new < 1:
+            raise ValueError(f"request {req.rid}: empty prompt or max_new < 1")
+        taken = {s.req.rid for s in self.slots if s is not None}
+        taken |= set(self.completions)
+        taken.update(r.rid for r in self.scheduler.pending)
+        if req.rid in taken:
+            raise ValueError(
+                f"request id {req.rid} already queued, running, or completed")
+        if not self.cfg.sliding_window and \
+                req.prompt_len + req.max_new > self.ecfg.cache_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {req.prompt_len} + max_new "
+                f"{req.max_new} exceeds cache_len {self.ecfg.cache_len} "
+                "(full-attention arch cannot ring-wrap without changing "
+                "results)")
+        self.scheduler.submit(req)
+
+    def submit_all(self, reqs) -> None:
+        for r in reqs:
+            self.submit(r)
+
+    # -- internals ----------------------------------------------------------
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _occupied(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    def _free(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _pick(self, logits: torch.Tensor):
+        """Greedy tokens (first index of the max, as ``argmax``) and top-2
+        margins of (B, V) logits, on the host."""
+        top2 = torch.topk(logits, 2, dim=-1).values
+        tok = torch.argmax(logits, dim=-1).cpu().numpy()
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        return tok, margin
+
+    def _finish(self, idx: int, now: int) -> None:
+        slot = self.slots[idx]
+        rid = slot.req.rid
+        toks = slot.gen[: slot.req.max_new]
+        self.completions[rid] = Completion(
+            rid=rid, prompt_len=slot.req.prompt_len, tokens=toks,
+            admitted_at=slot.admitted_at, finished_at=now)
+        self.margins[rid] = self.margins[rid][: len(toks)]
+        m = self.metrics
+        m.counter("engine.completed").inc()
+        m.counter("engine.tokens_generated").inc(len(toks))
+        self.slots[idx] = None
+        self.state = {"sites": {k: c.evict(idx)
+                                for k, c in self.state["sites"].items()}}
+
+    def _mark_done(self, idx: int, now: int) -> None:
+        """Sequence finished: free immediately (continuous) or hold the slot
+        until the whole round drains (fixed-batch semantics)."""
+        self.slots[idx].done = True
+        if not self.scheduler.hold_round:
+            self._finish(idx, now)
+
+    def _admit(self, req: Request, idx: int, now: int) -> None:
+        tokens = torch.as_tensor(np.asarray(req.tokens, np.int32),
+                                 device=self.device)[None, :]
+        t0 = time.perf_counter()
+        logits, row = self.adapter.prefill(self.params, tokens,
+                                           prefill_cap=self.ecfg.cache_len)
+        _insert(self.state, self.adapter.state_per_slot(row), idx)
+        tok, margin = self._pick(logits)
+        self._fence()
+        dt = time.perf_counter() - t0
+        first = int(tok[0])
+        self.margins[req.rid] = [float(margin[0])]
+        m = self.metrics
+        m.counter("engine.t_prefill_s").inc(dt)
+        m.counter("engine.prefill_calls").inc()
+        m.counter("engine.prefill_tokens").inc(req.prompt_len)
+        m.counter("engine.admitted").inc()
+        m.histogram("engine.prefill_ms").observe(dt * 1e3)
+        # the first token comes from the prefill logits: TTFT for an admitted
+        # request is the fenced prefill time (queue wait is the scheduler's)
+        m.histogram("engine.ttft_ms").observe(dt * 1e3)
+        self.slots[idx] = _Slot(req, first, now)
+        if req.max_new == 1:
+            self._mark_done(idx, now)
+
+    def _decode_step(self, now: int) -> None:
+        n = self.ecfg.slots
+        toks = np.zeros((n, 1), np.int32)
+        pos = np.full((n,), -1, np.int32)
+        live: List[int] = []
+        for i, s in enumerate(self.slots):
+            if s is not None and not s.done:
+                toks[i, 0] = s.next_tok
+                pos[i] = s.next_pos
+                live.append(i)
+        t0 = time.perf_counter()
+        logits, self.state = self.adapter.decode(
+            self.params, torch.as_tensor(toks, device=self.device),
+            torch.as_tensor(pos, device=self.device), self.state)
+        nxt, margin = self._pick(logits)
+        self._fence()
+        dt = time.perf_counter() - t0
+        m = self.metrics
+        m.counter("engine.t_decode_s").inc(dt)
+        m.counter("engine.decode_steps").inc()
+        m.counter("engine.slot_steps").inc(len(live))
+        m.counter("engine.padded_slot_steps").inc(len(self._occupied()))
+        m.histogram("engine.decode_step_ms").observe(dt * 1e3)
+        itl = m.histogram("engine.itl_ms")
+        for i in live:
+            s = self.slots[i]
+            s.gen.append(int(nxt[i]))
+            self.margins[s.req.rid].append(float(margin[i]))
+            s.next_tok = int(nxt[i])
+            s.next_pos += 1
+            itl.observe(dt * 1e3)
+            if len(s.gen) >= s.req.max_new:
+                self._mark_done(i, now)
+
+    # -- main loop ----------------------------------------------------------
+    def step(self, now: int) -> bool:
+        """One engine iteration: release a drained round (fixed policy),
+        admit per policy, then decode. Returns False when nothing is left."""
+        if self.scheduler.hold_round:
+            occ = self._occupied()
+            if occ and all(self.slots[i].done for i in occ):
+                for i in occ:
+                    self._finish(i, now)
+        if self.scheduler.has_pending():
+            for req, idx in self.scheduler.admit(now, self._free(),
+                                                 len(self._occupied())):
+                self._admit(req, idx, now)
+        if any(s is not None and not s.done for s in self.slots):
+            self._decode_step(now)
+        elif not self._occupied() and not self.scheduler.has_pending():
+            return False
+        self.metrics.counter("engine.iterations").inc()
+        return True
+
+    def run(self) -> Dict[int, Completion]:
+        """Drain the queue; returns {rid: Completion}."""
+        now = 0
+        while self.step(now):
+            now += 1
+            if now >= self.ecfg.max_iters:
+                raise RuntimeError(
+                    f"engine exceeded max_iters={self.ecfg.max_iters} "
+                    f"(pending={len(self.scheduler.pending)}, "
+                    f"occupied={len(self._occupied())})")
+        if self._occupied():
+            raise RuntimeError("slot leak: occupied slots after drain")
+        return self.completions
+
+
+def decisive_prefix(tokens: List[int], ref_tokens: List[int],
+                    ref_margins: List[float], min_margin: float = 1e-2,
+                    ctrl_tokens: Optional[List[int]] = None,
+                    ctrl_margins: Optional[List[float]] = None):
+    """Compare one request's greedy tokens against a reference's, token by
+    token, up to (not including) the first step that is not decisive: the
+    reference's top-2 margin is <= ``min_margin`` -- or, given a control
+    (the same reference evaluated at another precision), the control picks
+    another token or is itself within ``min_margin``. After such a step the
+    two runs may rightly part. Returns (steps compared, first mismatching
+    step or None)."""
+    n = 0
+    for t, (a, b) in enumerate(zip(tokens, ref_tokens)):
+        if ref_margins[t] <= min_margin:
+            break
+        if ctrl_tokens is not None and (ctrl_tokens[t] != b
+                                        or ctrl_margins[t] <= min_margin):
+            break
+        if a != b:
+            return n, t
+        n += 1
+    return n, None

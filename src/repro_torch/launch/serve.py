@@ -1,0 +1,215 @@
+"""Serving driver: a searched mixed-precision policy, packed into a
+``runtime.session.QuantizedSession``, served through the continuous-batching
+engine (``launch.engine``) over an int8 ring KV cache with greedy decode.
+
+The weights are the port's seeded random initialisation (no checkpoint of a
+published model ships with the repository); the policy is a searched
+``MPQPolicy`` json, e.g. one the reference package wrote with ``serve
+--write-demo-policy``, or ``demo_mixed_policy`` when none is given.
+
+Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
+device and without ``--device cpu`` it raises rather than run on the CPU.
+
+Examples:
+  python -m repro_torch.launch.serve --requests 8 --slots 4 \
+      --prompt-len 256 --gen 32 --cache-len 320
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --policy searched.json --check
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.policy import MPQPolicy
+from repro_torch.data import SyntheticLM
+from repro_torch.launch.engine import DecodeEngine, EngineConfig, \
+    decisive_prefix
+from repro_torch.launch.scheduler import Request
+from repro_torch.models import lm
+from repro_torch.models.quant_layers import QuantContext
+
+
+# prefill tokens the scheduler grants per iteration (the reference derives
+# it from its TPU roofline model, which the port does not have yet)
+PREFILL_CHUNK = 128
+
+
+def resolve_device(name: Optional[str]) -> torch.device:
+    """``cuda`` unless the caller asks for ``cpu``; no quiet CPU fallback."""
+    dev = torch.device(name or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run the "
+                           "plain versions on the CPU")
+    return dev
+
+
+def build_requests(data, n, prompt_len, gen, *, stagger=False
+                   ) -> List[Request]:
+    """A deterministic request set from the synthetic corpus; ``stagger``
+    varies prompt/generation lengths across requests."""
+    reqs = []
+    for i in range(n):
+        p, g = prompt_len, gen
+        if stagger:
+            p = max(4, prompt_len - 3 * (i % 4))
+            g = max(2, gen - 2 * (i % 3))
+        toks = data.batch(i, 1, p)["tokens"][0]
+        reqs.append(Request(rid=i, tokens=toks, max_new=g))
+    return reqs
+
+
+def demo_mixed_policy(cfg, meta=None) -> MPQPolicy:
+    """A mixed MPQPolicy cycling the searched widths over the arch's QLayer
+    table -- a deterministic stand-in for an ILP search result (the same
+    assignment as the reference's ``demo_mixed_policy``)."""
+    ql = lm.enumerate_qlayers(cfg)
+    bits = sorted(int(b) for b in cfg.bits)
+    n = len(bits)
+    return MPQPolicy(
+        {q.name: bits[i % n] for i, q in enumerate(ql)},
+        {q.name: bits[(i + 1) % n] for i, q in enumerate(ql)},
+        meta=dict(meta or {}, kind="demo-mixed", arch=cfg.name))
+
+
+def make_context(cfg) -> QuantContext:
+    return QuantContext.make(cfg.bits, cfg.quant_act_signed,
+                             compute_dtype=torch.float32)
+
+
+def serve_quantized(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
+                    cache_len: int, prefill_chunk: int, device=None):
+    """Pack ``policy`` into a ``QuantizedSession`` and serve ``reqs``
+    through the engine over an int8 ring KV cache. Returns (session,
+    engine, completions)."""
+    from repro_torch.runtime.session import QuantizedSession
+    sess = QuantizedSession(cfg, params, policy, make_context(cfg),
+                            kv_quant="int8")
+    eng = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
+                       device=device,
+                       ecfg=EngineConfig(slots=slots, cache_len=cache_len,
+                                         prefill_chunk=prefill_chunk,
+                                         kv_quant="int8"))
+    eng.submit_all(reqs)
+    return sess, eng, eng.run()
+
+
+def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
+                     cache_len: int, prefill_chunk: int, device=None,
+                     compute_dtype=torch.float32):
+    """The fake-quant graph (``LMAdapter``) through the same engine, with
+    int8 KV slots referenced as quantize-dequantize in fp; ``compute_dtype``
+    float64 evaluates the same graph at higher precision (the control)."""
+    ctx = dataclasses.replace(make_context(cfg), compute_dtype=compute_dtype)
+    eng = DecodeEngine(params, cfg, lm.bits_from_policy(cfg, policy), ctx,
+                       device=device,
+                       ecfg=EngineConfig(slots=slots, cache_len=cache_len,
+                                         prefill_chunk=prefill_chunk,
+                                         kv_quant="fake"))
+    eng.submit_all(reqs)
+    return eng, eng.run()
+
+
+def compare_greedy(out, ref, ref_out, ctrl=None, ctrl_out=None,
+                   min_margin: float = 1e-2):
+    """(decisive steps compared, [rids that diverged on a decisive step]) of
+    completions ``out`` against reference engine ``ref``'s ``ref_out`` (and
+    its control ``ctrl``/``ctrl_out``, see ``engine.decisive_prefix``)."""
+    compared, bad = 0, []
+    for rid, c in out.items():
+        kw = {} if ctrl is None else dict(ctrl_tokens=ctrl_out[rid].tokens,
+                                          ctrl_margins=ctrl.margins[rid])
+        n, miss = decisive_prefix(c.tokens, ref_out[rid].tokens,
+                                  ref.margins[rid], min_margin, **kw)
+        compared += n
+        if miss is not None:
+            bad.append(rid)
+    return compared, bad
+
+
+def check_greedy(cfg, params, policy, reqs, out, **kw):
+    """Gate the served tokens against the fake-quant reference engine.
+
+    The quantizers (2-6-bit activations, int8 KV rows) turn a last-bit
+    difference anywhere into whole code steps downstream, so two correct
+    float evaluations of one graph part after a few layers: on Qwen3-0.6B
+    the float32 reference and its own float64 evaluation differ by ~1 logit
+    on identical prompts. A step is therefore decisive when the float32
+    reference's top-2 margin exceeds 1e-2 AND its float64 evaluation picks
+    the same token with a margin above 1e-2; the served tokens must equal
+    the reference's on every decisive step up to a request's first
+    non-decisive one. Returns (decisive steps compared, [diverged rids],
+    rids where the two reference precisions disagreed on a confident step).
+    """
+    ref, ref_out = reference_engine(cfg, params, policy, reqs, **kw)
+    ctrl, ctrl_out = reference_engine(cfg, params, policy, reqs,
+                                      compute_dtype=torch.float64, **kw)
+    compared, bad = compare_greedy(out, ref, ref_out, ctrl, ctrl_out)
+    _, unstable = compare_greedy(ctrl_out, ref, ref_out)
+    return compared, bad, unstable
+
+
+def print_stats(label: str, eng) -> None:
+    d = eng.stats.as_dict()
+    keys = ("decode_steps", "prefill_calls", "tokens_generated",
+            "prefill_p50_ms", "decode_step_p50_ms", "decode_tokens_per_s",
+            "decode_attn_route", "act_quant_reused")
+    print(f"[{label}] " + " ".join(
+        f"{k}={d[k]:.4g}" if isinstance(d.get(k), float) else f"{k}={d.get(k)}"
+        for k in keys if k in d))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config")
+    ap.add_argument("--policy", default=None,
+                    help="MPQPolicy json (default: demo_mixed_policy)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=0, help="0 = prompt+gen")
+    ap.add_argument("--stagger", action="store_true")
+    ap.add_argument("--check", action="store_true",
+                    help="also run the fake-quant reference engine (float32 "
+                         "and float64) and compare greedy tokens on decisive "
+                         "steps (check_greedy)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    policy = (MPQPolicy.load(args.policy) if args.policy
+              else demo_mixed_policy(cfg))
+    params = lm.init_params(cfg, seed=0, device=dev)
+    reqs = build_requests(SyntheticLM(cfg), args.requests, args.prompt_len,
+                          args.gen, stagger=args.stagger)
+    cache_len = args.cache_len or (args.prompt_len + args.gen)
+    kw = dict(slots=args.slots, cache_len=cache_len,
+              prefill_chunk=PREFILL_CHUNK, device=dev)
+    sess, eng, out = serve_quantized(cfg, params, policy, reqs, **kw)
+    print_stats("quantized", eng)
+    from repro_torch.runtime.session import summarize
+    s = summarize(sess)
+    print(f"packed weights: {s['packed_bytes']} B (+{s['scale_bytes']} B "
+          f"scales) vs policy accounting {s['policy_bytes']:.0f} B "
+          f"(x{s['packed_vs_policy']:.3f}) on {dev}")
+    print("generated[rid=0]:", out[0].tokens)
+    if args.check:
+        n, bad, _ = check_greedy(cfg, params, policy, reqs, out, **kw)
+        if bad:
+            raise SystemExit(f"packed runtime diverged from the fake-quant "
+                             f"reference on decisive steps: rids {bad}")
+        print(f"greedy tokens equal the fake-quant reference on {n} "
+              "decisive steps")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,215 @@
+"""QuantizedSession: compile a searched MPQPolicy into a servable model.
+
+Construction packs once:
+
+1. validate the policy against the model's QLayer table (stale files fail
+   loudly),
+2. split the stacked param tree into per-site subtrees (one per
+   ``lm.iter_sites`` entry), so every site holds its *own* searched
+   bit-widths in packed storage,
+3. for every searched projection, select the trained indicator-bank scales
+   at the policy's bit-widths and quantize + bit-pack the weight
+   (``runtime.packing.pack_linear``) -- device memory then holds
+   ``ceil(bits/8)`` bytes per weight, ``MPQPolicy.size_bytes`` to within
+   padding.
+
+Packing also tags activation-reuse groups: projections of one site whose
+(a_bits, signedness, trained bank scale values) coincide share a
+``PackedLinear.a_group``, so ``dispatch.act_reuse_scope`` quantizes their
+common input once per forward (wq/wk/wv; mlp_wi/mlp_wg).
+
+The session exposes the engine's model-adapter interface (``prefill`` /
+``decode`` / ``init_state`` / ``state_per_slot``); matmuls route through
+``runtime.dispatch.packed_qeinsum`` (CUDA kernels on the card, the
+bit-exact dequant-then-fp route on the CPU). The 8-bit fake-quantized
+embedding table -- read by the embedding lookup and by the tied head -- is a
+pure function of the weights and is computed once here.
+
+Numerics: with per-tensor bank scales, the dequantized weights and the
+on-the-fly activation fake-quant reproduce the fake-quant graph *bitwise*
+on the dequant-fp route, so its greedy tokens equal an ``LMAdapter``
+reference engine's -- with int8 KV slots too, whose reference is
+``kv_quant="fake"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import MPQPolicy
+from repro_torch.core.quantizer import (bit_range, grad_scale,
+                                        lsq_grad_scale_factor)
+from repro_torch.models import lm
+from repro_torch.models.quant_layers import QuantContext, pinned_table
+from repro_torch.runtime import dispatch, packing
+
+
+def _get_path(tree, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_path(tree, path: Tuple[str, ...], leaf):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = leaf
+
+
+def effective_weight_scale(s_bank: torch.Tensor, idx: int, numel: int,
+                           bits: int) -> torch.Tensor:
+    """The scale value the fake-quant graph actually divides by: bank entry
+    ``idx`` -> floor at 1e-9 -> LSQ grad-scale wrapper (the identity in
+    exact arithmetic, replicated op for op for bitwise parity)."""
+    qmax = float(bit_range(bits, True)[1])
+    s = torch.clamp(s_bank[..., idx].to(torch.float32), min=1e-9)
+    return grad_scale(s, lsq_grad_scale_factor(numel, qmax, device=s.device))
+
+
+class QuantizedSession:
+    """A packed, policy-quantized model behind the engine adapter API."""
+
+    def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
+                 ctx: Optional[QuantContext] = None, *,
+                 kv_quant: str = "int8"):
+        self.cfg = cfg
+        self.policy = policy
+        self.ctx = dataclasses.replace(
+            ctx or QuantContext.make(cfg.bits, cfg.quant_act_signed,
+                                     compute_dtype=torch.float32),
+            kv_quant=kv_quant)
+        self.qlayers = lm.enumerate_qlayers(cfg)
+        policy.validate(self.qlayers, bits=cfg.bits)
+        self.sites = lm.iter_sites(cfg)
+        self._lut = {int(b): i for i, b in enumerate(cfg.bits)}
+        self.act_quant_reused = 0
+        # dispatch route tallies of every forward (``dispatch.Counts``); the
+        # engine reads them
+        self.route_counts = dispatch.Counts()
+        self.params = self._build_params(params)
+        self.table = pinned_table(params["embed"], self.ctx)
+
+    # -- construction -------------------------------------------------------
+    def _build_params(self, params) -> Dict[str, Any]:
+        by_site: Dict[Tuple[str, int], List] = {}
+        for q in self.qlayers:
+            by_site.setdefault((q.segment, q.unit), []).append(q)
+        out: Dict[str, Any] = {k: params[k] for k in params
+                               if k not in ("prefix", "body", "suffix")}
+        sites_p: Dict[str, Any] = {}
+        for site in self.sites:
+            key = lm.site_key(site.gidx)
+            sp = lm.site_params(params, site)
+            packed_paths: List[Tuple[str, ...]] = []
+            for q in by_site[(site.segment, site.unit)]:
+                leaf = _get_path(sp, q.path)
+                wb = int(self.policy.w_bits[q.name])
+                s_w = effective_weight_scale(leaf["s_w"], self._lut[wb],
+                                             leaf["w"].numel(), wb)
+                a_idx = self._lut[int(self.policy.a_bits[q.name])]
+                _set_path(sp, q.path, packing.pack_linear(
+                    leaf["w"], wb, s_w, int(self.policy.a_bits[q.name]),
+                    leaf["s_a"][..., a_idx],
+                    a_signed=self.cfg.quant_act_signed))
+                packed_paths.append(q.path)
+            _tag_act_groups(sp, packed_paths, key)
+            sites_p[key] = sp
+        out["sites"] = sites_p
+        return out
+
+    # -- accounting ---------------------------------------------------------
+    def packed_bytes(self) -> int:
+        """Measured device bytes of the packed weight codes."""
+        return packing.tree_packed_bytes(self.params)
+
+    def scale_bytes(self) -> int:
+        return packing.tree_scale_bytes(self.params)
+
+    def policy_bytes(self) -> float:
+        """What the ILP accounted for: ``MPQPolicy.size_bytes``."""
+        return self.policy.size_bytes(self.qlayers)
+
+    def fp_bytes(self, bytes_per_param: int = 4) -> int:
+        """Unquantized weight bytes of the searched projections."""
+        return sum(q.w_params for q in self.qlayers) * bytes_per_param
+
+    @property
+    def kv_quant(self) -> str:
+        return self.ctx.kv_quant
+
+    # -- engine adapter API -------------------------------------------------
+    def _forward(self, params, x, mode, states, pos, prefill_cap):
+        sites = [(s, params["sites"][lm.site_key(s.gidx)], None)
+                 for s in self.sites]
+        with dispatch.counts_scope(self.route_counts), \
+                dispatch.act_reuse_scope() as scope:
+            x, new_states = lm.run_sites(x, sites, self.cfg, self.ctx,
+                                         mode=mode, states=states, pos=pos,
+                                         prefill_cap=prefill_cap)
+        self.act_quant_reused += scope["hits"]
+        return x, new_states
+
+    def prefill(self, params, tokens, *, prefill_cap, true_len=None):
+        x = lm.embed_inputs(params, self.cfg, tokens, self.ctx, self.table)
+        x, states = self._forward(params, x, "prefill", None, None,
+                                  prefill_cap)
+        return lm.finish_prefill(x, states, params, self.cfg, self.ctx,
+                                 true_len, self.table)
+
+    def decode(self, params, tok, pos, states):
+        x = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
+        x, new_states = self._forward(params, x, "decode", states, pos, None)
+        return lm.lm_head(x, params, self.cfg, self.ctx, self.table)[:, 0], \
+            new_states
+
+    def init_state(self, batch, capacity, dtype, per_slot=True, device=None):
+        return lm.init_decode_state(self.cfg, batch, capacity, dtype=dtype,
+                                    per_slot=per_slot,
+                                    kv_quant=self.ctx.kv_quant, device=device)
+
+    def state_per_slot(self, row):
+        return lm.decode_state_per_slot(row)
+
+
+def _tag_act_groups(sp, packed_paths, site_key: str) -> None:
+    """Assign ``PackedLinear.a_group`` reuse tags within one site: equal
+    a_bits, equal signedness and equal selected bank-scale *values*; only
+    groups of two or more get a tag, which embeds the site key so equal
+    banks on different sites never alias."""
+    groups: Dict[Tuple, List[Tuple[str, ...]]] = {}
+    for path in packed_paths:
+        pl = _get_path(sp, path)
+        fp = (pl.a_bits, pl.a_signed,
+              np.asarray(pl.s_a.detach().cpu(), np.float32).tobytes())
+        groups.setdefault(fp, []).append(path)
+    gi = 0
+    for paths in groups.values():
+        if len(paths) < 2:
+            continue
+        tag = f"{site_key}.a{gi}"
+        gi += 1
+        for path in paths:
+            _set_path(sp, path, dataclasses.replace(_get_path(sp, path),
+                                                    a_group=tag))
+
+
+def summarize(session: QuantizedSession) -> Dict[str, Any]:
+    """Device-memory accounting for logs and the serve gate."""
+    packed = session.packed_bytes()
+    target = session.policy_bytes()
+    return {
+        "packed_bytes": int(packed),
+        "scale_bytes": int(session.scale_bytes()),
+        "policy_bytes": float(target),
+        "fp32_bytes": int(session.fp_bytes()),
+        "packed_vs_policy": packed / target if target else float("nan"),
+        "compression_vs_fp32": (session.fp_bytes() / packed if packed
+                                else float("nan")),
+        "avg_bits": session.policy.avg_bits(),
+        "kv_quant": session.kv_quant,
+        "act_quant_reused": int(session.act_quant_reused),
+    }
