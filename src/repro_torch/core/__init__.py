@@ -1,2 +1,3 @@
-"""Quantization core: ``qspec`` (QLayer), ``policy`` (MPQPolicy) and the
-forward half of the LSQ ``quantizer``."""
+"""Quantization core: ``qspec`` (QLayer), ``policy`` (MPQPolicy), the LSQ
+``quantizer``, joint indicator training (``importance``) and the one-time
+ILP search (``ilp``, ``search``)."""

@@ -1,21 +1,33 @@
-"""LSQ-style uniform quantizer, forward values (Eq. 1 of the paper):
+"""LSQ-style uniform quantizer with learnable step-size scale factors
+(Eq. 1 of the paper):
 
     v_q = round(clip(v / s, min_b, max_b)) * s
 
-The value op chain matches ``repro.core.quantizer`` bit for bit, including
-the scale floor at 1e-9 and the LSQ gradient-scale wrapper ``s*g + (s -
-s*g)``, which is the identity in exact arithmetic but not always in
-float32. The straight-through gradients come with the training slice.
+with the LSQ straight-through gradients (Esser et al., ICLR'20): the round
+is an STE, and d v_q / d s is ``round(v/s) - v/s`` inside the clip range and
+``min_b`` / ``max_b`` outside. The value op chain matches
+``repro.core.quantizer`` bit for bit, including the scale floor at 1e-9
+and the LSQ gradient-scale wrapper ``s*g + (s - s*g)``, which is the
+identity in exact arithmetic but not always in float32.
+
+A float32 CUDA tensor runs the fused kernels (``kernels.ops.fake_quant``,
+forward and backward) after the floor and the grad-scale chain; a CPU
+tensor, and a float64 evaluation, run the STE composition.
 """
 from __future__ import annotations
 
 import torch
 
 
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """round() with a straight-through gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
 def grad_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The value of the LSQ grad-scale trick: ``x*g + (x - x*g)``."""
+    """Identity in value (``x*g + (x - x*g)``); gradient multiplied by g."""
     xs = x * scale
-    return xs + (x - xs)
+    return xs + (x - xs).detach()
 
 
 def bit_range(b: int, signed: bool):
@@ -39,13 +51,16 @@ def lsq_grad_scale_factor(numel: int, qmax, device=None) -> torch.Tensor:
 
 def fake_quant(v: torch.Tensor, s, qmin, qmax, *,
                grad_scale_factor=None) -> torch.Tensor:
-    """Quantize-dequantize ``v`` with scale ``s`` (forward values only).
-    ``s`` is a scalar or broadcasts against ``v``."""
+    """Quantize-dequantize ``v`` with scale ``s`` (Eq. 1) and LSQ
+    gradients. ``s`` is a scalar or broadcasts against ``v``."""
     s = torch.clamp(torch.as_tensor(s, device=v.device).to(v.dtype), min=1e-9)
     if grad_scale_factor is not None:
         s = grad_scale(s, torch.as_tensor(grad_scale_factor,
                                           device=v.device).to(v.dtype))
-    return torch.round(torch.clamp(v / s, qmin, qmax)) * s
+    if v.is_cuda and v.dtype == torch.float32:
+        from repro_torch.kernels import ops
+        return ops.fake_quant(v, s, float(qmin), float(qmax))
+    return round_ste(torch.clamp(v / s, qmin, qmax)) * s
 
 
 def init_scale_from_stats(v: torch.Tensor, qmax) -> torch.Tensor:

@@ -1,0 +1,146 @@
+// LSQ fake-quant (Eq. 1 of the paper) and its straight-through backward.
+//
+// Replaces the TPU kernels src/repro/kernels/fake_quant.py:_fwd_kernel
+// (fake_quant_fwd) and src/repro/kernels/fake_quant.py:_bwd_kernel
+// (fake_quant_bwd).
+//
+// What it computes, with s = max(*scale, 1e-9) read from device memory:
+//   forward   out = round(clip(v / s, qmin, qmax)) * s
+//   backward  dv  = g where qmin < v/s < qmax (strictly), else 0
+//             ds  = sum g * (round(v/s) - v/s) inside, sum g * clip(v/s) outside
+// The backward writes one ds partial per block; the wrapper sums them (and
+// autograd multiplies by the LSQ grad scale through the scale chain), as
+// the TPU wrapper sums its per-tile partials.
+//
+// Numerics: the division is IEEE (no fast math, never a reciprocal), the
+// rounding is rintf (half to even, as torch.round and jnp.round; roundf
+// would round half away from zero), and the clip keeps NaN. So the forward
+// and dv equal the plain PyTorch version bit for bit. ds sums in another
+// order than the plain version and is held to a relative tolerance.
+//
+// What bounds it on an H100: a few float operations per element against 8
+// (forward: v in, out) or 12 (backward: v and g in, dv out) bytes, so bytes
+// over the 3.35 TB/s of device memory. Design: one fused pass per direction,
+// each thread takes four consecutive elements with one 16-byte load per
+// operand where the pointers allow it, in a grid-stride loop; the backward
+// reduces ds in registers, then across the warp with shuffles and across the
+// block in shared memory, and writes one partial per block (no atomics, so
+// the sum is the same from run to run).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  x = x < lo ? lo : x;  // min(max(x, lo), hi); a NaN passes through
+  return x > hi ? hi : x;
+}
+
+__device__ __forceinline__ float fq_one(float v, float s, float qmin,
+                                        float qmax) {
+  return rintf(clip(v / s, qmin, qmax)) * s;
+}
+
+__global__ void __launch_bounds__(THREADS)
+fq_fwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
+              float* __restrict__ out, long long n, float qmin, float qmax,
+              int vec) {
+  const float s = fmaxf(scale[0], 1e-9f);
+  const long long groups = (n + 3) / 4;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+       i < groups; i += (long long)gridDim.x * THREADS) {
+    const long long base = 4 * i;
+    if (vec && base + 4 <= n) {
+      float4 x = *reinterpret_cast<const float4*>(v + base);
+      x.x = fq_one(x.x, s, qmin, qmax);
+      x.y = fq_one(x.y, s, qmin, qmax);
+      x.z = fq_one(x.z, s, qmin, qmax);
+      x.w = fq_one(x.w, s, qmin, qmax);
+      *reinterpret_cast<float4*>(out + base) = x;
+    } else {
+      for (long long e = base; e < base + 4 && e < n; ++e)
+        out[e] = fq_one(v[e], s, qmin, qmax);
+    }
+  }
+}
+
+// one element of the backward: returns dv, adds g * dsd to acc
+__device__ __forceinline__ float fq_bwd_one(float v, float g, float s,
+                                            float qmin, float qmax,
+                                            float& acc) {
+  const float vs = v / s;
+  const bool inside = (vs > qmin) && (vs < qmax);
+  const float c = clip(vs, qmin, qmax);
+  const float d = inside ? rintf(c) - vs : c;
+  acc = fmaf(g, d, acc);
+  return inside ? g : 0.0f;
+}
+
+__global__ void __launch_bounds__(THREADS)
+fq_bwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
+              const float* __restrict__ g, float* __restrict__ dv,
+              float* __restrict__ partials, long long n, float qmin,
+              float qmax, int vec) {
+  __shared__ float warp_part[THREADS / 32];
+  const float s = fmaxf(scale[0], 1e-9f);
+  const long long groups = (n + 3) / 4;
+  float acc = 0.0f;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+       i < groups; i += (long long)gridDim.x * THREADS) {
+    const long long base = 4 * i;
+    if (vec && base + 4 <= n) {
+      const float4 x = *reinterpret_cast<const float4*>(v + base);
+      const float4 gg = *reinterpret_cast<const float4*>(g + base);
+      float4 o;
+      o.x = fq_bwd_one(x.x, gg.x, s, qmin, qmax, acc);
+      o.y = fq_bwd_one(x.y, gg.y, s, qmin, qmax, acc);
+      o.z = fq_bwd_one(x.z, gg.z, s, qmin, qmax, acc);
+      o.w = fq_bwd_one(x.w, gg.w, s, qmin, qmax, acc);
+      *reinterpret_cast<float4*>(dv + base) = o;
+    } else {
+      for (long long e = base; e < base + 4 && e < n; ++e)
+        dv[e] = fq_bwd_one(v[e], g[e], s, qmin, qmax, acc);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (threadIdx.x % 32 == 0) warp_part[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.0f;
+    for (int w = 0; w < THREADS / 32; ++w) t += warp_part[w];
+    partials[blockIdx.x] = t;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// v, out: n f32; scale: one f32 on the device -> out = fake-quant(v)
+extern "C" int fake_quant_fwd(const void* v, const void* scale, void* out,
+                              long long n, float qmin, float qmax, int blocks,
+                              void* stream) {
+  const int vec = aligned16(v) && aligned16(out);
+  fq_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(v), static_cast<const float*>(scale),
+      static_cast<float*>(out), n, qmin, qmax, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v, g, dv: n f32; scale: one f32 on the device; partials: `blocks` f32
+extern "C" int fake_quant_bwd(const void* v, const void* scale, const void* g,
+                              void* dv, void* partials, long long n,
+                              float qmin, float qmax, int blocks,
+                              void* stream) {
+  const int vec = aligned16(v) && aligned16(g) && aligned16(dv);
+  fq_bwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(v), static_cast<const float*>(scale),
+      static_cast<const float*>(g), static_cast<float*>(dv),
+      static_cast<float*>(partials), n, qmin, qmax, vec);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the serving hot path.
+"""Hand-written CUDA kernels for the serving and training hot paths.
 
   _build — nvcc build of ``csrc/*.cu`` into ``build/repro_torch/``, ctypes load
   ops    — wrappers: CUDA tensor -> kernel (or an error), CPU tensor -> plain

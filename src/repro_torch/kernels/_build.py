@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel library -> {C symbol: ctypes argument types}; every symbol returns
 # the launch's cudaError_t as an int
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 SYMBOLS: Dict[str, Dict[str, list]] = {
     "quant_matmul": {
         "qmm_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -37,6 +38,13 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     },
     "decode_attn_quant": {
         "decode_attn_quant": [_P] * 8 + [_I] * 6 + [_P],
+    },
+    "fake_quant": {
+        "fake_quant_fwd": [_P, _P, _P, _L, _F, _F, _I, _P],
+        "fake_quant_bwd": [_P, _P, _P, _P, _P, _L, _F, _F, _I, _P],
+    },
+    "flash_attention": {
+        "flash_fwd": [_P] * 5 + [_I] * 7 + [_P],
     },
 }
 

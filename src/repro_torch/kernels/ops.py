@@ -3,21 +3,30 @@
 A wrapper given CUDA tensors checks them and launches its kernel on the
 current stream, or raises; there is no fallback. Given CPU tensors it runs
 the kernel's plain version (``kernels.ref``) -- the only way the CPU tests
-reach these functions. ``launches`` counts kernel launches per wrapper (one
-per launch, nowhere else), so a run can show that its path went through
-the kernels.
+reach these functions. The training kernels (fake-quant, flash forward)
+also run their plain versions on CUDA tensors inside ``plain_on_cuda()``,
+which only tests and ``chip_smoke.py`` enter. ``launches`` counts kernel launches per wrapper
+(one per launch, nowhere else), so a run can show that its path went
+through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, FrozenSet, List, Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
-                            "decode_attn_quant": 0}
+                            "decode_attn_quant": 0, "fake_quant_fwd": 0,
+                            "fake_quant_bwd": 0, "flash_fwd": 0}
+
+FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
+FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
+TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
+_PLAIN: List[FrozenSet[str]] = [frozenset()]
 
 
 def reset_launches() -> None:
@@ -41,6 +50,33 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+@contextlib.contextmanager
+def plain_on_cuda(*names: str):
+    """Run the plain versions of the named training kernels (all of
+    ``TRAIN_KERNELS`` when none is named) on CUDA tensors for the scope.
+    Only tests and ``chip_smoke.py`` enter it, for kernel-vs-plain
+    comparisons; no entry point does."""
+    bad = set(names) - set(TRAIN_KERNELS)
+    if bad:
+        raise ValueError(f"plain_on_cuda: unknown kernels {sorted(bad)}")
+    _PLAIN.append(frozenset(names or TRAIN_KERNELS))
+    try:
+        yield
+    finally:
+        _PLAIN.pop()
+
+
+def _kernel_route(name: str, *ts: torch.Tensor) -> bool:
+    """Whether training kernel ``name`` launches: yes on CUDA tensors,
+    unless inside ``plain_on_cuda``; CPU tensors take the plain versions."""
+    return _on_cuda(*ts) and name not in _PLAIN[-1]
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
 def _check_scalar(t: torch.Tensor, name: str) -> None:
@@ -143,3 +179,122 @@ def decode_attn_quant(q: torch.Tensor, k_codes: torch.Tensor,
     _raise_on(rc, "decode_attn_quant")
     launches["decode_attn_quant"] += 1
     return out.reshape(B, 1, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# LSQ fake-quant (training)
+# ---------------------------------------------------------------------------
+def _fq_blocks(n: int) -> int:
+    """Blocks of the fake-quant launch (one ds partial each): four elements
+    per thread, at most ``FQ_MAX_BLOCKS`` (a grid-stride loop does the
+    rest)."""
+    groups = -(-n // 4)
+    return max(1, min(FQ_MAX_BLOCKS, -(-groups // FQ_THREADS)))
+
+
+def fake_quant_fwd(v: torch.Tensor, s: torch.Tensor, qmin: float,
+                   qmax: float) -> torch.Tensor:
+    """Eq. 1 forward ``round(clip(v / max(s, 1e-9), qmin, qmax)) * s`` on a
+    float32 tensor of any shape. ``s`` is one float32 element on ``v``'s
+    device: the scale after the floor and the grad-scale chain."""
+    if not _kernel_route("fake_quant_fwd", v, s):
+        return ref.fake_quant_ref(v, s.reshape(()), qmin, qmax)
+    _check(v, "v", torch.float32, v.shape)
+    _check_scalar(s, "s")
+    out = torch.empty_like(v)
+    n = v.numel()
+    rc = _build.load("fake_quant").fake_quant_fwd(
+        v.data_ptr(), s.data_ptr(), out.data_ptr(), n, float(qmin),
+        float(qmax), _fq_blocks(n), _stream())
+    _raise_on(rc, "fake_quant_fwd")
+    launches["fake_quant_fwd"] += 1
+    return out
+
+
+def fake_quant_bwd(v: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
+                   qmin: float, qmax: float):
+    """LSQ backward of :func:`fake_quant_fwd` for the output gradient
+    ``g``: ``(dv, ds)``, ds before the grad-scale factor. The kernel writes
+    one ds partial per block and the sum is taken here."""
+    if not _kernel_route("fake_quant_bwd", v, s, g):
+        return ref.fake_quant_grads_ref(v, s.reshape(()), g, qmin, qmax)
+    _check(v, "v", torch.float32, v.shape)
+    _check(g, "g", torch.float32, v.shape)
+    _check_scalar(s, "s")
+    n = v.numel()
+    blocks = _fq_blocks(n)
+    dv = torch.empty_like(v)
+    partials = torch.empty((blocks,), dtype=torch.float32, device=v.device)
+    rc = _build.load("fake_quant").fake_quant_bwd(
+        v.data_ptr(), s.data_ptr(), g.data_ptr(), dv.data_ptr(),
+        partials.data_ptr(), n, float(qmin), float(qmax), blocks, _stream())
+    _raise_on(rc, "fake_quant_bwd")
+    launches["fake_quant_bwd"] += 1
+    return dv, partials.sum()
+
+
+class _FakeQuant(torch.autograd.Function):
+    """LSQ fake-quant whose forward and backward are the kernels (the
+    reference's ``kernels/ops.py`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, v, s, qmin, qmax):
+        ctx.save_for_backward(v, s)
+        ctx.qmin, ctx.qmax = qmin, qmax
+        return fake_quant_fwd(v, s, qmin, qmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, s = ctx.saved_tensors
+        dv, ds = fake_quant_bwd(v, s, g.contiguous(), ctx.qmin, ctx.qmax)
+        return dv, ds.reshape(s.shape).to(s.dtype), None, None
+
+
+def fake_quant(v: torch.Tensor, s: torch.Tensor, qmin: float,
+               qmax: float) -> torch.Tensor:
+    """Differentiable LSQ fake-quant through the kernels. ``s`` is the
+    one-element scale after the floor and the grad-scale chain, so autograd
+    multiplies ds by the grad-scale factor on the way back to the bank."""
+    return _FakeQuant.apply(v, s, qmin, qmax)
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward (training, and prefill of 2048 tokens or more)
+# ---------------------------------------------------------------------------
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, window: Optional[int] = None,
+              q_block: int = 512, kv_block: int = 512):
+    """Online-softmax GQA self-attention forward. q (B, S, KV, G, hd)
+    pre-scaled by hd**-0.5, k/v (B, S, KV, hd). Returns (out (B, S, KV, G,
+    hd) f32, lse (B, KV, G, S) f32). The kernel tiles by ``FLASH_TILE``
+    rows; ``q_block``/``kv_block`` set the plain version's blocking."""
+    B, S, KV, G, hd = q.shape
+    if tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape) != (B, S, KV, hd):
+        raise ValueError(f"flash_fwd: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_fwd: window must be > 0, got {window}")
+    if not _kernel_route("flash_fwd", q, k, v):
+        return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
+                                 q_block=q_block, kv_block=kv_block)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if not t.is_floating_point():
+            raise TypeError(f"flash_fwd: {name} must be floating, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_fwd: {name} must be contiguous")
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    if S % FLASH_TILE or hd not in (32, 64, 128) or B * KV * G > 65535:
+        raise ValueError(f"flash_fwd: needs S % {FLASH_TILE} == 0, hd in "
+                         f"(32, 64, 128) and B*KV*G <= 65535, got S={S} "
+                         f"hd={hd} B*KV*G={B * KV * G}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_aligned(t, name)
+    out = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
+    rc = _build.load("flash_attention").flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, S, KV, G, hd, int(causal),
+        0 if window is None else int(window), _stream())
+    _raise_on(rc, "flash_fwd")
+    launches["flash_fwd"] += 1
+    return out, lse

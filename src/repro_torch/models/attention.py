@@ -1,9 +1,13 @@
-"""Attention: GQA with RoPE'd inputs, prefill (``direct_attention``) and the
-one-token decode path over fp / int8 ring KV caches.
+"""Attention: GQA with RoPE'd inputs for training and prefill
+(``self_attention``) and the one-token decode path over fp / int8 ring KV
+caches.
 
-Prefill materializes the (B, KV, G, Sq, Sk) logits; the reference package
-switches to its flash kernel only at 2048 tokens and more, which this slice
-does not reach. Decode over an int8 cache routes through
+``self_attention`` switches as the reference does: from 2048 tokens on
+(S a multiple of the 512-row q block) it takes ``flash_attention_cv`` --
+the ``flash_fwd`` CUDA kernel forward (its plain blockwise version on the
+CPU) and a recompute backward in PyTorch that saves only (out, lse) --
+and below that ``direct_attention``, which materializes the (B, KV, G, Sq,
+Sk) logits. Decode over an int8 cache routes through
 ``runtime.dispatch.resolve_decode_attn``: the ``decode_attn_quant`` CUDA
 kernel reads the codes directly, and the dequant-fp route rebuilds exact fp
 rows first (CPU tensors, and the numerics the kernel is held against).
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.ref import kv_slice_len as _kv_slice_len
 from repro_torch.runtime import kv_cache as qkv
 from repro_torch.runtime.kv_cache import FpKVCache, QuantKVCache
 
@@ -52,8 +57,92 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, hd)
 
 
-def self_attention(q, k, v, *, causal: bool, window: Optional[int]):
+# ---------------------------------------------------------------------------
+# custom-backward flash attention (FlashAttention-2 style: the backward
+# recomputes p from the saved logsumexp)
+# ---------------------------------------------------------------------------
+def _flash_bwd(qr, k, v, out, lse, dout, *, causal, window, q_block,
+               kv_block):
+    """Recompute backward (the reference's ``_flash_cv_bwd``): per q block,
+    rebuild p over its kv slice from lse, then dv += p^T dout, dp = dout
+    v^T, ds = p (dp - D) with D = rowsum(dout * out), dq = ds k, dk += ds^T
+    q."""
+    B, S, KV, G, hd = qr.shape
+    Lkv, _ = _kv_slice_len(S, window, q_block, kv_block)
+    dout = dout.to(torch.float32)
+    Drow = (dout * out.to(torch.float32)).sum(dim=-1)          # (B,S,KV,G)
+    dk = torch.zeros((B, S, KV, hd), dtype=torch.float32, device=qr.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=qr.device)
+    for qs in range(0, S, q_block):
+        q_blk = qr[:, qs:qs + q_block].to(torch.float32)
+        do_blk = dout[:, qs:qs + q_block]
+        D_blk = Drow[:, qs:qs + q_block]
+        lse_blk = lse[..., qs:qs + q_block]
+        qpos = torch.arange(qs, qs + q_block, device=qr.device)
+        start = 0 if Lkv == S else min(max(qs + q_block - Lkv, 0), S - Lkv)
+        k_src = k[:, start:start + Lkv].to(torch.float32)
+        v_src = v[:, start:start + Lkv].to(torch.float32)
+        kpos = torch.arange(start, start + Lkv, device=qr.device)
+        logits = _gqa_logits(q_blk, k_src) + _mask_bias(qpos, kpos, causal,
+                                                        window)
+        p = torch.exp(logits - lse_blk[..., None])            # (B,KV,G,qb,L)
+        dv[:, start:start + Lkv] += torch.einsum("bkgqs,bqkgd->bskd", p,
+                                                 do_blk)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", do_blk, v_src)
+        ds = p * (dp - D_blk.permute(0, 2, 3, 1)[..., None])
+        dq[:, qs:qs + q_block] = torch.einsum("bkgqs,bskd->bqkgd", ds, k_src)
+        dk[:, start:start + Lkv] += torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                                 q_blk)
+    return dq.to(qr.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashCV(torch.autograd.Function):
+    """Flash attention that saves only (q, k, v, out, lse) and recomputes
+    the probabilities blockwise in the backward. The forward with per-row
+    logsumexp is the ``flash_fwd`` CUDA kernel on CUDA tensors, its plain
+    blockwise version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, qr, k, v, causal, window, q_block, kv_block):
+        from repro_torch.kernels import ops
+        qr, k, v = qr.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = ops.flash_fwd(qr, k, v, causal=causal, window=window,
+                                 q_block=q_block, kv_block=kv_block)
+        ctx.save_for_backward(qr, k, v, out, lse)
+        ctx.cfg = dict(causal=causal, window=window, q_block=q_block,
+                       kv_block=kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qr, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(qr, k, v, out, lse, dout, **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_cv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool, window: Optional[int], q_block: int = 512,
+                       kv_block: int = 512) -> torch.Tensor:
+    """Self-attention over equal-length q/k through the flash forward and
+    the recompute backward. q (B, S, H, hd), k/v (B, S, KV, hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qr = q.reshape(B, S, KV, H // KV, hd) * (hd ** -0.5)
+    out = _FlashCV.apply(qr, k, v, causal, window, q_block, kv_block)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def self_attention(q, k, v, *, causal: bool, window: Optional[int],
+                   flash_threshold: int = 2048, q_block: int = 512,
+                   kv_block: int = 512):
+    """Training and prefill attention: the flash path from
+    ``flash_threshold`` tokens on (when S is a multiple of ``q_block``), as
+    the reference switches, else the direct masked softmax."""
     S = q.shape[1]
+    if S >= flash_threshold and S % q_block == 0:
+        return flash_attention_cv(q, k, v, causal=causal, window=window,
+                                  q_block=q_block, kv_block=kv_block)
     pos = torch.arange(S, device=q.device)
     return direct_attention(q, k, v, pos, pos, causal=causal, window=window)
 

@@ -1,4 +1,4 @@
-"""Config-driven LM, dense/attention layer kinds (the serving slice).
+"""Config-driven LM, dense/attention layer kinds (serving and training).
 
 A config expands into a *schedule*: ``prefix`` layers, a repeating
 ``pattern`` whose params are stacked ``repeats`` times on a leading axis
@@ -6,15 +6,18 @@ A config expands into a *schedule*: ``prefix`` layers, a repeating
 tree and its key paths are the reference's (``prefix``/``body``/``suffix``
 /``embed``/``final_norm``/``head``), so weights cross over by key
 (``repro_torch.interop``). Eager PyTorch has nothing to gain from a scan:
-every forward here runs site by site (``iter_sites``), slicing a body
-site's params out of the stack by its unit index.
+every forward here runs site by site (``iter_sites``), a body site on its
+unit of the stack (``reference_sites``).
 
 Every searchable projection is a QLayer (``core.qspec``) whose per-bit
 indicator banks live next to the weight. Bit selection arrives as a
-``bits`` tree mirroring the param tree (``bits_from_policy``): python ints
-for unrolled layers, per-unit index arrays for the stacked body.
+``bits`` tree mirroring the param tree (``bits_uniform``, ``bits_random``,
+``bits_from_policy``): python ints for unrolled layers, per-unit index
+arrays for the stacked body; a gradient reaches exactly the selected bank
+entry of each unit.
 
-Modes: ``prefill`` (logits at the last position + decode state) and
+Modes: ``train`` (full-sequence logits, no state: ``apply_train`` /
+``loss_fn``), ``prefill`` (logits at the last position + decode state) and
 ``decode`` (one token per batch row with state). Decode state is
 ``{"sites": {"<gidx>": cache}}``, one KV cache per attention site.
 """
@@ -39,6 +42,7 @@ from repro_torch.models.quant_layers import (QuantContext,
 from repro_torch.runtime import kv_cache as qkv
 
 ATTN_KINDS = ("attn", "dense")
+MOE_AUX_COEF = 0.01
 
 
 # ===========================================================================
@@ -61,7 +65,7 @@ class LayerSite(NamedTuple):
 def build_schedule(cfg: ModelConfig) -> Schedule:
     if cfg.family in ("moe", "vlm", "hybrid", "ssm") or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoder families only "
+            f"{cfg.name}: the port runs dense decoder families only "
             f"(family {cfg.family!r} comes with a later slice)")
     return Schedule((), ("attn",), cfg.n_layers, ())
 
@@ -87,28 +91,17 @@ def site_key(gidx: int) -> str:
 
 
 def _select(tree, unit: Optional[int]):
-    """Unit ``unit`` of every stacked leaf of a nested dict (None: as is)."""
+    """Unit ``unit`` of every stacked tensor of a nested dict (None: as
+    is)."""
     if isinstance(tree, dict):
         return {k: _select(v, unit) for k, v in tree.items()}
-    if unit is None:
-        return tree
-    if isinstance(tree, torch.Tensor):
-        return tree[unit]
-    return int(np.asarray(tree)[unit])
+    return tree if unit is None else tree[unit]
 
 
 def site_params(params, site: LayerSite):
     """One site's param subtree (a body site's unit sliced off the stack)."""
     seg, idx = site.segment.split(".")
     return _select(params[seg][idx], site.unit if seg == "body" else None)
-
-
-def site_bits(bits, site: LayerSite):
-    """One site's ``{"w": idx, "a": idx}`` tree of python-int bank indices."""
-    if bits is None:
-        return None
-    seg, idx = site.segment.split(".")
-    return _select(bits[seg][idx], site.unit if seg == "body" else None)
 
 
 # ===========================================================================
@@ -169,6 +162,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
     return params
 
 
+def param_count(params) -> int:
+    """Number of scalars in a param tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return int(params.numel())
+
+
 # ===========================================================================
 # QLayer enumeration (must mirror init_params exactly)
 # ===========================================================================
@@ -206,6 +206,41 @@ def _nest(dst: dict, path: Tuple[str, ...], leaf):
     for k in path[:-1]:
         dst = dst.setdefault(k, {})
     dst[path[-1]] = leaf
+
+
+def _bits_tree(cfg: ModelConfig, draw) -> Dict[str, Any]:
+    """A ``bits`` tree whose every (QLayer, w/a) leaf is ``draw(n)``: n None
+    for an unrolled layer (a python int), the repeat count for the stacked
+    body (an int32 array of per-unit indices)."""
+    sched = build_schedule(cfg)
+    bits: Dict[str, Any] = {"prefix": {}, "body": {}, "suffix": {}}
+    for seg, kinds, n in (
+            ("prefix", sched.prefix, None),
+            ("body", sched.pattern if sched.repeats else (), sched.repeats),
+            ("suffix", sched.suffix, None)):
+        for i, kind in enumerate(kinds):
+            d: dict = {}
+            for path, *_ in _kind_qdefs(cfg, kind):
+                _nest(d, path, {"w": draw(n), "a": draw(n)})
+            bits[seg][str(i)] = d
+    return bits
+
+
+def bits_uniform(cfg: ModelConfig, k: int) -> Dict[str, Any]:
+    """Same bank index ``k`` for every QLayer (a uniform-bit pass)."""
+    k = int(k)
+    return _bits_tree(cfg, lambda n: k if n is None
+                      else np.full((n,), k, np.int32))
+
+
+def bits_random(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """Independent random bank index per (QLayer, w/a) -- the paper's
+    communication pass (section 3.4) -- drawn from the CPU generator
+    ``gen`` as python ints (int32 arrays for the stacked body)."""
+    def draw(n):
+        t = torch.randint(0, cfg.n_bits, (n or 1,), generator=gen)
+        return int(t[0]) if n is None else t.numpy().astype(np.int32)
+    return _bits_tree(cfg, draw)
 
 
 def bits_from_policy(cfg: ModelConfig, policy: MPQPolicy,
@@ -293,7 +328,11 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin).to(ctx.compute_dtype)
     window = cfg.sliding_window
-    if mode == "decode":
+    if mode == "train":
+        out = attn.self_attention(q.to(ctx.compute_dtype), k, v,
+                                  causal=cfg.causal, window=window)
+        new_state = None
+    elif mode == "decode":
         if ctx.kv_quant == "fake":
             # reference view of an int8 slot: the new row is stored (and
             # attended) quantize-dequantized, in an fp cache
@@ -396,10 +435,63 @@ def finish_prefill(x, states, params, cfg: ModelConfig, ctx: QuantContext,
     return lm_head(x_last, params, cfg, ctx, table)[:, 0], states
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-unit trees of a stacked body tree: each tensor unbinds
+    along its leading axis once (so autograd stacks the units' gradients
+    in one op, not one full-size scatter per unit), index arrays become
+    python ints."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][u] for k in per_key} for u in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [int(b) for b in np.asarray(tree)]
+
+
 def reference_sites(params, bits, cfg: ModelConfig):
-    """``run_sites`` input for the fake-quant graph over stacked params."""
-    return [(s, site_params(params, s), site_bits(bits, s))
-            for s in iter_sites(cfg)]
+    """``run_sites`` input for the fake-quant graph over stacked params:
+    ``[(LayerSite, params, bits)]`` in execution order."""
+    n = build_schedule(cfg).repeats
+    body_p = {i: _unstack(t, n) for i, t in params["body"].items()}
+    body_b = {} if bits is None else {i: _unstack(t, n)
+                                      for i, t in bits["body"].items()}
+    out = []
+    for s in iter_sites(cfg):
+        seg, idx = s.segment.split(".")
+        if seg == "body":
+            p, b = body_p[idx][s.unit], body_b.get(idx, [None] * n)[s.unit]
+        else:
+            p, b = params[seg][idx], None if bits is None else bits[seg][idx]
+        out.append((s, p, b))
+    return out
+
+
+def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
+                remat: bool = True):
+    """Full-sequence logits. Returns (logits (B, S, V) f32, aux loss).
+    ``remat`` is accepted for the reference's signature and unused: the
+    port keeps every activation for the backward (no activation
+    checkpointing yet)."""
+    tokens = torch.as_tensor(inputs["tokens"],
+                             device=params["embed"]["w"].device)
+    x = embed_inputs(params, cfg, tokens, ctx)
+    x, _ = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
+                     mode="train")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_head(x, params, cfg, ctx), aux
+
+
+def loss_fn(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
+            remat: bool = True):
+    """Next-token cross entropy (+ MoE aux). Returns (loss, metrics)."""
+    logits, aux = apply_train(params, cfg, inputs, bits, ctx, remat)
+    tokens = torch.as_tensor(inputs["tokens"], device=logits.device).long()
+    lg, tg = logits[:, :-1], tokens[:, 1:]
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tg[..., None])[..., 0]
+    ce = (lse - picked).mean()
+    loss = ce + MOE_AUX_COEF * aux
+    return loss, {"ce": ce, "moe_aux": aux, "loss": loss}
 
 
 def apply_prefill(params, cfg: ModelConfig, tokens, bits, ctx: QuantContext,

@@ -67,6 +67,13 @@ class QuantContext:
             enabled=enabled, compute_dtype=compute_dtype, kv_quant=kv_quant)
 
 
+def fp_context(compute_dtype: torch.dtype) -> QuantContext:
+    """Quantization disabled (the full-precision baseline)."""
+    return QuantContext(tables_w=BitTables.make((8,), True),
+                        tables_a=BitTables.make((8,), True), enabled=False,
+                        compute_dtype=compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # param construction
 # ---------------------------------------------------------------------------

@@ -38,7 +38,8 @@ def _eq(a, b):
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.runtime.session, repro_torch.interop, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.launch.train, "
+            "repro_torch.core.importance\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.')))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
