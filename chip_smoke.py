@@ -12,8 +12,10 @@ In order:
    card at the main paths' Qwen3-0.6B shapes -- both int8 matmuls,
    fake-quant forward and its dv bit for bit (atol 0), the fake-quant ds
    to rtol 1e-4 of |ds| plus 1e-6 of sum |g * dsd| (float32 sums in
-   another order, over up to 155M terms), int8 decode attention to rtol
-   2e-5 / atol 2e-6, flash forward to 2e-5 (out) / 1e-5 (lse) -- and time
+   another order, over up to 155M terms), int8 decode attention on the ring
+   and on pooled pages (permuted page ids, pages shared between slots,
+   unmapped table entries, evicted rows, a slot at query position -1) to
+   rtol 2e-5 / atol 2e-6, flash forward to 2e-5 (out) / 1e-5 (lse) -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -38,7 +40,13 @@ In order:
    non-decisive step; (c) packed weight bytes within 5% of
    ``MPQPolicy.size_bytes``. The reference engine runs the plain versions
    (``ops.plain_on_cuda()``), so its fake-quant is plain PyTorch;
-5. train gate (e): one ``loss_fn`` + backward at full width, 2 layers, S =
+5. paged serve phase: the same 8 requests, their first 128 tokens (16 pages
+   of 8) made the same, served over pooled int8 pages with shared-prefix
+   remapping and chunked append prefill. Gates: ``decode_attn_quant_paged``
+   launched 28 times per decode step and ``decode_attn_quant`` never; greedy
+   tokens as in (b); prefix hits, and fewer tokens prefilled than the ring
+   phase; the page pool consistent and every slot empty after the drain;
+6. train gate (e): one ``loss_fn`` + backward at full width, 2 layers, S =
    2048, through the kernels and through their plain versions
    (``ops.plain_on_cuda``), loss and every gradient within ``TRAIN_TOL``:
    once with activations unquantized, every kernel against its plain
@@ -84,6 +92,8 @@ SOURCES = {
                         "src/repro/kernels/quant_matmul.py:72"),
     "decode_attn_quant": ("src/repro_torch/csrc/decode_attn_quant.cu",
                           "src/repro/kernels/quant_attention.py:97"),
+    "decode_attn_quant_paged": ("src/repro_torch/csrc/decode_attn_quant.cu",
+                                "src/repro/kernels/quant_attention.py:217"),
     "fake_quant_fwd": ("src/repro_torch/csrc/fake_quant.cu",
                        "src/repro/kernels/fake_quant.py:51"),
     "fake_quant_bwd": ("src/repro_torch/csrc/fake_quant.cu",
@@ -91,7 +101,17 @@ SOURCES = {
     "flash_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:76"),
 }
-SERVE_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant")
+SERVE_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant",
+                 "decode_attn_quant_paged")
+# the kernels each serving path runs
+RING_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant")
+PAGED_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant_paged")
+# paged serve phase: the first SHARED_PREFIX prompt tokens are the same in
+# every request; paged attention cases (page size, rows per slot), summary
+# row: the serve phase's pages at its 320 rows
+PAGE_SIZE, SHARED_PREFIX = 8, 128
+PAGED_CASES = [(8, 320), (16, 320), (8, 4096), (16, 4096)]
+PAGED_MAIN = (PAGE_SIZE, MAIN_SC)
 TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
 
 # fake-quant: Qwen3-0.6B's (1024, 3072)/(3072, 1024) weights, the (2048,
@@ -273,6 +293,123 @@ def attn_phase(torch, ops, ref, flush, dev):
               f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
               flush=True)
     return rows
+
+
+def _paged_pool(r, B, P, ps):
+    """(page table (B, P), pos (n_pages, ps), query positions) of a pool
+    with page ids permuted at random: slot 1 maps slot 0's first P // 4
+    pages too, slot 2 has an unmapped (-1) entry inside its row, slot 3
+    its last P // 8 entries unmapped and query position -1; each slot's
+    rows are written up to a position of its own and a fifth of slot 1's
+    rows are evicted (pos -1)."""
+    rows = P * ps
+    n_pages = B * P + 7
+    perm = list(r.permutation(n_pages))
+    table = np.full((B, P), -1, np.int32)
+    for b in range(B):
+        for j in range(P):
+            table[b, j] = table[0, j] if (b == 1 and j < P // 4) else perm.pop()
+    table[2, P // 2] = -1
+    table[3, P - max(1, P // 8):] = -1
+    written = [rows, rows - 37, rows // 2 + 5, rows // 3]
+    q_pos = np.array([rows - 1, rows - 40, rows // 2, -1], np.int32)
+    pos = np.full((n_pages, ps), -1, np.int32)
+    for b in range(B):
+        t = np.arange(written[b])
+        pid = table[b, t // ps]
+        pos[pid[pid >= 0], (t % ps)[pid >= 0]] = t[pid >= 0]
+    t = r.integers(0, written[1], rows // 5)
+    pid = table[1, t // ps]
+    pos[pid[pid >= 0], (t % ps)[pid >= 0]] = -1
+    return table, pos, q_pos
+
+
+def paged_attn_phase(torch, ops, ref, flush, dev):
+    import torch.nn.functional as F
+    from repro_torch.runtime.kv_cache import PagedKVCache
+    rows_out = []
+    B, KV, G, hd = 4, 8, 2, 128
+    H = KV * G
+    for ps, rows in PAGED_CASES:
+        P = rows // ps
+        r = np.random.default_rng(rows + ps)
+        table, pos, q_pos = _paged_pool(r, B, P, ps)
+        n_pages = pos.shape[0]
+        g = torch.Generator(device=dev).manual_seed(rows + ps)
+        kp = torch.randint(-127, 128, (n_pages, ps, KV, hd), generator=g,
+                           device=dev, dtype=torch.int8)
+        vp = torch.randint(-127, 128, (n_pages, ps, KV, hd), generator=g,
+                           device=dev, dtype=torch.int8)
+        ks = torch.rand((n_pages, ps, KV), generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand((n_pages, ps, KV), generator=g, device=dev) * 0.02 + 1e-3
+        q = torch.randn((B, 1, H, hd), generator=g, device=dev)
+        pos_t = torch.from_numpy(pos).to(dev)
+        tbl = torch.from_numpy(table).to(dev)
+        qp = torch.from_numpy(q_pos).to(dev)
+        args = (q, kp, ks, vp, vs, pos_t, tbl, qp)
+        out = ops.decode_attn_quant_paged(*args)
+
+        def plain():
+            qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
+            return ref.decode_attn_quant_paged_ref(qf, kp, ks, vp, vs, pos_t,
+                                                   tbl, qp)
+
+        want = plain().reshape(out.shape)
+        # the ring kernel on the dense view PagedKVCache.gather() builds
+        dense = PagedKVCache(kp, vp, ks, vs, pos_t, tbl).gather()
+        ring = ops.decode_attn_quant(q, dense.k.contiguous(),
+                                     dense.k_scale.contiguous(),
+                                     dense.v.contiguous(),
+                                     dense.v_scale.contiguous(),
+                                     dense.pos.contiguous(), qp)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        tag = f"ps={ps} rows={rows}"
+        gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
+             f"decode_attn_quant_paged {tag} differs from its plain version "
+             f"(max |err| {err})")
+        bitwise = bool(torch.equal(out, ring))
+        # yardstick: SDPA on the dequantized gathered cache under the same
+        # mask; the gather and dequantization stay outside the timed call
+        kd = (dense.k.float() * dense.k_scale[..., None]).permute(0, 2, 1, 3) \
+            .contiguous()
+        vd = (dense.v.float() * dense.v_scale[..., None]).permute(0, 2, 1, 3) \
+            .contiguous()
+        mask = ((dense.pos >= 0) & (dense.pos <= qp[:, None]))[:, None, None, :]
+        qh = q.permute(0, 2, 1, 3).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        live = q_pos >= 0
+        lib = sdpa().permute(0, 2, 1, 3)
+        gate(bool(torch.allclose(lib[live], out[live], rtol=1e-3, atol=1e-4)),
+             f"SDPA yardstick disagrees with decode_attn_quant_paged {tag}")
+        # this run's work: every mapped page read once, each slot's mapped
+        # rows attended
+        mapped = table >= 0
+        n_unique = len(np.unique(table[mapped]))
+        n_bytes = (n_unique * ps * (2 * KV * hd + 2 * KV * 4 + 4)
+                   + table.size * 4 + 2 * B * H * hd * 4 + B * 4)
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * ps * mapped.sum(),
+                              F32_OPS_PER_S)
+        rows_out.append(dict(
+            name="decode_attn_quant_paged", shape=f"B={B} P={P} {tag} "
+            f"KV={KV} G={G} hd={hd}", max_abs_err=err,
+            equals_ring_kernel_on_gathered_view=bitwise,
+            ms=cuda_ms(torch, lambda: ops.decode_attn_quant_paged(*args),
+                       flush),
+            plain_ms=cuda_ms(torch, plain, flush),
+            library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
+            bound_by=b_by, main=(ps, rows) == PAGED_MAIN))
+        print(f"[kernel] decode_attn_quant_paged {tag:16s} err={err:.1e} "
+              f"ring-kernel-on-gathered-view bitwise={bitwise} "
+              f"ms={rows_out[-1]['ms']:.4f} "
+              f"plain={rows_out[-1]['plain_ms']:.4f} "
+              f"sdpa={rows_out[-1]['library_ms']:.4f} "
+              f"bound={b_ms:.4f}({b_by})", flush=True)
+    return rows_out
 
 
 def _ds_terms_abs(torch, v, s, g, qmin, qmax):
@@ -618,6 +755,24 @@ def profile_device(torch, fn, top: int = 8):
                      for e in kernels[:top]])
 
 
+def count_syncs(torch, fn) -> int:
+    """Host-device synchronisations in one call of ``fn``: the warnings
+    ``torch.cuda.set_sync_debug_mode("warn")`` raises for them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode is a prototype: PyTorch says it does not see every sync, and
+    # warns so when it is switched on)
+    return sum("synchronizing" in str(w.message)
+               and "debug mode" not in str(w.message) for w in caught)
+
+
 def print_profile(label: str, what: str, res: dict) -> None:
     wall, busy = res["wall_ms"], res["device_ms"]
     print(f"[{label}] {what} under the profiler: {wall:.1f} ms wall, "
@@ -716,17 +871,31 @@ def prefill_noise(torch, cfg, params, policy, sess, reqs, dev):
     return rows
 
 
-def profile_decode_step(torch, sess, dev):
+def profile_decode_step(torch, sess, dev, label="serve", layout=None):
     """One decode step of the served model (4 slots) under torch.profiler:
-    kernel launches, host time and device time."""
-    st = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev)
+    kernel launches, host time and device time. With a paged ``layout``
+    each slot maps pages of its own."""
+    st = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev,
+                         layout=layout)
+    if layout is not None:
+        P = layout.pages_per_slot(CACHE_LEN)
+        tbl = torch.arange(SLOTS * P, dtype=torch.int32, device=dev)
+        st = {"sites": {k: c._replace(page_table=tbl.reshape(SLOTS, P))
+                        for k, c in st["sites"].items()}}
     tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
     pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
     for _ in range(2):
         sess.decode(sess.params, tok, pos, st)
     res = profile_device(torch, lambda: sess.decode(sess.params, tok, pos,
                                                     st), top=4)
-    print_profile("serve", "one decode step", res)
+    res["host_syncs"] = count_syncs(
+        torch, lambda: sess.decode(sess.params, tok, pos, st))
+    probe = count_syncs(torch, lambda: torch.ones(1, device=dev).item())
+    gate(probe >= 1, f"the sync counter saw {probe} syncs in one .item()")
+    print_profile(label, "one decode step", res)
+    print(f"[{label}] one decode step synchronises the host "
+          f"{res['host_syncs']} times (the engine reads the tokens after it)",
+          flush=True)
     return res
 
 
@@ -763,7 +932,7 @@ def serve_phase(torch, ops, dev):
     launches = {k: ops.launches[k] for k in SERVE_KERNELS}
     st = eng.stats
     d = st.as_dict()
-    print(f"[serve] {len(out)} requests in {wall:.2f}s wall (packing "
+    print(f"[serve] ring KV: {len(out)} requests in {wall:.2f}s wall (packing "
           f"included): prefill p50 {d['prefill_p50_ms']:.2f} ms, decode step "
           f"p50 {d['decode_step_p50_ms']:.2f} ms, decode "
           f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
@@ -771,9 +940,10 @@ def serve_phase(torch, ops, dev):
     print(f"[serve] launches {launches}; routes {sess.route_counts.routes}",
           flush=True)
 
-    # (a) the path went through every kernel, none fell back to dequant-fp
-    gate(all(launches[k] > 0 for k in SERVE_KERNELS),
-         f"a kernel was never launched while serving: {launches}")
+    # (a) the path went through its kernels, none fell back to dequant-fp
+    gate(all(launches[k] > 0 for k in RING_KERNELS)
+         and launches["decode_attn_quant_paged"] == 0,
+         f"ring serving launched {launches}")
     gate(sess.route_counts.eligible_fp == 0,
          f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
          "dequant-fp")
@@ -815,9 +985,104 @@ def serve_phase(torch, ops, dev):
         decode_step_p50_ms=d["decode_step_p50_ms"],
         decode_tokens_per_s=st.decode_tokens_per_s,
         decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens,
         decisive_compared=compared, reference_unstable_rids=unstable,
         packed_bytes=s["packed_bytes"],
         policy_bytes=s["policy_bytes"])
+
+
+def paged_serve_phase(torch, ops, dev, ring_prefill_tokens):
+    """The serve phase's requests with their first SHARED_PREFIX tokens made
+    the same, over pooled int8 pages (``kv_layout="paged"``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import Request
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    policy = serve.demo_mixed_policy(cfg)
+    data = SyntheticLM(cfg)
+    base = data.batch(0, 1, PROMPTS[0])["tokens"][0][:SHARED_PREFIX]
+    reqs = []
+    for i, p in enumerate(PROMPTS):
+        toks = np.asarray(data.batch(i, 1, p)["tokens"][0]).copy()
+        toks[:SHARED_PREFIX] = base
+        reqs.append(Request(rid=i, tokens=toks, max_new=GEN))
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev)
+    paged = dict(kv_layout="paged", page_size=PAGE_SIZE)
+    serve.serve_quantized(cfg, params, policy, reqs[:1],       # warm-up
+                          **dict(kw, slots=1), **paged)
+
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    sess, eng, out = serve.serve_quantized(cfg, params, policy, reqs, **kw,
+                                           **paged)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+    st = eng.stats
+    d = st.as_dict()
+    print(f"[paged] {len(out)} requests sharing {SHARED_PREFIX} prompt tokens "
+          f"in {wall:.2f}s wall (packing included): prefill p50 "
+          f"{d['prefill_p50_ms']:.2f} ms, decode step p50 "
+          f"{d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens); prefill {st.prefill_tokens} tokens "
+          f"(ring phase {ring_prefill_tokens}), prefix hits "
+          f"{st.prefix_hit_tokens} tokens, {st.kv_unique_pages} of "
+          f"{eng.pool.n_pages} pages in use, {st.prefill_compiles} chunk "
+          f"shape(s)", flush=True)
+    print(f"[paged] launches {launches}; routes {sess.route_counts.routes}",
+          flush=True)
+    per_step = cfg.n_layers * st.decode_steps
+    gate(launches["decode_attn_quant_paged"] == per_step
+         and launches["decode_attn_quant"] == 0
+         and all(launches[k] > 0 for k in PAGED_KERNELS),
+         f"paged serving launched {launches}, expected "
+         f"decode_attn_quant_paged {cfg.n_layers} x {st.decode_steps} steps "
+         "and no decode_attn_quant")
+    gate(sess.route_counts.eligible_fp == 0,
+         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
+         "dequant-fp")
+    gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    gate(st.prefix_hit_tokens > 0 and st.prefill_tokens < ring_prefill_tokens,
+         f"prefix hits {st.prefix_hit_tokens} tokens, prefilled "
+         f"{st.prefill_tokens} (ring phase {ring_prefill_tokens})")
+    eng.pool.check()
+    gate(all(s is None for s in eng.slots), "occupied slots after the drain")
+    with ops.plain_on_cuda():           # the reference stays plain PyTorch
+        compared, bad, unstable = serve.check_greedy(cfg, params, policy,
+                                                     reqs, out, **kw)
+    n_tok = sum(len(c.tokens) for c in out.values())
+    print(f"[paged] greedy tokens vs fake-quant reference (ring): {compared} "
+          f"of {n_tok} steps decisive and compared, diverged rids {bad}; the "
+          f"reference's float32 and float64 evaluations part on a confident "
+          f"step in rids {unstable}", flush=True)
+    gate(not bad, f"paged greedy tokens diverged on decisive steps: rids {bad}")
+    gate(compared > 0, "no decisive step to compare")
+    step = profile_decode_step(torch, sess, dev, "paged", eng.layout)
+    return launches, dict(
+        decode_step_profile=step, wall_s=wall,
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens,
+        ring_prefill_tokens=ring_prefill_tokens,
+        prefix_hit_tokens=st.prefix_hit_tokens,
+        prefill_flops_saved=st.prefill_flops_saved,
+        kv_unique_pages=st.kv_unique_pages, n_pages=eng.pool.n_pages,
+        prefill_compiles=st.prefill_compiles,
+        admissions_deferred_pool=st.admissions_deferred_pool,
+        decisive_compared=compared, reference_unstable_rids=unstable)
 
 
 def main() -> int:
@@ -843,6 +1108,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = matmul_phase(torch, ops, ref, flush, dev)
     rows += attn_phase(torch, ops, ref, flush, dev)
+    rows += paged_attn_phase(torch, ops, ref, flush, dev)
     rows += fake_quant_phase(torch, ops, ref, flush, dev)
     rows += flash_phase(torch, ops, ref, flush, dev)
     del flush
@@ -851,6 +1117,9 @@ def main() -> int:
     train_launches, train_res = train_phase(torch, ops, dev)
     torch.cuda.empty_cache()
     serve_launches, serve_res = serve_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+    paged_launches, paged_res = paged_serve_phase(
+        torch, ops, dev, serve_res["prefill_tokens"])
     torch.cuda.empty_cache()
     # (e) kernels vs plain versions through one train pass: gated at 2
     # layers (activations unquantized, every kernel against its plain
@@ -872,7 +1141,14 @@ def main() -> int:
                  f"train pass through the kernels differs from the plain "
                  f"versions beyond {tol}: {d}")
     train_res["vs_plain"] = vs_plain
+    # each kernel's launches on the path that runs it: the matmuls and ring
+    # attention from the ring serve phase, paged attention from the paged
+    # one (both phases' counts are in chip_smoke.json)
     launches = dict(serve_launches, **train_launches)
+    launches["decode_attn_quant_paged"] = \
+        paged_launches["decode_attn_quant_paged"]
+    serve_res["launches"], paged_res["launches"] = serve_launches, \
+        paged_launches
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -889,7 +1165,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "cases": rows, "train": train_res,
-         "serve": serve_res, "kernels": kernels}, indent=1, default=str))
+         "serve": serve_res, "paged_serve": paged_res, "kernels": kernels},
+        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

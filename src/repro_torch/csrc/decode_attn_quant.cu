@@ -1,7 +1,8 @@
-// One-token GQA decode attention straight on the int8 ring KV cache.
+// One-token GQA decode attention straight on the int8 KV cache: the ring
+// layout (decode_attn_quant) and the paged layout (decode_attn_quant_paged).
 //
-// Replaces the TPU kernel src/repro/kernels/quant_attention.py:_qdec_kernel
-// (decode_attn_quant).
+// Replaces the TPU kernels src/repro/kernels/quant_attention.py:_qdec_kernel
+// (decode_attn_quant) and :_qdec_paged_kernel (decode_attn_quant_paged).
 //
 // What it computes, per slot b and query head (kv head h, group row g):
 //   logit[s] = (q . k_codes[b, s, h]) * k_scale[b, s, h]
@@ -28,6 +29,19 @@
 // in f32 registers and stores p * v_scale in shared memory; then each thread
 // owns one head dimension and half of the tile's positions and accumulates
 // sum p * v_scale * v_code in registers. The two halves combine at the end.
+//
+// Paged layout: codes (n_pages, ps, KV, hd), scales (n_pages, ps, KV) and
+// positions (n_pages, ps) are pooled across slots; slot b's position t lives
+// in page page_table[b, t / ps], row t % ps (-1 = unmapped). The block loads
+// its slot's table row into shared memory once (the TPU kernel prefetched it
+// as a scalar operand) and resolves each of the P * ps logical rows through
+// it; everything else is the ring kernel's code, instantiated from the same
+// template. An unmapped entry reads page 0 and masks the row, exactly as the
+// dense view of PagedKVCache.gather() holds page 0's rows there with pos -1,
+// so on every row the paged kernel computes what the ring kernel computes on
+// the gathered view, in the same order: the two agree bit for bit. What bounds
+// it: the mapped pages' codes and scales, read once, over 3.35 TB/s; pages
+// shared by several slots are read once per slot.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,16 +65,39 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The cache row of slot b's logical position s: an index into the (rows, KV,
+// hd) codes, the (rows, KV) scales and the (rows,) positions. The ring holds
+// row b * Sc + s; the paged layout row page * ps + s % ps, with page the
+// slot's table entry (page 0 where unmapped, and *mapped false).
+template <bool PAGED>
+__device__ __forceinline__ size_t kv_row(int b, int s, int Sc, const int* tbl,
+                                         int ps, bool* mapped) {
+  if (PAGED) {
+    const int e = tbl[s / ps];
+    *mapped = e >= 0;
+    return (size_t)max(e, 0) * ps + s % ps;
+  }
+  *mapped = true;
+  return (size_t)b * Sc + s;
+}
+
+// Ring: codes (B, Sc, KV, hd), scales (B, Sc, KV), pos (B, Sc), no table.
+// Paged: codes (n_pages, ps, KV, hd), scales (n_pages, ps, KV), pos
+// (n_pages, ps), table (B, P) and Sc = P * ps logical rows per slot.
+template <bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
-                         const int8_t* __restrict__ kc,    // (B, Sc, KV, hd)
-                         const float* __restrict__ ks,     // (B, Sc, KV)
-                         const int8_t* __restrict__ vc,    // (B, Sc, KV, hd)
-                         const float* __restrict__ vs,     // (B, Sc, KV)
-                         const int* __restrict__ pos,      // (B, Sc)
+                         const int8_t* __restrict__ kc,
+                         const float* __restrict__ ks,
+                         const int8_t* __restrict__ vc,
+                         const float* __restrict__ vs,
+                         const int* __restrict__ pos,
                          const int* __restrict__ qpos,     // (B,)
+                         const int* __restrict__ table,    // (B, P) or null
                          float* __restrict__ out,          // (B, KV, G, hd)
-                         int Sc, int KV, int G, int hd, int window) {
+                         int Sc, int KV, int G, int hd, int window, int P,
+                         int ps) {
+  extern __shared__ int tbl[];                            // (P,) when PAGED
   __shared__ float qs[MAX_G][MAX_HD];
   __shared__ float logit[MAX_G][TILE];
   __shared__ float pvs[MAX_G][TILE];
@@ -78,6 +115,8 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
 
   for (int i = tid; i < G * hd; i += THREADS)
     qs[i / hd][i % hd] = q[(size_t)bh * G * hd + i];
+  if (PAGED)
+    for (int i = tid; i < P; i += THREADS) tbl[i] = table[(size_t)b * P + i];
   if (tid < G) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
@@ -98,8 +137,10 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
       float dot[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) dot[g] = 0.f;
+      bool mapped = false;
+      const size_t r = s < Sc ? kv_row<PAGED>(b, s, Sc, tbl, ps, &mapped) : 0;
       if (s < Sc) {
-        const int8_t* row = kc + (((size_t)b * Sc + s) * KV + h) * hd;
+        const int8_t* row = kc + (r * KV + h) * hd;
         for (int d = lane * 4; d < hd; d += 128) {
           const char4 c = *reinterpret_cast<const char4*>(row + d);
           const float c0 = c.x, c1 = c.y, c2 = c.z, c3 = c.w;
@@ -116,16 +157,15 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
         if (g < G) dot[g] = warp_sum(dot[g]);
       if (lane == 0) {
         if (s < Sc) {
-          const size_t r = ((size_t)b * Sc + s) * KV + h;
-          const int p = pos[(size_t)b * Sc + s];
-          bool valid = p >= 0 && p <= qp;
+          const int p = pos[r];
+          bool valid = mapped && p >= 0 && p <= qp;
           if (window > 0) valid = valid && (qp - p < window);
           const float bias = valid ? 0.f : NEG_INF;
-          const float kscale = ks[r];
+          const float kscale = ks[r * KV + h];
 #pragma unroll
           for (int g = 0; g < MAX_G; ++g)
             if (g < G) logit[g][t] = dot[g] * kscale + bias;
-          vscale[t] = vs[r];
+          vscale[t] = vs[r * KV + h];
         } else {  // past the end of the cache: contributes nothing
           for (int g = 0; g < G; ++g) logit[g][t] = -INFINITY;
           vscale[t] = 0.f;
@@ -164,7 +204,9 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
     }
     const int tend = min(TILE, Sc - t0);
     for (int t = half; t < tend; t += 2) {
-      const int8_t* row = vc + (((size_t)b * Sc + t0 + t) * KV + h) * hd;
+      bool mapped;
+      const size_t r = kv_row<PAGED>(b, t0 + t, Sc, tbl, ps, &mapped);
+      const int8_t* row = vc + (r * KV + h) * hd;
       const float v0 = d0 < hd ? static_cast<float>(row[d0]) : 0.f;
       const float v1 = d0 + 128 < hd ? static_cast<float>(row[d0 + 128]) : 0.f;
 #pragma unroll
@@ -208,12 +250,31 @@ extern "C" int decode_attn_quant(const void* q, const void* kc, const void* ks,
                                  const void* pos, const void* qpos, void* out,
                                  int B, int Sc, int KV, int G, int hd,
                                  int window, void* stream) {
-  decode_attn_quant_kernel<<<B * KV, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  decode_attn_quant_kernel<false><<<B * KV, THREADS, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(kc),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
       static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(qpos), static_cast<float*>(out), Sc, KV, G, hd,
-      window);
+      static_cast<const int*>(qpos), nullptr, static_cast<float*>(out), Sc,
+      KV, G, hd, window, 0, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Paged layout: pages (n_pages, ps, KV, hd), table (B, P); the wrapper keeps
+// P * 4 bytes of table within the 48 KB a block may take without opting in.
+extern "C" int decode_attn_quant_paged(const void* q, const void* kc,
+                                       const void* ks, const void* vc,
+                                       const void* vs, const void* pos,
+                                       const void* table, const void* qpos,
+                                       void* out, int B, int P, int ps, int KV,
+                                       int G, int hd, int window,
+                                       void* stream) {
+  decode_attn_quant_kernel<true><<<B * KV, THREADS, P * sizeof(int),
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(qpos), static_cast<const int*>(table),
+      static_cast<float*>(out), P * ps, KV, G, hd, window, P, ps);
   return static_cast<int>(cudaGetLastError());
 }

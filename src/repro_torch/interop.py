@@ -5,6 +5,9 @@
 the same. A JAX ``arrays.npz`` therefore loads directly:
 
     params = params_from_numpy(dict(np.load("arrays.npz")), "cuda")
+
+A reference ``PagedKVCache``'s arrays (as numpy) make the port's with
+``paged_cache_from_numpy``, so both packages can start from one cache state.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.kv_cache import PagedKVCache
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], device) -> dict:
@@ -33,3 +38,14 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device) -> dict:
     for seg in ("prefix", "body", "suffix"):
         tree.setdefault(seg, {})
     return tree
+
+
+def paged_cache_from_numpy(arrays: Dict[str, np.ndarray],
+                           device) -> PagedKVCache:
+    """The port's ``PagedKVCache`` from the reference's fields by name
+    (``k``, ``v``, ``k_scale``, ``v_scale``, ``pos``, ``page_table``, e.g.
+    ``{f: np.asarray(getattr(cache, f)) for f in cache._fields}``), each
+    array kept in its own dtype."""
+    return PagedKVCache(**{
+        f: torch.tensor(np.asarray(arrays[f]), device=device)
+        for f in PagedKVCache._fields})

@@ -20,11 +20,13 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
-                            "decode_attn_quant": 0, "fake_quant_fwd": 0,
+                            "decode_attn_quant": 0,
+                            "decode_attn_quant_paged": 0, "fake_quant_fwd": 0,
                             "fake_quant_bwd": 0, "flash_fwd": 0}
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
 FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
+MAX_TABLE = 4096                        # page-table entries a paged block holds
 TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
 _PLAIN: List[FrozenSet[str]] = [frozenset()]
 
@@ -158,18 +160,14 @@ def decode_attn_quant(q: torch.Tensor, k_codes: torch.Tensor,
         out = ref.decode_attn_quant_ref(qf, k_codes, k_scale, v_codes,
                                         v_scale, pos, q_pos, window)
         return out.reshape(B, 1, H, hd)
-    if G > 8 or hd > 256 or hd % 4:
-        raise ValueError(f"decode_attn_quant: needs G <= 8, hd <= 256 and "
-                         f"hd % 4 == 0, got G={G} hd={hd}")
     qf = qf.contiguous()
+    _check_attn_shape("decode_attn_quant", G, hd, window)
     _check(k_codes, "k_codes", torch.int8, (B, Sc, KV, hd))
     _check(v_codes, "v_codes", torch.int8, (B, Sc, KV, hd))
     _check(k_scale, "k_scale", torch.float32, (B, Sc, KV))
     _check(v_scale, "v_scale", torch.float32, (B, Sc, KV))
     _check(pos, "pos", torch.int32, (B, Sc))
     _check(q_pos, "q_pos", torch.int32, (B,))
-    if window is not None and window <= 0:
-        raise ValueError(f"decode_attn_quant: window must be > 0, got {window}")
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=qf.device)
     fn = _build.load("decode_attn_quant").decode_attn_quant
     rc = fn(qf.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
@@ -178,6 +176,67 @@ def decode_attn_quant(q: torch.Tensor, k_codes: torch.Tensor,
             0 if window is None else int(window), _stream())
     _raise_on(rc, "decode_attn_quant")
     launches["decode_attn_quant"] += 1
+    return out.reshape(B, 1, H, hd)
+
+
+def _check_attn_shape(name: str, G: int, hd: int,
+                      window: Optional[int]) -> None:
+    """The launch shape both decode-attention kernels take."""
+    if G > 8 or hd > 256 or hd % 4:
+        raise ValueError(f"{name}: needs G <= 8, hd <= 256 and hd % 4 == 0, "
+                         f"got G={G} hd={hd}")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be > 0, got {window}")
+
+
+def decode_attn_quant_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                            k_scale: torch.Tensor, v_pages: torch.Tensor,
+                            v_scale: torch.Tensor, page_pos: torch.Tensor,
+                            page_table: torch.Tensor, q_pos: torch.Tensor, *,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode attention over the paged int8 KV layout, gathering
+    pages by index inside the kernel (no dense per-slot view is built).
+
+    q: (B, 1, H, hd); k/v_pages: (n_pages, ps, KV, hd) int8; k/v_scale:
+    (n_pages, ps, KV) f32; page_pos: (n_pages, ps) int32 (-1 = empty row);
+    page_table: (B, P) int32 physical page per logical block (-1 =
+    unmapped: the block is masked); q_pos: (B,) int32. Returns (B, 1, H,
+    hd) f32, what :func:`decode_attn_quant` gives on the gathered view."""
+    n_pages, ps, KV, hd = k_pages.shape
+    B, P = page_table.shape
+    H = q.shape[2]
+    G = H // KV
+    if q.shape != (B, 1, H, hd) or H != KV * G:
+        raise ValueError(f"decode_attn_quant_paged: q {tuple(q.shape)} does "
+                         f"not match pages {tuple(k_pages.shape)} and table "
+                         f"{tuple(page_table.shape)}")
+    qf = q.reshape(B, KV, G, hd).to(torch.float32) * (hd ** -0.5)
+    if not _on_cuda(qf, k_pages, k_scale, v_pages, v_scale, page_pos,
+                    page_table, q_pos):
+        out = ref.decode_attn_quant_paged_ref(qf, k_pages, k_scale, v_pages,
+                                              v_scale, page_pos, page_table,
+                                              q_pos, window)
+        return out.reshape(B, 1, H, hd)
+    qf = qf.contiguous()
+    _check_attn_shape("decode_attn_quant_paged", G, hd, window)
+    if P > MAX_TABLE or n_pages < 1:
+        raise ValueError(f"decode_attn_quant_paged: needs 1 <= n_pages and "
+                         f"P <= {MAX_TABLE}, got n_pages={n_pages} P={P}")
+    _check(k_pages, "k_pages", torch.int8, (n_pages, ps, KV, hd))
+    _check(v_pages, "v_pages", torch.int8, (n_pages, ps, KV, hd))
+    _check(k_scale, "k_scale", torch.float32, (n_pages, ps, KV))
+    _check(v_scale, "v_scale", torch.float32, (n_pages, ps, KV))
+    _check(page_pos, "page_pos", torch.int32, (n_pages, ps))
+    _check(page_table, "page_table", torch.int32, (B, P))
+    _check(q_pos, "q_pos", torch.int32, (B,))
+    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=qf.device)
+    fn = _build.load("decode_attn_quant").decode_attn_quant_paged
+    rc = fn(qf.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
+            v_pages.data_ptr(), v_scale.data_ptr(), page_pos.data_ptr(),
+            page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, P, ps,
+            KV, G, hd, 0 if window is None else int(window), _stream())
+    _raise_on(rc, "decode_attn_quant_paged")
+    launches["decode_attn_quant_paged"] += 1
     return out.reshape(B, 1, H, hd)
 
 

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.packing import unpack_nib4
 
 NEG_INF = -1e30
@@ -138,3 +139,19 @@ def decode_attn_quant_ref(qf: torch.Tensor, k_codes: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     pv = torch.matmul(p * v_scale.permute(0, 2, 1)[:, :, None, :], vc)
     return pv / torch.clamp(l, min=1e-30)
+
+
+def decode_attn_quant_paged_ref(qf: torch.Tensor, k_pages: torch.Tensor,
+                                k_scale: torch.Tensor, v_pages: torch.Tensor,
+                                v_scale: torch.Tensor, page_pos: torch.Tensor,
+                                page_table: torch.Tensor, q_pos: torch.Tensor,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_attn_quant_ref` over the paged layout: the slots' pages
+    gathered into the dense (B, P * ps, ...) view first
+    (``PagedKVCache.gather``; unmapped blocks hold page 0's rows at pos
+    -1). Pages (n_pages, ps, KV, hd) int8, scales (n_pages, ps, KV) f32,
+    page_pos (n_pages, ps) int32, page_table (B, P) int32 (-1 unmapped)."""
+    dense = PagedKVCache(k_pages, v_pages, k_scale, v_scale, page_pos,
+                         page_table).gather()
+    return decode_attn_quant_ref(qf, dense.k, dense.k_scale, dense.v,
+                                 dense.v_scale, dense.pos, q_pos, window)

@@ -1,4 +1,4 @@
-"""Continuous-batching decode engine (ring KV layout, greedy decode).
+"""Continuous-batching decode engine (ring or paged KV layout, greedy decode).
 
 ``slots`` concurrent sequences share one decode step over per-slot KV
 caches, and a ``launch.scheduler.Scheduler`` decides admission. A finished
@@ -21,6 +21,16 @@ Execution model (host loop, eager device calls):
   position -1 (never valid to attend), so an evicted slot can never leak
   KV entries into a later occupant.
 
+The paged layout (``kv_layout="paged"``) pools int8 pages across slots
+behind a page table, with a host-side ``PagePool`` (refcounts, prefix
+registry). Admission looks up the longest registered page-aligned prefix of
+the prompt and maps those pages (a page-table update, no compute); only the
+rest of the prompt runs, through the adapter's chunked ``append`` in chunks
+of ``prefill_chunk // page_size * page_size`` tokens (one chunk shape). The
+prompt's full pages are then registered for the next request. Decode writes
+into the slot's own pages; a finished slot releases its references and
+freed pages get their ``pos`` rows cleared.
+
 Phase timers stop after ``torch.cuda.synchronize()`` on a CUDA device (the
 host reads the sampled tokens anyway), so a phase's time covers its device
 work, not its launch latency.
@@ -39,9 +49,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.scheduler import Completion, Request, Scheduler
+from repro_torch.launch.scheduler import (Completion, Request, Scheduler,
+                                          prefix_chain_keys)
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.runtime import dispatch
+from repro_torch.runtime import kv_cache as qkv
 
 
 @dataclasses.dataclass
@@ -55,6 +68,9 @@ class EngineConfig:
     state_dtype: Any = torch.float32
     max_iters: int = 100_000  # hard stop for the host loop
     kv_quant: str = "none"  # "none" | "int8" | "fake" (reference numerics)
+    kv_layout: str = "ring"  # "ring" | "paged" (pooled pages + prefix reuse)
+    page_size: int = 8  # tokens per KV page (paged layout only)
+    n_pages: int = 0  # paged pool size; 0 = (slots + 1) * pages per slot
 
 
 @dataclasses.dataclass
@@ -68,6 +84,11 @@ class EngineStats:
     padded_slot_steps: int = 0  # sum of *occupied* slots
     prefill_calls: int = 0
     prefill_tokens: int = 0
+    prefill_compiles: int = 0  # distinct prompt (ring) or chunk (paged) shapes
+    prefill_flops_saved: float = 0.0  # 2 * MACs skipped by prefix page hits
+    prefix_hit_tokens: int = 0  # prompt tokens served by page-table remaps
+    kv_unique_pages: int = 0  # paged: distinct physical pages referenced
+    admissions_deferred_pool: int = 0  # admit rounds held on page pressure
     act_quant_reused: int = 0  # activation quantizes elided
     decode_attn_route: str = "fp"  # fused | dequant-fp | fp
     admitted: int = 0
@@ -171,6 +192,35 @@ class DecodeEngine:
         self.device = torch.device(device) if device is not None else \
             params["embed"]["w"].device
         kv_mode = getattr(adapter, "kv_quant", self.ecfg.kv_quant)
+        dispatch.ROUTES.validate("kv_layout", self.ecfg.kv_layout)
+        self._paged = self.ecfg.kv_layout == "paged"
+        self.layout: Optional[qkv.KVCacheLayout] = None
+        self.pool: Optional[qkv.PagePool] = None
+        if self._paged:
+            # pooled int8 pages, a slot -> page-list table, chunked append
+            # prefill: the packed int8 serving path
+            if kv_mode != "int8":
+                raise ValueError(
+                    f"kv_layout='paged' requires int8 KV (got {kv_mode!r}): "
+                    "pages hold codes + scales")
+            if not hasattr(adapter, "append"):
+                raise ValueError(
+                    "kv_layout='paged' needs an append-capable adapter "
+                    "(QuantizedSession); the fake-quant LMAdapter serves "
+                    "through the ring layout")
+            if cfg.sliding_window:
+                raise ValueError(
+                    "kv_layout='paged' does not support sliding-window "
+                    "archs: a window evicts mid-page, breaking page sharing")
+            self.layout = qkv.KVCacheLayout(kind="paged", quant="int8",
+                                            page_size=self.ecfg.page_size,
+                                            n_pages=self.ecfg.n_pages)
+            self._pages_per_slot = self.layout.pages_per_slot(
+                self.ecfg.cache_len)
+            # FLOPs one prompt token costs across every quantized matmul:
+            # what a shared-prefix page hit avoids recomputing
+            self._flops_per_token = 2.0 * sum(
+                q.macs_per_token * q.n_mats for q in lm.enumerate_qlayers(cfg))
         if kv_mode == "int8":
             self.decode_attn_route = \
                 "fused" if self.device.type == "cuda" else "dequant-fp"
@@ -189,9 +239,20 @@ class DecodeEngine:
         self.completions: Dict[int, Completion] = {}
         self.margins: Dict[int, List[float]] = {}
         self._act_reuse_base = getattr(self.adapter, "act_quant_reused", 0)
+        self._prefill_shapes: set = set()
+        # the paged layout's host pool and device state are one unit: an
+        # empty table and every page free
+        self._slot_pages: List[Optional[List[int]]] = [None] * self.ecfg.slots
+        kw = {}
+        if self._paged:
+            self.pool = qkv.PagePool(
+                self.layout.pool_pages(self.ecfg.slots, self.ecfg.cache_len),
+                self.ecfg.page_size)
+            kw["layout"] = self.layout
+            self._set_pool_gauges()
         self.state = self.adapter.init_state(
             self.ecfg.slots, self.ecfg.cache_len, self.ecfg.state_dtype,
-            per_slot=True, device=self.device)
+            per_slot=True, device=self.device, **kw)
 
     @property
     def stats(self) -> EngineStats:
@@ -212,6 +273,12 @@ class DecodeEngine:
             padded_slot_steps=c("padded_slot_steps"),
             prefill_calls=c("prefill_calls"),
             prefill_tokens=c("prefill_tokens"),
+            prefill_compiles=c("prefill_compiles"),
+            prefill_flops_saved=m.value("engine.prefill_flops_saved"),
+            prefix_hit_tokens=c("prefix_hit_tokens"),
+            kv_unique_pages=c("kv_unique_pages"),
+            admissions_deferred_pool=int(
+                m.value("scheduler.admissions_deferred_pool")),
             act_quant_reused=(getattr(self.adapter, "act_quant_reused", 0)
                               - self._act_reuse_base),
             decode_attn_route=self.decode_attn_route,
@@ -252,6 +319,25 @@ class DecodeEngine:
     def _occupied(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
+    def _each_cache(self, fn) -> None:
+        self.state = {"sites": {k: fn(c)
+                                for k, c in self.state["sites"].items()}}
+
+    def _clear_freed(self, freed: List[int]) -> None:
+        """Clear the device ``pos`` rows of pages whose refcount hit zero.
+        Load-bearing: a recycled page keeping its previous occupant's
+        ``pos`` rows would be attendable the moment it is mapped again."""
+        if freed:
+            ids = torch.as_tensor(freed, dtype=torch.long, device=self.device)
+            self._each_cache(lambda c: c.free_pages(ids))
+
+    def _set_pool_gauges(self) -> None:
+        m = self.metrics
+        m.gauge("engine.kv_unique_pages").set(self.pool.unique_pages_in_use)
+        m.gauge("engine.kv_pool_free_pages").set(self.pool.free_count)
+        m.gauge("engine.kv_pool_available_pages").set(
+            self.pool.available_count)
+
     def _free(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
@@ -275,8 +361,15 @@ class DecodeEngine:
         m.counter("engine.completed").inc()
         m.counter("engine.tokens_generated").inc(len(toks))
         self.slots[idx] = None
-        self.state = {"sites": {k: c.evict(idx)
-                                for k, c in self.state["sites"].items()}}
+        self._each_cache(lambda c: c.evict(idx))
+        if self._paged:
+            pages = self._slot_pages[idx]
+            self._slot_pages[idx] = None
+            if pages:
+                # drop this slot's references; registry pins keep shared
+                # prefix pages alive for later requests
+                self._clear_freed(self.pool.release(pages))
+            self._set_pool_gauges()
 
     def _mark_done(self, idx: int, now: int) -> None:
         """Sequence finished: free immediately (continuous) or hold the slot
@@ -286,6 +379,8 @@ class DecodeEngine:
             self._finish(idx, now)
 
     def _admit(self, req: Request, idx: int, now: int) -> None:
+        if self._paged:
+            return self._admit_paged(req, idx, now)
         tokens = torch.as_tensor(np.asarray(req.tokens, np.int32),
                                  device=self.device)[None, :]
         t0 = time.perf_counter()
@@ -294,14 +389,78 @@ class DecodeEngine:
         _insert(self.state, self.adapter.state_per_slot(row), idx)
         tok, margin = self._pick(logits)
         self._fence()
+        self._prefill_shapes.add(req.prompt_len)
+        self._admitted(req, idx, now, time.perf_counter() - t0,
+                       req.prompt_len, int(tok[0]), float(margin[0]))
+
+    def _admit_paged(self, req: Request, idx: int, now: int) -> None:
+        """Paged admission: the longest registered page-aligned prefix
+        becomes a page-table remap (attended through shared, refcounted
+        pages); only the rest of the prompt runs through chunked append
+        prefill, in one chunk shape."""
+        toks = np.asarray(req.tokens, np.int32)
+        plen, ps, pool = req.prompt_len, self.ecfg.page_size, self.pool
+        chain = prefix_chain_keys(toks, ps)
+        # cap the hit one page short of the whole prompt: at least one token
+        # must run to give the first token's logits
+        shared = list(pool.lookup_prefix(chain[: (plen - 1) // ps]))
+        hit_tokens = len(shared) * ps
+        # take this slot's reference on the shared pages BEFORE allocating:
+        # allocation may drop the LRU registry entry that pins them, and
+        # they would be free (and recyclable) by the time they are mapped
+        pool.ref(shared)
+        try:
+            fresh, freed = pool.alloc_with_freed(
+                self._pages_per_slot - len(shared))
+        except RuntimeError:
+            self._clear_freed(pool.release(shared))
+            raise
+        self._clear_freed(freed)
+        table_row = shared + fresh
+        t0 = time.perf_counter()
+        row = torch.as_tensor(table_row, dtype=torch.int32, device=self.device)
+        self._each_cache(lambda c: c.map_slot(idx, row))
+        chunk_len = max(ps, self.prefill_chunk // ps * ps)
+        logits = None
+        for start in range(hit_tokens, plen, chunk_len):
+            n = min(chunk_len, plen - start)
+            chunk = np.zeros((1, chunk_len), np.int32)
+            chunk[0, :n] = toks[start:start + n]
+            qpos = np.full((chunk_len,), -1, np.int32)
+            qpos[:n] = np.arange(start, start + n, dtype=np.int32)
+            logits, self.state = self.adapter.append(
+                self.params, torch.as_tensor(chunk, device=self.device),
+                torch.as_tensor(qpos, device=self.device), idx, n - 1,
+                self.state)
+        tok, margin = self._pick(logits)
+        self._fence()
+        self._prefill_shapes.add(chunk_len)
         dt = time.perf_counter() - t0
-        first = int(tok[0])
-        self.margins[req.rid] = [float(margin[0])]
+        # register the prompt's own full-page chains: the next prompt that
+        # shares them prefills only its suffix
+        k_full = plen // ps
+        pool.register_prefix(chain[:k_full], table_row[:k_full])
+        self._slot_pages[idx] = table_row
+        m = self.metrics
+        if hit_tokens:
+            m.counter("engine.prefix_hit_tokens").inc(hit_tokens)
+            m.counter("engine.prefill_flops_saved").inc(
+                hit_tokens * self._flops_per_token)
+        self._set_pool_gauges()
+        self._admitted(req, idx, now, dt, plen - hit_tokens, int(tok[0]),
+                       float(margin[0]))
+
+    def _admitted(self, req: Request, idx: int, now: int, dt: float,
+                  prefilled: int, first: int, margin: float) -> None:
+        """Bookkeeping of an admission whose prefill took ``dt`` seconds
+        and ran ``prefilled`` prompt tokens."""
+        self.margins[req.rid] = [margin]
         m = self.metrics
         m.counter("engine.t_prefill_s").inc(dt)
         m.counter("engine.prefill_calls").inc()
-        m.counter("engine.prefill_tokens").inc(req.prompt_len)
+        m.counter("engine.prefill_tokens").inc(prefilled)
         m.counter("engine.admitted").inc()
+        m.gauge("engine.prefill_compiles").set(len(self._prefill_shapes))
         m.histogram("engine.prefill_ms").observe(dt * 1e3)
         # the first token comes from the prefill logits: TTFT for an admitted
         # request is the fenced prefill time (queue wait is the scheduler's)
@@ -354,8 +513,13 @@ class DecodeEngine:
                 for i in occ:
                     self._finish(i, now)
         if self.scheduler.has_pending():
-            for req, idx in self.scheduler.admit(now, self._free(),
-                                                 len(self._occupied())):
+            # paged: the pool's worst-case obtainable pages, so admission
+            # defers (FIFO) rather than exhausting the pool mid-prefill
+            for req, idx in self.scheduler.admit(
+                    now, self._free(), len(self._occupied()),
+                    page_budget=self.pool.available_count if self._paged
+                    else None,
+                    page_need=self._pages_per_slot if self._paged else 0):
                 self._admit(req, idx, now)
         if any(s is not None and not s.done for s in self.slots):
             self._decode_step(now)

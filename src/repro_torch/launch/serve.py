@@ -1,6 +1,8 @@
 """Serving driver: a searched mixed-precision policy, packed into a
 ``runtime.session.QuantizedSession``, served through the continuous-batching
-engine (``launch.engine``) over an int8 ring KV cache with greedy decode.
+engine (``launch.engine``) with greedy decode, over an int8 (or fp) ring KV
+cache or, with ``--kv-layout paged``, pooled int8 pages with shared-prefix
+reuse and chunked append prefill.
 
 The weights are the port's seeded random initialisation (no checkpoint of a
 published model ships with the repository); the policy is a searched
@@ -14,6 +16,8 @@ Examples:
   python -m repro_torch.launch.serve --requests 8 --slots 4 \
       --prompt-len 256 --gen 32 --cache-len 320
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --smoke --device cpu --kv-layout paged \
+      --check --stagger
   python -m repro_torch.launch.serve --policy searched.json --check
 """
 from __future__ import annotations
@@ -22,6 +26,7 @@ import argparse
 import dataclasses
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
@@ -32,6 +37,7 @@ from repro_torch.launch.engine import DecodeEngine, EngineConfig, \
 from repro_torch.launch.scheduler import Request
 from repro_torch.models import lm
 from repro_torch.models.quant_layers import QuantContext
+from repro_torch.runtime import dispatch
 
 
 # prefill tokens the scheduler grants per iteration (the reference derives
@@ -48,17 +54,27 @@ def resolve_device(name: Optional[str]) -> torch.device:
     return dev
 
 
-def build_requests(data, n, prompt_len, gen, *, stagger=False
-                   ) -> List[Request]:
+def build_requests(data, n, prompt_len, gen, *, stagger=False,
+                   share_prefix=0) -> List[Request]:
     """A deterministic request set from the synthetic corpus; ``stagger``
-    varies prompt/generation lengths across requests."""
+    varies prompt/generation lengths across requests; ``share_prefix``
+    overwrites the first that many tokens of every prompt with request 0's
+    (the shared-system-prompt traffic the paged layout's prefix reuse
+    serves)."""
     reqs = []
+    base = None
     for i in range(n):
         p, g = prompt_len, gen
         if stagger:
             p = max(4, prompt_len - 3 * (i % 4))
             g = max(2, gen - 2 * (i % 3))
         toks = data.batch(i, 1, p)["tokens"][0]
+        if share_prefix:
+            toks = np.asarray(toks).copy()
+            if base is None:
+                base = toks[:share_prefix].copy()
+            k = min(share_prefix, len(toks))
+            toks[:k] = base[:k]
         reqs.append(Request(rid=i, tokens=toks, max_new=g))
     return reqs
 
@@ -81,35 +97,53 @@ def make_context(cfg) -> QuantContext:
                              compute_dtype=torch.float32)
 
 
+def check_kv(kv: str, kv_layout: str) -> None:
+    """The KV flags' contract: int8 or fp rows, and pages hold int8 only."""
+    if kv not in ("int8", "fp"):
+        raise ValueError(f"kv must be 'int8' or 'fp', got {kv!r}")
+    dispatch.ROUTES.validate("kv_layout", kv_layout)
+    if kv_layout == "paged" and kv != "int8":
+        raise ValueError("--kv-layout paged requires --kv int8: pages hold "
+                         "int8 codes + scales")
+
+
 def serve_quantized(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
-                    cache_len: int, prefill_chunk: int, device=None):
+                    cache_len: int, prefill_chunk: int, device=None,
+                    kv: str = "int8", kv_layout: str = "ring",
+                    page_size: int = 8):
     """Pack ``policy`` into a ``QuantizedSession`` and serve ``reqs``
-    through the engine over an int8 ring KV cache. Returns (session,
-    engine, completions)."""
+    through the engine over a ``kv`` ring KV cache or the paged int8
+    layout. Returns (session, engine, completions)."""
     from repro_torch.runtime.session import QuantizedSession
+    check_kv(kv, kv_layout)
+    kv_quant = "int8" if kv == "int8" else "none"
     sess = QuantizedSession(cfg, params, policy, make_context(cfg),
-                            kv_quant="int8")
+                            kv_quant=kv_quant)
     eng = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
                        device=device,
                        ecfg=EngineConfig(slots=slots, cache_len=cache_len,
                                          prefill_chunk=prefill_chunk,
-                                         kv_quant="int8"))
+                                         kv_quant=kv_quant,
+                                         kv_layout=kv_layout,
+                                         page_size=page_size))
     eng.submit_all(reqs)
     return sess, eng, eng.run()
 
 
 def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                      cache_len: int, prefill_chunk: int, device=None,
-                     compute_dtype=torch.float32):
-    """The fake-quant graph (``LMAdapter``) through the same engine, with
-    int8 KV slots referenced as quantize-dequantize in fp; ``compute_dtype``
-    float64 evaluates the same graph at higher precision (the control)."""
+                     compute_dtype=torch.float32, kv: str = "int8"):
+    """The fake-quant graph (``LMAdapter``) through the same engine (ring
+    layout), with int8 KV slots referenced as quantize-dequantize in fp
+    (``kv="fp"``: plain fp rows); ``compute_dtype`` float64 evaluates the
+    same graph at higher precision (the control)."""
     ctx = dataclasses.replace(make_context(cfg), compute_dtype=compute_dtype)
     eng = DecodeEngine(params, cfg, lm.bits_from_policy(cfg, policy), ctx,
                        device=device,
                        ecfg=EngineConfig(slots=slots, cache_len=cache_len,
                                          prefill_chunk=prefill_chunk,
-                                         kv_quant="fake"))
+                                         kv_quant="fake" if kv == "int8"
+                                         else "none"))
     eng.submit_all(reqs)
     return eng, eng.run()
 
@@ -155,7 +189,8 @@ def check_greedy(cfg, params, policy, reqs, out, **kw):
 
 def print_stats(label: str, eng) -> None:
     d = eng.stats.as_dict()
-    keys = ("decode_steps", "prefill_calls", "tokens_generated",
+    keys = ("decode_steps", "prefill_calls", "prefill_tokens",
+            "tokens_generated",
             "prefill_p50_ms", "decode_step_p50_ms", "decode_tokens_per_s",
             "decode_attn_route", "act_quant_reused")
     print(f"[{label}] " + " ".join(
@@ -178,24 +213,50 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=0, help="0 = prompt+gen")
     ap.add_argument("--stagger", action="store_true")
+    ap.add_argument("--kv", default="int8", choices=("int8", "fp"),
+                    help="KV-cache storage")
+    ap.add_argument("--kv-layout", default="ring",
+                    choices=dispatch.ROUTES.routes("kv_layout"),
+                    help="ring = per-slot ring buffers; paged = pooled "
+                         "fixed-size int8 pages with shared-prefix remapping "
+                         "and chunked append prefill (prompts then share "
+                         "their first prompt-len // 2 tokens)")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="tokens per KV page (--kv-layout paged)")
     ap.add_argument("--check", action="store_true",
                     help="also run the fake-quant reference engine (float32 "
                          "and float64) and compare greedy tokens on decisive "
                          "steps (check_greedy)")
     args = ap.parse_args(argv)
+    try:
+        check_kv(args.kv, args.kv_layout)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     policy = (MPQPolicy.load(args.policy) if args.policy
               else demo_mixed_policy(cfg))
     params = lm.init_params(cfg, seed=0, device=dev)
+    # paged serving shares half the prompt across requests, so the run
+    # exercises prefix remapping and not only the page pool
+    share = args.prompt_len // 2 if args.kv_layout == "paged" else 0
     reqs = build_requests(SyntheticLM(cfg), args.requests, args.prompt_len,
-                          args.gen, stagger=args.stagger)
+                          args.gen, stagger=args.stagger, share_prefix=share)
     cache_len = args.cache_len or (args.prompt_len + args.gen)
     kw = dict(slots=args.slots, cache_len=cache_len,
               prefill_chunk=PREFILL_CHUNK, device=dev)
-    sess, eng, out = serve_quantized(cfg, params, policy, reqs, **kw)
+    sess, eng, out = serve_quantized(cfg, params, policy, reqs, kv=args.kv,
+                                     kv_layout=args.kv_layout,
+                                     page_size=args.page_size, **kw)
     print_stats("quantized", eng)
+    if args.kv_layout == "paged":
+        st = eng.stats
+        print(f"paged KV: {eng.pool.n_pages} pages x {args.page_size} tokens "
+              f"| {st.prefix_hit_tokens} prompt tokens from shared pages, "
+              f"{st.prefill_flops_saved:.0f} prefill FLOPs saved | "
+              f"{st.kv_unique_pages} pages in use | {st.prefill_compiles} "
+              "prefill chunk shape(s)")
     from repro_torch.runtime.session import summarize
     s = summarize(sess)
     print(f"packed weights: {s['packed_bytes']} B (+{s['scale_bytes']} B "
@@ -203,7 +264,8 @@ def main(argv=None):
           f"(x{s['packed_vs_policy']:.3f}) on {dev}")
     print("generated[rid=0]:", out[0].tokens)
     if args.check:
-        n, bad, _ = check_greedy(cfg, params, policy, reqs, out, **kw)
+        n, bad, _ = check_greedy(cfg, params, policy, reqs, out, kv=args.kv,
+                                 **kw)
         if bad:
             raise SystemExit(f"packed runtime diverged from the fake-quant "
                              f"reference on decisive steps: rids {bad}")

@@ -1,6 +1,7 @@
 """Attention: GQA with RoPE'd inputs for training and prefill
-(``self_attention``) and the one-token decode path over fp / int8 ring KV
-caches.
+(``self_attention``), the one-token decode path over fp / int8 ring KV
+caches and the paged int8 layout, and the chunked append prefill of one
+paged slot (``append_attention``).
 
 ``self_attention`` switches as the reference does: from 2048 tokens on
 (S a multiple of the 512-row q block) it takes ``flash_attention_cv`` --
@@ -9,8 +10,11 @@ CPU) and a recompute backward in PyTorch that saves only (out, lse) --
 and below that ``direct_attention``, which materializes the (B, KV, G, Sq,
 Sk) logits. Decode over an int8 cache routes through
 ``runtime.dispatch.resolve_decode_attn``: the ``decode_attn_quant`` CUDA
-kernel reads the codes directly, and the dequant-fp route rebuilds exact fp
-rows first (CPU tensors, and the numerics the kernel is held against).
+kernel reads the codes directly (``decode_attn_quant_paged`` gathers the
+pages by index in the kernel), and the dequant-fp route rebuilds exact fp
+rows first (CPU tensors, and the numerics the kernel is held against); on
+the paged layout it attends over ``gather()``'s dense view, bit for bit the
+ring's arrays.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 
 from repro_torch.kernels.ref import kv_slice_len as _kv_slice_len
 from repro_torch.runtime import kv_cache as qkv
-from repro_torch.runtime.kv_cache import FpKVCache, QuantKVCache
+from repro_torch.runtime.kv_cache import (FpKVCache, PagedKVCache,
+                                         QuantKVCache)
 
 NEG_INF = -1e30
 
@@ -195,8 +200,10 @@ def build_prefill_cache_from_codes(kq, ksc, vq, vsc, S: int, cap: int
 
 def cache_per_slot(cache):
     """Widen a shared-position cache (pos (Sc,)) to the per-slot layout
-    (pos (B, Sc)); other leaves and per-slot caches pass through."""
-    if not isinstance(cache, qkv.CACHE_TYPES) or cache.pos.dim() != 1:
+    (pos (B, Sc)); other leaves, per-slot caches and the paged layout (its
+    page table is per-slot already) pass through."""
+    if not isinstance(cache, qkv.CACHE_TYPES) or \
+            isinstance(cache, PagedKVCache) or cache.pos.dim() != 1:
         return cache
     B = cache.k.shape[0]
     return cache._replace(pos=cache.pos[None].expand(B, -1).contiguous())
@@ -244,12 +251,24 @@ def _attend_quant_fused(q: torch.Tensor, cache: QuantKVCache,
 def decode_attention(q: torch.Tensor, cache, k_new: torch.Tensor,
                      v_new: torch.Tensor, pos, *, window: Optional[int]):
     """One-token decode: ``cache.append`` the new row, then attend. With a
-    per-slot cache (pos (B, Sc)) ``pos`` is a (B,) vector and each row masks
-    independently. Returns (out (B, 1, H, hd), new cache)."""
+    per-slot cache (pos (B, Sc)) or the paged layout ``pos`` is a (B,)
+    vector and each row masks independently. Returns (out (B, 1, H, hd),
+    new cache)."""
     from repro_torch.runtime import dispatch
     out_dtype = v_new.dtype
     new = cache.append(k_new, v_new, pos)
     pos32 = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    if isinstance(new, PagedKVCache):
+        if dispatch.resolve_decode_attn(q.device) != "dequant-fp":
+            from repro_torch.kernels import ops
+            out = ops.decode_attn_quant_paged(
+                q, new.k, new.k_scale, new.v, new.v_scale, new.pos,
+                new.page_table, pos32.contiguous(), window=window)
+            return out.to(out_dtype), new
+        dense = new.gather()
+        k = qkv.dequantize(dense.k, dense.k_scale, k_new.dtype)
+        v = qkv.dequantize(dense.v, dense.v_scale, out_dtype)
+        return _attend_rows(q, k, v, dense.pos, pos32, window), new
     if isinstance(new, QuantKVCache):
         if dispatch.resolve_decode_attn(q.device) != "dequant-fp":
             out = _attend_quant_fused(q, new, pos32, window)
@@ -263,4 +282,29 @@ def decode_attention(q: torch.Tensor, cache, k_new: torch.Tensor,
     else:
         out = direct_attention(q, k, v, pos32.reshape(1), new.pos,
                                causal=True, window=window)
+    return out, new
+
+
+def append_attention(q: torch.Tensor, cache: PagedKVCache,
+                     k_new: torch.Tensor, v_new: torch.Tensor,
+                     q_pos: torch.Tensor, slot: int, *,
+                     window: Optional[int]):
+    """Chunked prefill for one paged slot: quantize-and-write the chunk's
+    rows into the slot's pages at absolute positions ``q_pos`` (-1 pads
+    are dropped), then attend the chunk's queries causally over the slot's
+    dense gathered view. Row values and mask sets match the dense prefill
+    graph (unmapped columns carry ``pos = -1`` and contribute exact zeros),
+    so a prompt prefilled in chunks decodes as one prefilled at once.
+    Returns (out (1, C, H, hd), new cache)."""
+    if not isinstance(cache, PagedKVCache):
+        raise TypeError(f"append_attention needs a PagedKVCache, got "
+                        f"{type(cache).__name__}")
+    out_dtype = v_new.dtype
+    new = cache.append_rows(k_new, v_new, q_pos, slot)
+    dense = new.gather_slot(slot)
+    k = qkv.dequantize(dense.k, dense.k_scale, k_new.dtype)
+    v = qkv.dequantize(dense.v, dense.v_scale, out_dtype)
+    out = direct_attention(q, k, v, torch.as_tensor(q_pos, dtype=torch.int32,
+                                                    device=q.device),
+                           dense.pos[0], causal=True, window=window)
     return out, new

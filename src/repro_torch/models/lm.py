@@ -302,8 +302,11 @@ def _bget(bits, key):
 
 
 def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
-                   mode: str, state, pos, prefill_cap=None):
-    """Self-attention residual sub-block. Returns (x, new_state)."""
+                   mode: str, state, pos, prefill_cap=None, slot=None):
+    """Self-attention residual sub-block. ``mode`` is ``train``,
+    ``prefill``, ``decode`` (one token per slot) or ``append`` (a chunk of
+    one paged slot ``slot``: ``pos`` the chunk's absolute positions, -1 on
+    pad rows). Returns (x, new_state)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
@@ -317,9 +320,13 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
         q = _qk_rms(q, p["q_norm"], cfg.norm_eps)
         k = _qk_rms(k, p["k_norm"], cfg.norm_eps)
     per_slot = mode == "decode" and torch.as_tensor(pos).dim() == 1
-    if mode == "decode":
+    if mode in ("decode", "append"):
         p_ = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    if mode == "decode":
         positions = torch.clamp(p_, min=0) if per_slot else p_.reshape(1)
+    elif mode == "append":
+        # pad rows carry -1: their angle is irrelevant (the write drops them)
+        positions = torch.clamp(p_, min=0)
     else:
         positions = torch.arange(S, device=x.device)
     cos, sin = _rope_cos_sin(cfg, positions)
@@ -339,6 +346,9 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
             k = qkv.fake_quant_kv(k)
             v = qkv.fake_quant_kv(v)
         out, new_state = attn.decode_attention(q, state, k, v, pos,
+                                               window=window)
+    elif mode == "append":
+        out, new_state = attn.append_attention(q, state, k, v, p_, slot,
                                                window=window)
     else:
         kq = ksc = vq = vsc = None
@@ -376,16 +386,17 @@ def _mlp_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext):
 
 
 def apply_layer(kind: str, x, p, bits, cfg: ModelConfig, ctx: QuantContext, *,
-                mode: str, state=None, pos=None, prefill_cap=None):
+                mode: str, state=None, pos=None, prefill_cap=None, slot=None):
     """One residual layer. Returns (x, new_state)."""
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
-    x, st = _attn_sublayer(x, p, bits, cfg, ctx, mode, state, pos, prefill_cap)
+    x, st = _attn_sublayer(x, p, bits, cfg, ctx, mode, state, pos, prefill_cap,
+                           slot)
     return _mlp_sublayer(x, p, bits, cfg, ctx), st
 
 
 def run_sites(x, sites, cfg: ModelConfig, ctx: QuantContext, *, mode: str,
-              states=None, pos=None, prefill_cap=None):
+              states=None, pos=None, prefill_cap=None, slot=None):
     """Run ``sites`` -- ``[(LayerSite, params, bits)]`` in execution order --
     and collect their new decode state under ``{"sites": {key: ...}}``."""
     new_states = {"sites": {}}
@@ -393,7 +404,7 @@ def run_sites(x, sites, cfg: ModelConfig, ctx: QuantContext, *, mode: str,
         key = site_key(site.gidx)
         st = None if states is None else states["sites"][key]
         x, st = apply_layer(site.kind, x, p, b, cfg, ctx, mode=mode, state=st,
-                            pos=pos, prefill_cap=prefill_cap)
+                            pos=pos, prefill_cap=prefill_cap, slot=slot)
         new_states["sites"][key] = st
     return x, new_states
 
@@ -520,24 +531,28 @@ def apply_decode(params, cfg: ModelConfig, token, pos, states, bits,
 # ===========================================================================
 def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
                     dtype=torch.float32, per_slot: bool = False,
-                    kv_quant: str = "none", device=None):
-    """Fresh decode state (a ring KV cache) for ONE attention site;
-    ``kv_quant="int8"`` selects codes + scales."""
+                    kv_quant: str = "none", layout=None, device=None):
+    """Fresh decode state (a KV cache) for ONE attention site;
+    ``kv_quant="int8"`` selects codes + scales, and ``layout`` (a
+    ``runtime.kv_cache.KVCacheLayout``) overrides both -- it is how the
+    paged pool layout is selected."""
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     window = cfg.sliding_window
     cap = min(capacity, window) if window else capacity
-    return qkv.init_kv_cache(batch, cap, cfg.n_kv_heads, cfg.hd, dtype=dtype,
-                             quant=kv_quant == "int8", per_slot=per_slot,
-                             device=device)
+    layout = layout or qkv.KVCacheLayout(
+        quant="int8" if kv_quant == "int8" else "none")
+    return layout.alloc(batch, cap, cfg.n_kv_heads, cfg.hd, dtype=dtype,
+                        per_slot=per_slot, device=device)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, *,
                       dtype=torch.float32, per_slot: bool = False,
-                      kv_quant: str = "none", device=None):
+                      kv_quant: str = "none", layout=None, device=None):
     return {"sites": {site_key(s.gidx): init_site_state(
         cfg, s.kind, batch, capacity, dtype=dtype, per_slot=per_slot,
-        kv_quant=kv_quant, device=device) for s in iter_sites(cfg)}}
+        kv_quant=kv_quant, layout=layout, device=device)
+        for s in iter_sites(cfg)}}
 
 
 def decode_state_per_slot(states):

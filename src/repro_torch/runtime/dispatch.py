@@ -78,6 +78,7 @@ class RouteTable:
 ROUTES = RouteTable({
     "matmul": ("dequant-fp", "cuda-int8", "cuda-w4"),
     "decode_attn": ("fused", "dequant-fp"),
+    "kv_layout": ("ring", "paged"),
 })
 
 

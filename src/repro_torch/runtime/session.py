@@ -19,7 +19,8 @@ Packing also tags activation-reuse groups: projections of one site whose
 common input once per forward (wq/wk/wv; mlp_wi/mlp_wg).
 
 The session exposes the engine's model-adapter interface (``prefill`` /
-``decode`` / ``init_state`` / ``state_per_slot``); matmuls route through
+``decode`` / ``append`` / ``init_state`` / ``state_per_slot``; ``append``
+is the chunked prefill of the paged layout); matmuls route through
 ``runtime.dispatch.packed_qeinsum`` (CUDA kernels on the card, the
 bit-exact dequant-then-fp route on the CPU). The 8-bit fake-quantized
 embedding table -- read by the embedding lookup and by the tied head -- is a
@@ -142,14 +143,14 @@ class QuantizedSession:
         return self.ctx.kv_quant
 
     # -- engine adapter API -------------------------------------------------
-    def _forward(self, params, x, mode, states, pos, prefill_cap):
+    def _forward(self, params, x, mode, states, pos, prefill_cap, slot=None):
         sites = [(s, params["sites"][lm.site_key(s.gidx)], None)
                  for s in self.sites]
         with dispatch.counts_scope(self.route_counts), \
                 dispatch.act_reuse_scope() as scope:
             x, new_states = lm.run_sites(x, sites, self.cfg, self.ctx,
                                          mode=mode, states=states, pos=pos,
-                                         prefill_cap=prefill_cap)
+                                         prefill_cap=prefill_cap, slot=slot)
         self.act_quant_reused += scope["hits"]
         return x, new_states
 
@@ -166,10 +167,24 @@ class QuantizedSession:
         return lm.lm_head(x, params, self.cfg, self.ctx, self.table)[:, 0], \
             new_states
 
-    def init_state(self, batch, capacity, dtype, per_slot=True, device=None):
+    def append(self, params, tok, pos, slot: int, last_idx: int, states):
+        """Chunked (paged) prefill: run a (1, C) token chunk through the
+        model for ONE slot, writing KV rows at absolute positions ``pos``
+        ((C,), -1 on pad rows, which the cache write drops) into that
+        slot's pages. Returns (logits of row ``last_idx`` (1, V), states)."""
+        x = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
+        x, new_states = self._forward(params, x, "append", states, pos, None,
+                                      slot=slot)
+        logits = lm.lm_head(x[:, last_idx:last_idx + 1], params, self.cfg,
+                            self.ctx, self.table)
+        return logits[:, 0], new_states
+
+    def init_state(self, batch, capacity, dtype, per_slot=True, device=None,
+                   layout=None):
         return lm.init_decode_state(self.cfg, batch, capacity, dtype=dtype,
                                     per_slot=per_slot,
-                                    kv_quant=self.ctx.kv_quant, device=device)
+                                    kv_quant=self.ctx.kv_quant, layout=layout,
+                                    device=device)
 
     def state_per_slot(self, row):
         return lm.decode_state_per_slot(row)

@@ -114,6 +114,156 @@ def test_decode_attn_quant_window_and_zero_rows(dev):
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
 
 
+def _paged(rng, B, P, ps, KV, hd, dev):
+    """A page pool with ids permuted at random, slot 1 sharing slot 0's
+    first pages, an unmapped (-1) entry inside slot 2's row and slot 3's
+    tail unmapped, each slot written up to a position of its own, some rows
+    evicted; slot 3 queries at -1."""
+    rows = P * ps
+    n_pages = B * P + 5
+    perm = list(rng.permutation(n_pages))
+    table = np.full((B, P), -1, np.int32)
+    for b in range(B):
+        for j in range(P):
+            table[b, j] = table[0, j] if (b == 1 and j < P // 4) else perm.pop()
+    table[2, P // 2] = -1
+    table[3, P - max(1, P // 8):] = -1
+    pos = np.full((n_pages, ps), -1, np.int32)
+    for b, n in enumerate([rows, rows - 5, rows // 2 + 3, rows // 3]):
+        t = np.arange(n)
+        pid = table[b, t // ps]
+        pos[pid[pid >= 0], (t % ps)[pid >= 0]] = t[pid >= 0]
+    pos[rng.integers(0, n_pages, n_pages // 3), rng.integers(0, ps, n_pages // 3)] = -1
+    q_pos = np.array([rows - 1, rows - 6, rows // 2, -1], np.int32)
+    kp = _codes(rng, (n_pages, ps, KV, hd), -127, 127, dev)
+    vp = _codes(rng, (n_pages, ps, KV, hd), -127, 127, dev)
+    ks = torch.from_numpy(rng.uniform(1e-3, 2e-2, (n_pages, ps, KV)).astype(np.float32)).to(dev)
+    vs = torch.from_numpy(rng.uniform(1e-3, 2e-2, (n_pages, ps, KV)).astype(np.float32)).to(dev)
+    return (kp, ks, vp, vs, torch.from_numpy(pos).to(dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(q_pos).to(dev))
+
+
+@pytest.mark.parametrize("ps,rows", [(8, 320), (16, 320), (8, 4096),
+                                     (16, 4096), (3, 30), (64, 128)])
+@pytest.mark.parametrize("G", [2, 1, 4])
+def test_decode_attn_quant_paged_allclose_and_equals_ring(dev, ps, rows, G):
+    """The paged kernel against its plain version (the reference contract)
+    and against the ring kernel on the gathered dense view (bit for bit:
+    the same code, each row resolved through the table)."""
+    from repro_torch.runtime.kv_cache import PagedKVCache
+    B, KV, hd = 4, 8, 128
+    rng = np.random.default_rng(rows + ps + G)
+    kp, ks, vp, vs, pos, tbl, qp = _paged(rng, B, rows // ps, ps, KV, hd, dev)
+    q = torch.from_numpy(rng.standard_normal((B, 1, KV * G, hd)).astype(np.float32)).to(dev)
+    n0 = dict(ops.launches)
+    out = ops.decode_attn_quant_paged(q, kp, ks, vp, vs, pos, tbl, qp)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attn_quant_paged"] == n0["decode_attn_quant_paged"] + 1
+    assert ops.launches["decode_attn_quant"] == n0["decode_attn_quant"]
+    qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
+    want = ref.decode_attn_quant_paged_ref(qf, kp, ks, vp, vs, pos, tbl,
+                                           qp).reshape(out.shape)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
+    d = PagedKVCache(kp, vp, ks, vs, pos, tbl).gather()
+    ring = ops.decode_attn_quant(q, d.k.contiguous(), d.k_scale.contiguous(),
+                                 d.v.contiguous(), d.v_scale.contiguous(),
+                                 d.pos.contiguous(), qp)
+    assert torch.equal(out, ring)
+
+
+def test_decode_attn_quant_paged_window(dev):
+    from repro_torch.runtime.kv_cache import PagedKVCache
+    B, KV, G, hd, ps = 4, 2, 2, 64, 8
+    rng = np.random.default_rng(9)
+    kp, ks, vp, vs, pos, tbl, qp = _paged(rng, B, 8, ps, KV, hd, dev)
+    q = torch.from_numpy(rng.standard_normal((B, 1, KV * G, hd)).astype(np.float32)).to(dev)
+    out = ops.decode_attn_quant_paged(q, kp, ks, vp, vs, pos, tbl, qp, window=12)
+    qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
+    want = ref.decode_attn_quant_paged_ref(qf, kp, ks, vp, vs, pos, tbl, qp,
+                                           12).reshape(out.shape)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
+    d = PagedKVCache(kp, vp, ks, vs, pos, tbl).gather()
+    assert torch.equal(out, ops.decode_attn_quant(
+        q, d.k.contiguous(), d.k_scale.contiguous(), d.v.contiguous(),
+        d.v_scale.contiguous(), d.pos.contiguous(), qp, window=12))
+
+
+def test_paged_decode_write_and_attend_do_not_synchronise(dev):
+    """One layer's paged decode -- the cache write, whose dropped rows go
+    to a scratch row instead of through a boolean mask, and the kernel --
+    raises no host-device synchronisation."""
+    from repro_torch.models import attention as attn
+    from repro_torch.runtime.kv_cache import PagedKVCache
+    rng = np.random.default_rng(4)
+    kp, ks, vp, vs, pos, tbl, qp = _paged(rng, 4, 8, 8, 2, 64, dev)
+    cache = PagedKVCache(kp, vp, ks, vs, pos, tbl)
+    q = torch.from_numpy(rng.standard_normal((4, 1, 4, 64)).astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.standard_normal((4, 1, 2, 64)).astype(np.float32)).to(dev)
+    p = torch.tensor([40, -1, 100, 3], dtype=torch.int32, device=dev)
+    attn.decode_attention(q, cache, k, k, p, window=None)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, new = attn.decode_attention(q, cache, k, k, p, window=None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.shape == (4, 1, 4, 64) and bool(torch.isfinite(out).all())
+    assert int(new.pos[int(tbl[0, 5]), 0]) == 40
+
+
+def test_paged_wrapper_rejects_bad_operands(dev):
+    rng = np.random.default_rng(2)
+    kp, ks, vp, vs, pos, tbl, qp = _paged(rng, 4, 4, 8, 2, 64, dev)
+    q = torch.zeros((4, 1, 4, 64), device=dev)
+    with pytest.raises(TypeError):                      # table not int32
+        ops.decode_attn_quant_paged(q, kp, ks, vp, vs, pos, tbl.long(), qp)
+    with pytest.raises(ValueError):                     # mixed devices
+        ops.decode_attn_quant_paged(q, kp, ks, vp, vs, pos, tbl.cpu(), qp)
+    with pytest.raises(ValueError):                     # non-contiguous pages
+        ops.decode_attn_quant_paged(q, kp.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), ks, vp, vs, pos, tbl, qp)
+    with pytest.raises(ValueError):                     # table too long
+        big = torch.full((4, ops.MAX_TABLE + 1), -1, dtype=torch.int32, device=dev)
+        ops.decode_attn_quant_paged(q, kp, ks, vp, vs, pos, big, qp)
+    with pytest.raises(ValueError):                     # q does not match
+        ops.decode_attn_quant_paged(q[:3], kp, ks, vp, vs, pos, tbl, qp)
+
+
+def test_paged_engine_equals_ring_engine_on_the_card(dev):
+    """A paged engine at smoke size through the kernels: the ring engine's
+    greedy tokens on every decisive step, 1 paged attention launch per
+    layer and decode step, none of the ring kernel, and a clean pool."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import engine as teng
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+    cfg = smoke_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    policy = tserve.demo_mixed_policy(cfg)
+    reqs = tserve.build_requests(SyntheticLM(cfg), 6, 24, 6, stagger=True,
+                                 share_prefix=16)
+    kw = dict(slots=3, cache_len=32, prefill_chunk=16, device=dev)
+    _, ring, ring_out = tserve.serve_quantized(cfg, params, policy, reqs, **kw)
+    n0 = dict(ops.launches)
+    _, eng, out = tserve.serve_quantized(cfg, params, policy, reqs, **kw,
+                                         kv_layout="paged", page_size=8)
+    launched = {k: ops.launches[k] - n0[k] for k in n0}
+    assert launched["decode_attn_quant_paged"] == cfg.n_layers * eng.stats.decode_steps
+    assert launched["decode_attn_quant"] == 0
+    assert eng.stats.prefix_hit_tokens > 0
+    eng.pool.check()
+    assert all(s is None for s in eng.slots)
+    compared = 0
+    for rid, c in out.items():
+        n, miss = teng.decisive_prefix(c.tokens, ring_out[rid].tokens,
+                                       ring.margins[rid], 1e-2)
+        assert miss is None, (rid, c.tokens, ring_out[rid].tokens)
+        compared += n
+    assert compared > 0
+
+
 def test_wrappers_reject_bad_operands(dev):
     x = torch.zeros((4, 64), dtype=torch.int8, device=dev)
     w = torch.zeros((64, 32), dtype=torch.int8, device=dev)
