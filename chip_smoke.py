@@ -15,7 +15,9 @@ In order:
    another order, over up to 155M terms), int8 decode attention on the ring
    and on pooled pages (permuted page ids, pages shared between slots,
    unmapped table entries, evicted rows, a slot at query position -1) to
-   rtol 2e-5 / atol 2e-6, flash forward to 2e-5 (out) / 1e-5 (lse) -- and time
+   rtol 2e-5 / atol 2e-6, the S-query verify attention on both layouts
+   to rtol 2e-5 / atol 2e-6 and bit for bit against S one-token launches,
+   flash forward to 2e-5 (out) / 1e-5 (lse) -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -46,7 +48,21 @@ In order:
    launched 28 times per decode step and ``decode_attn_quant`` never; greedy
    tokens as in (b); prefix hits, and fewer tokens prefilled than the ring
    phase; the page pool consistent and every slot empty after the drain;
-6. train gate (e): one ``loss_fn`` + backward at full width, 2 layers, S =
+6. speculative serve phases, ring and paged: the same requests as phases 4
+   and 5 with ``speculate=4``, ``draft_bits=2`` (a uniform int2 repack of the
+   same weights drafts, the searched policy verifies). Gates: (a) tokens
+   equal the same run's token-at-a-time phase on every decisive step of it
+   (top-2 margin above 1e-2, ``engine.decisive_prefix``); (b) exactly 28
+   ``verify_attn_quant[_paged]`` launches per round and no one-token launch
+   inside the verify pass; (c) no host synchronisation inside a round
+   (``set_sync_debug_mode("error")`` around each); (d) paged: a consistent
+   pool and the paged phase's prefix hits. Then the midflight check (one
+   request, one slot: after four rounds the speculative engine's KV -- pos
+   exactly, codes and scales on valid rows -- is the token-at-a-time
+   engine's at the same length, bit for bit) and the self-draft check (a
+   target policy at the draft's own width: every draft on a decisive step
+   accepted);
+7. train gate (e): one ``loss_fn`` + backward at full width, 2 layers, S =
    2048, through the kernels and through their plain versions
    (``ops.plain_on_cuda``), loss and every gradient within ``TRAIN_TOL``:
    once with activations unquantized, every kernel against its plain
@@ -59,6 +75,7 @@ Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
 per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -100,9 +117,14 @@ SOURCES = {
                        "src/repro/kernels/fake_quant.py:73"),
     "flash_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention.py:76"),
+    "verify_attn_quant": ("src/repro_torch/csrc/decode_attn_quant.cu",
+                          "src/repro/kernels/quant_attention.py:299"),
+    "verify_attn_quant_paged": ("src/repro_torch/csrc/decode_attn_quant.cu",
+                                "src/repro/kernels/quant_attention.py:327"),
 }
 SERVE_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant",
-                 "decode_attn_quant_paged")
+                 "decode_attn_quant_paged", "verify_attn_quant",
+                 "verify_attn_quant_paged")
 # the kernels each serving path runs
 RING_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant")
 PAGED_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant_paged")
@@ -113,6 +135,15 @@ PAGE_SIZE, SHARED_PREFIX = 8, 128
 PAGED_CASES = [(8, 320), (16, 320), (8, 4096), (16, 4096)]
 PAGED_MAIN = (PAGE_SIZE, MAIN_SC)
 TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
+# speculative phases: draft length, draft width; verify cases (S, G,
+# window) on the ring and (page size, rows, S) on pages at G=2, summary
+# rows S = K + 1 at the serve shapes
+SPEC_K, DRAFT_BITS = 4, 2
+VERIFY_CASES = [(S, G, None) for S in (1, 2, 5, 8) for G in (1, 2, 4)] + \
+    [(5, 2, 48)]
+VERIFY_PAGED_CASES = [(ps, rows, S) for ps, rows in ((3, 96), (8, 320),
+                                                     (16, 320), (64, 128))
+                      for S in (1, 2, 5, 8)]
 
 # fake-quant: Qwen3-0.6B's (1024, 3072)/(3072, 1024) weights, the (2048,
 # 3072) MLP activation at B*S = 2048, the tied (151936, 1024) table, and a
@@ -409,6 +440,141 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
               f"plain={rows_out[-1]['plain_ms']:.4f} "
               f"sdpa={rows_out[-1]['library_ms']:.4f} "
               f"bound={b_ms:.4f}({b_by})", flush=True)
+    return rows_out
+
+
+def _verify_pos(q_pos, S):
+    """(B, S) verify positions ending at each slot's one-token query
+    position (a -1 slot stays -1)."""
+    return np.where(q_pos[:, None] < 0, -1,
+                    np.maximum(q_pos[:, None] - (S - 1) + np.arange(S), 0)
+                    ).astype(np.int32)
+
+
+def verify_attn_phase(torch, ops, ref, flush, dev):
+    """The S-query verify kernels: against their plain versions and, bit for
+    bit, against S launches of the one-token kernels; timed at S = K + 1 on
+    the serve shapes."""
+    import torch.nn.functional as F
+    from repro_torch.runtime.kv_cache import PagedKVCache
+    rows_out = []
+    B, KV, hd, Sc = 4, 8, 128, MAIN_SC
+    cases = [("ring", S, G, w, None) for S, G, w in VERIFY_CASES] + \
+        [("paged", S, 2, None, (ps, rows)) for ps, rows, S in
+         VERIFY_PAGED_CASES]
+    for kind, S, G, window, pr in cases:
+        H = KV * G
+        r = np.random.default_rng(S * 100 + G * 10 + (window or 0)
+                                  + (pr[0] * 7 + pr[1] if pr else 0))
+        g = torch.Generator(device=dev).manual_seed(int(r.integers(1 << 30)))
+        paged = kind == "paged"
+        if paged:
+            ps, rows = pr
+            table, pos, q_pos = _paged_pool(r, B, rows // ps, ps)
+            shape = (pos.shape[0], ps, KV)
+        else:
+            q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, -1], np.int32)
+            pos = np.full((B, Sc), -1, np.int32)
+            for b in range(B):
+                for t in range(max(0, q_pos[b] + 1 - Sc), q_pos[b] + 1):
+                    pos[b, t % Sc] = t
+            pos[1, r.integers(0, Sc, Sc // 5)] = -1
+            shape = (B, Sc, KV)
+        kc = torch.randint(-127, 128, shape + (hd,), generator=g, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-127, 128, shape + (hd,), generator=g, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand(shape, generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand(shape, generator=g, device=dev) * 0.02 + 1e-3
+        q = torch.randn((B, S, H, hd), generator=g, device=dev)
+        pos_t = torch.from_numpy(pos).to(dev)
+        qp = torch.from_numpy(_verify_pos(q_pos, S)).to(dev)
+        tbl = (torch.from_numpy(table).to(dev),) if paged else ()
+        cache = (kc, ks, vc, vs, pos_t) + tbl
+        kern = ops.verify_attn_quant_paged if paged else ops.verify_attn_quant
+        one = ops.decode_attn_quant_paged if paged else ops.decode_attn_quant
+        plain_fn = ref.verify_attn_quant_paged_ref if paged \
+            else ref.verify_attn_quant_ref
+        out = kern(q, *cache, qp, window=window)
+        qs = [q[:, j:j + 1].contiguous() for j in range(S)]
+        qps = [qp[:, j].contiguous() for j in range(S)]
+
+        def unrolled():
+            return [one(qs[j], *cache, qps[j], window=window)
+                    for j in range(S)]
+
+        def plain():
+            qf = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
+            return plain_fn(qf, *cache, qp, window)
+
+        want = plain().reshape(out.shape)
+        ones = unrolled()
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        tag = (f"{kind} S={S} G={G} window={window}"
+               + (f" ps={pr[0]} rows={pr[1]}" if paged else f" Sc={Sc}"))
+        gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
+             f"verify {tag} differs from its plain version (max |err| {err})")
+        gate(all(torch.equal(out[:, j:j + 1], ones[j]) for j in range(S)),
+             f"verify {tag} differs from {S} one-token launches")
+        main = (S == SPEC_K + 1 and G == 2 and window is None
+                and (pr == PAGED_MAIN if paged else True))
+        row = dict(name=kern.__name__, shape=f"B={B} {tag} KV={KV} hd={hd}",
+                   max_abs_err=err, equals_one_token_launches=True,
+                   main=main)
+        if main:
+            # this run's work: the cache (each distinct mapped page once),
+            # q, positions and out; every query attends every row
+            if paged:
+                mapped = table >= 0
+                n_rows = len(np.unique(table[mapped])) * pr[0]
+                att = mapped.sum() * pr[0]
+                dense = PagedKVCache(kc, vc, ks, vs, pos_t, tbl[0]).gather()
+                kd_, vd_, ks_, vs_, p_ = (dense.k, dense.v, dense.k_scale,
+                                          dense.v_scale, dense.pos)
+            else:
+                n_rows, att = B * Sc, B * Sc
+                kd_, vd_, ks_, vs_, p_ = kc, vc, ks, vs, pos_t
+            n_bytes = (n_rows * (2 * KV * hd + 2 * KV * 4 + 4)
+                       + (table.size * 4 if paged else 0)
+                       + 2 * B * S * H * hd * 4 + B * S * 4)
+            b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att * S,
+                                  F32_OPS_PER_S)
+            # yardstick: SDPA on the dequantized (gathered) cache with a
+            # per-query mask; dequantization stays outside the timed call
+            kd = (kd_.float() * ks_[..., None]).permute(0, 2, 1, 3).contiguous()
+            vd = (vd_.float() * vs_[..., None]).permute(0, 2, 1, 3).contiguous()
+            mask = ((p_[:, None, :] >= 0)
+                    & (p_[:, None, :] <= qp[:, :, None]))[:, None]
+            qh = q.permute(0, 2, 1, 3).contiguous()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=mask, enable_gqa=True)
+
+            live = q_pos >= 0
+            lib = sdpa().permute(0, 2, 1, 3)
+            gate(bool(torch.allclose(lib[live], out[live], rtol=1e-3,
+                                     atol=1e-4)),
+                 f"SDPA yardstick disagrees with verify {tag}")
+            row.update(
+                ms=cuda_ms(torch, lambda: kern(q, *cache, qp, window=window),
+                           flush),
+                one_token_launches_ms=cuda_ms(torch, unrolled, flush),
+                plain_ms=cuda_ms(torch, plain, flush),
+                library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
+                bound_by=b_by)
+            print(f"[kernel] {kern.__name__} {tag} err={err:.1e} "
+                  f"= {S} one-token launches bit for bit; "
+                  f"ms={row['ms']:.4f} ({S} one-token launches "
+                  f"{row['one_token_launches_ms']:.4f}) "
+                  f"plain={row['plain_ms']:.4f} "
+                  f"sdpa={row['library_ms']:.4f} bound={b_ms:.5f}({b_by})",
+                  flush=True)
+        rows_out.append(row)
+    print(f"[kernel] verify: {len(cases)} cases, each within rtol 2e-5 / "
+          "atol 2e-6 of its plain version and bit for bit S one-token "
+          "launches", flush=True)
     return rows_out
 
 
@@ -979,7 +1145,7 @@ def serve_phase(torch, ops, dev):
     gate(abs(s["packed_vs_policy"] - 1.0) <= 0.05,
          f"packed bytes off the policy accounting by x{s['packed_vs_policy']}")
     step = profile_decode_step(torch, sess, dev)
-    return launches, dict(
+    return (reqs, out, eng), launches, dict(
         prefill_noise=noise, decode_step_profile=step, wall_s=wall,
         prefill_p50_ms=d["prefill_p50_ms"],
         decode_step_p50_ms=d["decode_step_p50_ms"],
@@ -1069,7 +1235,7 @@ def paged_serve_phase(torch, ops, dev, ring_prefill_tokens):
     gate(not bad, f"paged greedy tokens diverged on decisive steps: rids {bad}")
     gate(compared > 0, "no decisive step to compare")
     step = profile_decode_step(torch, sess, dev, "paged", eng.layout)
-    return launches, dict(
+    return (reqs, out, eng), launches, dict(
         decode_step_profile=step, wall_s=wall,
         prefill_p50_ms=d["prefill_p50_ms"],
         decode_step_p50_ms=d["decode_step_p50_ms"],
@@ -1083,6 +1249,298 @@ def paged_serve_phase(torch, ops, dev, ring_prefill_tokens):
         prefill_compiles=st.prefill_compiles,
         admissions_deferred_pool=st.admissions_deferred_pool,
         decisive_compared=compared, reference_unstable_rids=unstable)
+
+
+@contextlib.contextmanager
+def spec_probe(torch, ops, guard_syncs=True):
+    """Watch every speculative round of the engines run inside: each round
+    under ``set_sync_debug_mode("error")`` (gate (c)); per verify pass the
+    kernel launches it made (gate (b)); the draft steps of each round; and
+    each verify pass's drafts, positions, targets, margins and accepted
+    counts, as device tensors read after the run."""
+    from repro_torch.launch.engine import DecodeEngine as E
+    fused, verify, draft = E._spec_fused, E._spec_verify_fn, \
+        E._spec_draft_body
+    rec = dict(verify=[], draft_steps=[], rounds=[])
+
+    def fused_(self, *a):
+        if not guard_syncs:
+            return fused(self, *a)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fused(self, *a)
+        except RuntimeError as e:
+            raise GateError(f"a speculative round synchronised the host: "
+                            f"{e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def verify_(self, tok, drafts, pos, remaining, state):
+        n0 = dict(ops.launches)
+        out = verify(self, tok, drafts, pos, remaining, state)
+        rec["verify"].append({k: ops.launches[k] - n0[k] for k in n0})
+        rec["rounds"].append((drafts, pos, out[0], out[1], out[2]))
+        return out
+
+    def draft_(self, steps, *a):
+        rec["draft_steps"].append(steps)
+        return draft(self, steps, *a)
+
+    E._spec_fused, E._spec_verify_fn, E._spec_draft_body = \
+        fused_, verify_, draft_
+    try:
+        yield rec
+    finally:
+        E._spec_fused, E._spec_verify_fn, E._spec_draft_body = \
+            fused, verify, draft
+
+
+def spec_serve_phase(torch, ops, dev, layout, base, paged_hits=None):
+    """The serve phase's requests (``layout`` "ring") or the paged phase's
+    (``layout`` "paged") decoded self-speculatively. ``base`` is that
+    phase's (requests, completions, engine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    label = f"spec-{layout}"
+    reqs, base_out, base_eng = base
+    cfg = get_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    policy = serve.demo_mixed_policy(cfg)
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev, kv_layout=layout, page_size=PAGE_SIZE,
+              speculate=SPEC_K, draft_bits=DRAFT_BITS)
+    serve.serve_quantized(cfg, params, policy, reqs[:1],        # warm-up
+                          **dict(kw, slots=1))
+    ops.reset_launches()                         # counts: the main path only
+    with spec_probe(torch, ops) as rec:
+        t0 = time.perf_counter()
+        sess, eng, out = serve.serve_quantized(cfg, params, policy, reqs,
+                                               **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+    st, bst = eng.stats, base_eng.stats
+    d, bd = st.as_dict(), bst.as_dict()
+    paged = layout == "paged"
+    one = "decode_attn_quant_paged" if paged else "decode_attn_quant"
+    name = "verify_attn_quant_paged" if paged else "verify_attn_quant"
+    others = [k for k in ("decode_attn_quant", "decode_attn_quant_paged",
+                          "verify_attn_quant", "verify_attn_quant_paged")
+              if k not in (one, name)]
+    emitted = st.tokens_generated - st.completed     # first tokens: prefill
+    print(f"[{label}] {len(out)} requests in {wall:.2f}s wall (two packs "
+          f"included): {st.spec_rounds} rounds of k={SPEC_K}, accept rate "
+          f"{st.spec_accept_rate:.4f} ({st.spec_accepted_tokens} of "
+          f"{st.spec_draft_tokens} drafts), {emitted / st.slot_steps:.3f} "
+          f"tokens per slot and round; decode {st.decode_tokens_per_s:.1f} "
+          f"tok/s, round p50 {d['decode_step_p50_ms']:.2f} ms against the "
+          f"token-at-a-time phase's {bst.decode_tokens_per_s:.1f} tok/s, "
+          f"step p50 {bd['decode_step_p50_ms']:.2f} ms ({bst.decode_steps} "
+          f"steps); draft pack {sess.draft_bytes()} B beside "
+          f"{sess.packed_bytes()} B", flush=True)
+    print(f"[{label}] launches {launches}; draft steps "
+          f"{sum(rec['draft_steps'])}", flush=True)
+    # (b) one verify launch per layer and round, no one-token launch inside
+    # the verify pass; the draft steps launch the one-token kernel
+    gate(st.spec_rounds == len(rec["verify"]) > 0,
+         f"{st.spec_rounds} rounds, {len(rec['verify'])} verify passes")
+    gate(all(v[name] == cfg.n_layers and v[one] == 0 for v in rec["verify"]),
+         f"verify passes launched {rec['verify'][:3]}..., expected "
+         f"{cfg.n_layers} x {name} and no {one}")
+    gate(launches[name] == cfg.n_layers * st.spec_rounds
+         and launches[one] == cfg.n_layers * sum(rec["draft_steps"])
+         and all(launches[k] == 0 for k in others)
+         and launches["quant_matmul"] > 0
+         and launches["quant_matmul_w4"] > 0,
+         f"{label} launched {launches}")
+    gate(sess.route_counts.eligible_fp == 0,
+         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
+         "dequant-fp")
+    gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    # (a) the token-at-a-time phase's tokens on its decisive steps
+    same, total, compared, bad = serve.compare_spec(out, base_eng, base_out)
+    print(f"[{label}] tokens vs the token-at-a-time phase: {same} of {total} "
+          f"identical, {compared} decisive steps compared, differing rids "
+          f"{bad}", flush=True)
+    gate(not bad and compared > 0,
+         f"speculative tokens differ on a decisive step: rids {bad}")
+    gate(all(s is None for s in eng.slots), "occupied slots after the drain")
+    if paged:                                                      # (d)
+        eng.pool.check()
+        gate(st.prefix_hit_tokens == paged_hits,
+             f"prefix hits {st.prefix_hit_tokens} tokens, paged phase "
+             f"{paged_hits}")
+    return launches, dict(
+        wall_s=wall, rounds=st.spec_rounds, accept_rate=st.spec_accept_rate,
+        drafted=st.spec_draft_tokens, accepted=st.spec_accepted_tokens,
+        tokens_per_slot_round=emitted / st.slot_steps,
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        round_p50_ms=d["decode_step_p50_ms"],
+        base_decode_tokens_per_s=bst.decode_tokens_per_s,
+        base_step_p50_ms=bd["decode_step_p50_ms"],
+        identical_tokens=same, tokens=total, decisive_compared=compared,
+        draft_bytes=sess.draft_bytes(), packed_bytes=sess.packed_bytes(),
+        prefix_hit_tokens=st.prefix_hit_tokens,
+        draft_steps=sum(rec["draft_steps"]))
+
+
+def _engine_pair(sess, cfg, dev, layout):
+    from repro_torch.launch.engine import DecodeEngine, EngineConfig
+
+    def make(k):
+        return DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
+                            device=dev, ecfg=EngineConfig(
+                                slots=1, cache_len=CACHE_LEN,
+                                prefill_chunk=PREFILL_CHUNK, kv_quant="int8",
+                                kv_layout=layout, page_size=PAGE_SIZE,
+                                speculate=k))
+    return make(SPEC_K), make(0)
+
+
+def _spec_until_rejection(spec, req):
+    """Admit ``req`` into the one-slot speculative engine ``spec`` and run
+    at least four rounds, then on until a draft was rejected (so a rollback
+    cut rows) or one more round could finish the request. Returns the live
+    slot."""
+    spec.submit(req)
+    now = 0
+    while True:
+        spec.step(now)       # the first step admits, then each is a round
+        now += 1
+        slot = spec.slots[0]
+        gate(slot is not None and not slot.done, "request done too early")
+        if now >= 4 and (slot.spec_accepted < slot.spec_drafted
+                         or len(slot.gen) + SPEC_K + 1 >= req.max_new):
+            return slot
+
+
+def midflight_check(torch, dev, reqs):
+    """One request, one slot, at full width: after at least four
+    speculative rounds, one of which rejected a draft, the KV state is the
+    token-at-a-time engine's at the same generated length, bit for bit (pos
+    exactly, so every rolled-back row is unwritten there too; codes and
+    scales on valid rows), on both layouts. The prompt is the first of
+    ``reqs`` (the serve phase's) whose drafts get rejected before the slot
+    could finish: a draft that is never rejected rolls nothing back. Rows
+    are compared up to the first generated token where the two engines part
+    (if they part at all: only on a near-tie of the head, whose float32
+    GEMM over S rows may round otherwise)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.kv_cache import PagedKVCache
+    from repro_torch.runtime.session import SpecSession
+
+    cfg = get_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    sess = SpecSession(cfg, params, serve.demo_mixed_policy(cfg),
+                       serve.make_context(cfg), draft_w_bits=DRAFT_BITS)
+    res = {}
+    for layout in ("ring", "paged"):
+        for req in reqs:
+            spec, base = _engine_pair(sess, cfg, dev, layout)
+            slot = _spec_until_rejection(spec, req)
+            if slot.spec_accepted < slot.spec_drafted:
+                break
+        gate(slot.spec_accepted < slot.spec_drafted,
+             f"midflight ({layout}): no request of {len(reqs)} had a draft "
+             "rejected, so no rollback was exercised")
+        plen = len(req.tokens)
+        g = len(slot.gen)
+        base.submit(req)
+        now = 0
+        while base.slots[0] is None or len(base.slots[0].gen) < g:
+            base.step(now)
+            now += 1
+        bgen = base.slots[0].gen[:g]
+        n_same = next((i for i, (a, b) in enumerate(zip(slot.gen, bgen))
+                       if a != b), g)
+        # row t holds the KV of the token fed at t: the prompt's, then
+        # gen[t - plen]; rows below plen + n_same saw the same inputs
+        limit = plen + n_same
+        diffs = []
+        for key in spec.state["sites"]:
+            a, b = spec.state["sites"][key], base.state["sites"][key]
+            if isinstance(a, PagedKVCache):
+                a, b = a.gather(), b.gather()
+            rows = (a.pos < limit) | (b.pos < limit)
+            if not torch.equal(a.pos[rows], b.pos[rows]):
+                diffs.append((key, "pos"))
+                continue
+            m = rows & (a.pos >= 0)
+            for f in ("k", "v", "k_scale", "v_scale"):
+                x, y = getattr(a, f)[m], getattr(b, f)[m]
+                if not torch.equal(x, y):
+                    bad_rows = (x != y).reshape(x.shape[0], -1).any(dim=1)
+                    first = int(a.pos[m][bad_rows].min())
+                    diffs.append((key, f, int(bad_rows.sum()), first))
+        res[layout] = dict(rid=req.rid, generated=g, identical_tokens=n_same,
+                           rows_compared=limit, differing=diffs[:8],
+                           rounds=spec.stats.spec_rounds,
+                           drafted=slot.spec_drafted,
+                           accepted=slot.spec_accepted)
+        print(f"[midflight] {layout}: request {req.rid}, "
+              f"{spec.stats.spec_rounds} rounds, {g} tokens "
+              f"({slot.spec_accepted} of {slot.spec_drafted} drafts "
+              f"accepted), {n_same} identical with the token-at-a-time "
+              f"engine; KV rows below position {limit} of {cfg.n_layers} "
+              "layers "
+              + ("bit for bit equal" if not diffs else
+                 f"DIFFER: {diffs[:8]}"), flush=True)
+        gate(not diffs, f"midflight KV ({layout}) differs from the "
+             f"token-at-a-time engine's: (layer, field, rows, first "
+             f"position) {diffs[:8]}")
+    return res
+
+
+def self_draft_check(torch, ops, dev, reqs):
+    """A target policy at the draft's own width packs the draft's tree, so
+    every draft on a decisive step (the target's top-2 margin above 1e-2 at
+    the rejected position) must be accepted."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MPQPolicy
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-0.6b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    demo = serve.demo_mixed_policy(cfg)
+    policy = MPQPolicy({n: DRAFT_BITS for n in demo.w_bits},
+                       dict(demo.a_bits), meta={"kind": "uniform-draft"})
+    with spec_probe(torch, ops, guard_syncs=False) as rec:
+        _, eng, _ = serve.serve_quantized(
+            cfg, params, policy, reqs[:2], slots=2, cache_len=CACHE_LEN,
+            prefill_chunk=PREFILL_CHUNK, device=dev, speculate=SPEC_K,
+            draft_bits=DRAFT_BITS)
+    rejected = decisive = 0
+    for drafts, pos, _, margins, acc in rec["rounds"]:
+        k = drafts.shape[1]
+        p, m, a = pos.cpu().numpy(), margins.cpu().numpy(), \
+            acc.cpu().numpy()
+        for b in np.flatnonzero(p >= 0):
+            if a[b] < k:
+                rejected += 1
+                decisive += int(m[b, a[b]] > 1e-2)
+    st = eng.stats
+    print(f"[self-draft] target at the draft's {DRAFT_BITS} bits: accept "
+          f"rate {st.spec_accept_rate:.4f} ({st.spec_accepted_tokens} of "
+          f"{st.spec_draft_tokens}) over {st.spec_rounds} rounds; "
+          f"{rejected} rejections, {decisive} on a decisive step",
+          flush=True)
+    gate(st.spec_draft_tokens > 0 and decisive == 0,
+         f"self-draft: {decisive} drafts rejected on a decisive step")
+    return dict(accept_rate=st.spec_accept_rate, rounds=st.spec_rounds,
+                drafted=st.spec_draft_tokens,
+                accepted=st.spec_accepted_tokens, rejected=rejected,
+                rejected_decisive=decisive)
 
 
 def main() -> int:
@@ -1109,6 +1567,7 @@ def main() -> int:
     rows = matmul_phase(torch, ops, ref, flush, dev)
     rows += attn_phase(torch, ops, ref, flush, dev)
     rows += paged_attn_phase(torch, ops, ref, flush, dev)
+    rows += verify_attn_phase(torch, ops, ref, flush, dev)
     rows += fake_quant_phase(torch, ops, ref, flush, dev)
     rows += flash_phase(torch, ops, ref, flush, dev)
     del flush
@@ -1116,10 +1575,22 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     train_launches, train_res = train_phase(torch, ops, dev)
     torch.cuda.empty_cache()
-    serve_launches, serve_res = serve_phase(torch, ops, dev)
+    ring_run, serve_launches, serve_res = serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
-    paged_launches, paged_res = paged_serve_phase(
+    paged_run, paged_launches, paged_res = paged_serve_phase(
         torch, ops, dev, serve_res["prefill_tokens"])
+    torch.cuda.empty_cache()
+    spec_launches, spec_res = spec_serve_phase(torch, ops, dev, "ring",
+                                               ring_run)
+    torch.cuda.empty_cache()
+    spec_paged_launches, spec_paged_res = spec_serve_phase(
+        torch, ops, dev, "paged", paged_run, paged_res["prefix_hit_tokens"])
+    reqs = ring_run[0]
+    del ring_run, paged_run
+    torch.cuda.empty_cache()
+    spec_res["midflight"] = midflight_check(torch, dev, reqs)
+    torch.cuda.empty_cache()
+    spec_res["self_draft"] = self_draft_check(torch, ops, dev, reqs)
     torch.cuda.empty_cache()
     # (e) kernels vs plain versions through one train pass: gated at 2
     # layers (activations unquantized, every kernel against its plain
@@ -1143,12 +1614,18 @@ def main() -> int:
     train_res["vs_plain"] = vs_plain
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
-    # one (both phases' counts are in chip_smoke.json)
+    # one, the verify kernels from the speculative phases (every phase's
+    # counts are in chip_smoke.json)
     launches = dict(serve_launches, **train_launches)
     launches["decode_attn_quant_paged"] = \
         paged_launches["decode_attn_quant_paged"]
+    launches["verify_attn_quant"] = spec_launches["verify_attn_quant"]
+    launches["verify_attn_quant_paged"] = \
+        spec_paged_launches["verify_attn_quant_paged"]
     serve_res["launches"], paged_res["launches"] = serve_launches, \
         paged_launches
+    spec_res["launches"], spec_paged_res["launches"] = spec_launches, \
+        spec_paged_launches
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -1165,7 +1642,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "cases": rows, "train": train_res,
-         "serve": serve_res, "paged_serve": paged_res, "kernels": kernels},
+         "serve": serve_res, "paged_serve": paged_res,
+         "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
+         "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

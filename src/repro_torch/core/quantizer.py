@@ -43,9 +43,15 @@ def _f32(v, like: torch.Tensor) -> torch.Tensor:
 
 def lsq_grad_scale_factor(numel: int, qmax, device=None) -> torch.Tensor:
     """LSQ gradient normalizer g = 1 / sqrt(numel * qmax), in float32 (numel
-    enters as a float32 scalar, as in the reference)."""
-    n = torch.tensor(float(numel), dtype=torch.float32, device=device)
-    q = torch.as_tensor(qmax, dtype=torch.float32, device=device)
+    enters as a float32 scalar, as in the reference). Host numbers become
+    device scalars through ``torch.full``, a fill on the device: a copy
+    from the host would synchronise it on every call."""
+    def scalar(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=torch.float32)
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+
+    n, q = scalar(numel), scalar(qmax)
     return 1.0 / torch.sqrt(torch.clamp(n * q, min=1.0))
 
 

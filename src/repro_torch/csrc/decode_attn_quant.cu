@@ -1,8 +1,13 @@
-// One-token GQA decode attention straight on the int8 KV cache: the ring
-// layout (decode_attn_quant) and the paged layout (decode_attn_quant_paged).
+// GQA decode attention straight on the int8 KV cache: one query per slot on
+// the ring layout (decode_attn_quant) and the paged layout
+// (decode_attn_quant_paged), and S queries per slot, each at its own
+// position, for the speculative verify pass (verify_attn_quant,
+// verify_attn_quant_paged).
 //
 // Replaces the TPU kernels src/repro/kernels/quant_attention.py:_qdec_kernel
-// (decode_attn_quant) and :_qdec_paged_kernel (decode_attn_quant_paged).
+// (decode_attn_quant) and :_qdec_paged_kernel (decode_attn_quant_paged), and
+// the verify functions of the same file (verify_attn_quant,
+// verify_attn_quant_paged), which unroll S one-token launches.
 //
 // What it computes, per slot b and query head (kv head h, group row g):
 //   logit[s] = (q . k_codes[b, s, h]) * k_scale[b, s, h]
@@ -29,6 +34,16 @@
 // in f32 registers and stores p * v_scale in shared memory; then each thread
 // owns one head dimension and half of the tile's positions and accumulates
 // sum p * v_scale * v_code in registers. The two halves combine at the end.
+//
+// Verify (S queries per slot): a second grid dimension over the query
+// index j. Block (slot, kv head, j) loads query row j and its position
+// q_pos[b, j] and runs the one-token block's code unchanged, so query j is
+// bit for bit one one-token launch at q_pos[:, j] (the TPU wrapper unrolled
+// S launches to keep that equality; here it is one launch of S * B * KV
+// blocks). Rows written for later queries mask out by position. What bounds
+// it: the cache bytes, read once; the S blocks of a head each read it, the
+// later ones mostly from L2. A kernel that reads each row once for all S
+// queries is later work.
 //
 // Paged layout: codes (n_pages, ps, KV, hd), scales (n_pages, ps, KV) and
 // positions (n_pages, ps) are pooled across slots; slot b's position t lives
@@ -86,17 +101,17 @@ __device__ __forceinline__ size_t kv_row(int b, int s, int Sc, const int* tbl,
 // (n_pages, ps), table (B, P) and Sc = P * ps logical rows per slot.
 template <bool PAGED>
 __global__ void __launch_bounds__(THREADS)
-decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
+decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
                          const int8_t* __restrict__ kc,
                          const float* __restrict__ ks,
                          const int8_t* __restrict__ vc,
                          const float* __restrict__ vs,
                          const int* __restrict__ pos,
-                         const int* __restrict__ qpos,     // (B,)
+                         const int* __restrict__ qpos,     // (B, S)
                          const int* __restrict__ table,    // (B, P) or null
-                         float* __restrict__ out,          // (B, KV, G, hd)
-                         int Sc, int KV, int G, int hd, int window, int P,
-                         int ps) {
+                         float* __restrict__ out,          // (B, S, KV, G, hd)
+                         int S, int Sc, int KV, int G, int hd, int window,
+                         int P, int ps) {
   extern __shared__ int tbl[];                            // (P,) when PAGED
   __shared__ float qs[MAX_G][MAX_HD];
   __shared__ float logit[MAX_G][TILE];
@@ -108,13 +123,15 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
   const int bh = blockIdx.x;            // b * KV + h
   const int b = bh / KV;
   const int h = bh % KV;
+  const int j = blockIdx.y;             // query index within the slot
+  const size_t qrow = ((size_t)(b * S + j) * KV + h) * G * hd;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int qp = qpos[b];
+  const int qp = qpos[b * S + j];
 
   for (int i = tid; i < G * hd; i += THREADS)
-    qs[i / hd][i % hd] = q[(size_t)bh * G * hd + i];
+    qs[i / hd][i % hd] = q[qrow + i];
   if (PAGED)
     for (int i = tid; i < P; i += THREADS) tbl[i] = table[(size_t)b * P + i];
   if (tid < G) {
@@ -234,7 +251,7 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
     for (int g = 0; g < MAX_G; ++g) {
       if (g >= G) continue;
       const float l = fmaxf(l_s[g], 1e-30f);
-      float* o = out + ((size_t)bh * G + g) * hd;
+      float* o = out + qrow + (size_t)g * hd;
       if (d0 < hd) o[d0] = (acc[g][0] + part[g][d0]) / l;
       if (d0 + 128 < hd) o[d0 + 128] = (acc[g][1] + part[g][d0 + 128]) / l;
     }
@@ -243,25 +260,53 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, KV, G, hd)
 
 }  // namespace
 
-// Shapes as in the comments of the kernel's arguments; G <= 8, hd <= 256 and
-// hd % 4 == 0 (the wrapper checks). window <= 0 means no window.
+// Shapes as in the comments of the kernel's arguments; G <= 8, hd <= 256,
+// hd % 4 == 0 and S <= 65535 (the wrapper checks). window <= 0 means no
+// window. The one-token entry points are the S = 1 launch of the verify
+// ones: one compiled kernel serves both.
+extern "C" int verify_attn_quant(const void* q, const void* kc, const void* ks,
+                                 const void* vc, const void* vs,
+                                 const void* pos, const void* qpos, void* out,
+                                 int B, int S, int Sc, int KV, int G, int hd,
+                                 int window, void* stream) {
+  decode_attn_quant_kernel<false><<<dim3(B * KV, S), THREADS, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(qpos), nullptr, static_cast<float*>(out), S,
+      Sc, KV, G, hd, window, 0, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int decode_attn_quant(const void* q, const void* kc, const void* ks,
                                  const void* vc, const void* vs,
                                  const void* pos, const void* qpos, void* out,
                                  int B, int Sc, int KV, int G, int hd,
                                  int window, void* stream) {
-  decode_attn_quant_kernel<false><<<B * KV, THREADS, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(kc),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(qpos), nullptr, static_cast<float*>(out), Sc,
-      KV, G, hd, window, 0, 1);
-  return static_cast<int>(cudaGetLastError());
+  return verify_attn_quant(q, kc, ks, vc, vs, pos, qpos, out, B, 1, Sc, KV, G,
+                           hd, window, stream);
 }
 
 // Paged layout: pages (n_pages, ps, KV, hd), table (B, P); the wrapper keeps
 // P * 4 bytes of table within the 48 KB a block may take without opting in.
+extern "C" int verify_attn_quant_paged(const void* q, const void* kc,
+                                       const void* ks, const void* vc,
+                                       const void* vs, const void* pos,
+                                       const void* table, const void* qpos,
+                                       void* out, int B, int S, int P, int ps,
+                                       int KV, int G, int hd, int window,
+                                       void* stream) {
+  decode_attn_quant_kernel<true><<<dim3(B * KV, S), THREADS, P * sizeof(int),
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(qpos), static_cast<const int*>(table),
+      static_cast<float*>(out), S, P * ps, KV, G, hd, window, P, ps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int decode_attn_quant_paged(const void* q, const void* kc,
                                        const void* ks, const void* vc,
                                        const void* vs, const void* pos,
@@ -269,12 +314,6 @@ extern "C" int decode_attn_quant_paged(const void* q, const void* kc,
                                        void* out, int B, int P, int ps, int KV,
                                        int G, int hd, int window,
                                        void* stream) {
-  decode_attn_quant_kernel<true><<<B * KV, THREADS, P * sizeof(int),
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(kc),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(qpos), static_cast<const int*>(table),
-      static_cast<float*>(out), P * ps, KV, G, hd, window, P, ps);
-  return static_cast<int>(cudaGetLastError());
+  return verify_attn_quant_paged(q, kc, ks, vc, vs, pos, table, qpos, out, B,
+                                 1, P, ps, KV, G, hd, window, stream);
 }

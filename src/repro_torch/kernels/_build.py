@@ -39,6 +39,8 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     "decode_attn_quant": {
         "decode_attn_quant": [_P] * 8 + [_I] * 6 + [_P],
         "decode_attn_quant_paged": [_P] * 9 + [_I] * 7 + [_P],
+        "verify_attn_quant": [_P] * 8 + [_I] * 7 + [_P],
+        "verify_attn_quant_paged": [_P] * 9 + [_I] * 8 + [_P],
     },
     "fake_quant": {
         "fake_quant_fwd": [_P, _P, _P, _L, _F, _F, _I, _P],

@@ -21,7 +21,9 @@ from repro_torch.kernels import _build, ref
 
 launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
                             "decode_attn_quant": 0,
-                            "decode_attn_quant_paged": 0, "fake_quant_fwd": 0,
+                            "decode_attn_quant_paged": 0,
+                            "verify_attn_quant": 0,
+                            "verify_attn_quant_paged": 0, "fake_quant_fwd": 0,
                             "fake_quant_bwd": 0, "flash_fwd": 0}
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
@@ -137,6 +139,86 @@ def quant_matmul_w4(x_q: torch.Tensor, w_p: torch.Tensor, s_x: torch.Tensor,
     return _qmm("qmm_w4", "quant_matmul_w4", x_q, w_p, s_x, s_w, w_p.shape[1])
 
 
+def _check_attn_shape(name: str, G: int, hd: int,
+                      window: Optional[int]) -> None:
+    """The launch shape the decode-attention kernels take."""
+    if G > 8 or hd > 256 or hd % 4:
+        raise ValueError(f"{name}: needs G <= 8, hd <= 256 and hd % 4 == 0, "
+                         f"got G={G} hd={hd}")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be > 0, got {window}")
+
+
+def _quant_attn(name: str, q: torch.Tensor, kc: torch.Tensor,
+                ks: torch.Tensor, vc: torch.Tensor, vs: torch.Tensor,
+                pos: torch.Tensor, q_pos: torch.Tensor,
+                table: Optional[torch.Tensor],
+                window: Optional[int]) -> torch.Tensor:
+    """The four attention wrappers on one launcher: q (B, S, H, hd) with
+    q_pos (B, S) for the verify entry points, (B,) with S = 1 for the
+    one-token ones; the ring layout when ``table`` is None, else the paged
+    one. q is pre-scaled by hd**-0.5 here, as the TPU wrappers did. Returns
+    (B, S, H, hd) f32."""
+    verify = name.startswith("verify")
+    paged = table is not None
+    if paged:
+        n_pages, ps, KV, hd = kc.shape
+        B, P = table.shape
+        cache = ((n_pages, ps, KV, hd), (n_pages, ps, KV), (n_pages, ps))
+    else:
+        B, Sc, KV, hd = kc.shape
+        cache = ((B, Sc, KV, hd), (B, Sc, KV), (B, Sc))
+    S, H = q.shape[1], q.shape[2]
+    G = H // KV
+    if q.shape != (B, S, H, hd) or H != KV * G or S < 1 or \
+            (not verify and S != 1):
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match codes "
+                         f"{tuple(kc.shape)}"
+                         + (f" and table {tuple(table.shape)}" if paged else ""))
+    qf = q.reshape(B, S, KV, G, hd).to(torch.float32) * (hd ** -0.5)
+    tensors = (qf, kc, ks, vc, vs, pos, q_pos) + ((table,) if paged else ())
+    if not _on_cuda(*tensors):
+        if verify:
+            fn = ref.verify_attn_quant_paged_ref if paged \
+                else ref.verify_attn_quant_ref
+            out = fn(qf, kc, ks, vc, vs, pos, *((table,) if paged else ()),
+                     q_pos, window)
+        else:
+            fn = ref.decode_attn_quant_paged_ref if paged \
+                else ref.decode_attn_quant_ref
+            out = fn(qf[:, 0], kc, ks, vc, vs, pos,
+                     *((table,) if paged else ()), q_pos, window)
+        return out.reshape(B, S, H, hd)
+    qf = qf.contiguous()
+    _check_attn_shape(name, G, hd, window)
+    if S > 65535:
+        raise ValueError(f"{name}: S={S} exceeds the grid's 65535 queries")
+    if paged and (P > MAX_TABLE or n_pages < 1):
+        raise ValueError(f"{name}: needs 1 <= n_pages and P <= {MAX_TABLE}, "
+                         f"got n_pages={n_pages} P={P}")
+    codes, scales, rows = cache
+    _check(kc, "k_codes", torch.int8, codes)
+    _check(vc, "v_codes", torch.int8, codes)
+    _check(ks, "k_scale", torch.float32, scales)
+    _check(vs, "v_scale", torch.float32, scales)
+    _check(pos, "pos", torch.int32, rows)
+    _check(q_pos, "q_pos", torch.int32, (B, S) if verify else (B,))
+    if paged:
+        _check(table, "page_table", torch.int32, (B, P))
+    out = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=qf.device)
+    ptrs = [t.data_ptr() for t in (qf, kc, ks, vc, vs, pos)]
+    ptrs += [table.data_ptr()] if paged else []
+    ptrs += [q_pos.data_ptr(), out.data_ptr()]
+    dims = [B] + ([S] if verify else [])
+    dims += [P, ps] if paged else [Sc]
+    dims += [KV, G, hd, 0 if window is None else int(window)]
+    rc = getattr(_build.load("decode_attn_quant"), name)(*ptrs, *dims,
+                                                         _stream())
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out.reshape(B, S, H, hd)
+
+
 def decode_attn_quant(q: torch.Tensor, k_codes: torch.Tensor,
                       k_scale: torch.Tensor, v_codes: torch.Tensor,
                       v_scale: torch.Tensor, pos: torch.Tensor,
@@ -149,44 +231,8 @@ def decode_attn_quant(q: torch.Tensor, k_codes: torch.Tensor,
     positions (-1 = empty); q_pos: (B,) int32. Returns (B, 1, H, hd) f32.
     Rows whose slots are all masked softmax uniformly (finite, discarded by
     the engine)."""
-    B, Sc, KV, hd = k_codes.shape
-    H = q.shape[2]
-    G = H // KV
-    if q.shape != (B, 1, H, hd) or H != KV * G:
-        raise ValueError(f"decode_attn_quant: q {tuple(q.shape)} does not "
-                         f"match codes {tuple(k_codes.shape)}")
-    qf = q.reshape(B, KV, G, hd).to(torch.float32) * (hd ** -0.5)
-    if not _on_cuda(qf, k_codes, k_scale, v_codes, v_scale, pos, q_pos):
-        out = ref.decode_attn_quant_ref(qf, k_codes, k_scale, v_codes,
-                                        v_scale, pos, q_pos, window)
-        return out.reshape(B, 1, H, hd)
-    qf = qf.contiguous()
-    _check_attn_shape("decode_attn_quant", G, hd, window)
-    _check(k_codes, "k_codes", torch.int8, (B, Sc, KV, hd))
-    _check(v_codes, "v_codes", torch.int8, (B, Sc, KV, hd))
-    _check(k_scale, "k_scale", torch.float32, (B, Sc, KV))
-    _check(v_scale, "v_scale", torch.float32, (B, Sc, KV))
-    _check(pos, "pos", torch.int32, (B, Sc))
-    _check(q_pos, "q_pos", torch.int32, (B,))
-    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=qf.device)
-    fn = _build.load("decode_attn_quant").decode_attn_quant
-    rc = fn(qf.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
-            v_codes.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), B, Sc, KV, G, hd,
-            0 if window is None else int(window), _stream())
-    _raise_on(rc, "decode_attn_quant")
-    launches["decode_attn_quant"] += 1
-    return out.reshape(B, 1, H, hd)
-
-
-def _check_attn_shape(name: str, G: int, hd: int,
-                      window: Optional[int]) -> None:
-    """The launch shape both decode-attention kernels take."""
-    if G > 8 or hd > 256 or hd % 4:
-        raise ValueError(f"{name}: needs G <= 8, hd <= 256 and hd % 4 == 0, "
-                         f"got G={G} hd={hd}")
-    if window is not None and window <= 0:
-        raise ValueError(f"{name}: window must be > 0, got {window}")
+    return _quant_attn("decode_attn_quant", q, k_codes, k_scale, v_codes,
+                       v_scale, pos, q_pos, None, window)
 
 
 def decode_attn_quant_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -202,42 +248,35 @@ def decode_attn_quant_paged(q: torch.Tensor, k_pages: torch.Tensor,
     page_table: (B, P) int32 physical page per logical block (-1 =
     unmapped: the block is masked); q_pos: (B,) int32. Returns (B, 1, H,
     hd) f32, what :func:`decode_attn_quant` gives on the gathered view."""
-    n_pages, ps, KV, hd = k_pages.shape
-    B, P = page_table.shape
-    H = q.shape[2]
-    G = H // KV
-    if q.shape != (B, 1, H, hd) or H != KV * G:
-        raise ValueError(f"decode_attn_quant_paged: q {tuple(q.shape)} does "
-                         f"not match pages {tuple(k_pages.shape)} and table "
-                         f"{tuple(page_table.shape)}")
-    qf = q.reshape(B, KV, G, hd).to(torch.float32) * (hd ** -0.5)
-    if not _on_cuda(qf, k_pages, k_scale, v_pages, v_scale, page_pos,
-                    page_table, q_pos):
-        out = ref.decode_attn_quant_paged_ref(qf, k_pages, k_scale, v_pages,
-                                              v_scale, page_pos, page_table,
-                                              q_pos, window)
-        return out.reshape(B, 1, H, hd)
-    qf = qf.contiguous()
-    _check_attn_shape("decode_attn_quant_paged", G, hd, window)
-    if P > MAX_TABLE or n_pages < 1:
-        raise ValueError(f"decode_attn_quant_paged: needs 1 <= n_pages and "
-                         f"P <= {MAX_TABLE}, got n_pages={n_pages} P={P}")
-    _check(k_pages, "k_pages", torch.int8, (n_pages, ps, KV, hd))
-    _check(v_pages, "v_pages", torch.int8, (n_pages, ps, KV, hd))
-    _check(k_scale, "k_scale", torch.float32, (n_pages, ps, KV))
-    _check(v_scale, "v_scale", torch.float32, (n_pages, ps, KV))
-    _check(page_pos, "page_pos", torch.int32, (n_pages, ps))
-    _check(page_table, "page_table", torch.int32, (B, P))
-    _check(q_pos, "q_pos", torch.int32, (B,))
-    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=qf.device)
-    fn = _build.load("decode_attn_quant").decode_attn_quant_paged
-    rc = fn(qf.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
-            v_pages.data_ptr(), v_scale.data_ptr(), page_pos.data_ptr(),
-            page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, P, ps,
-            KV, G, hd, 0 if window is None else int(window), _stream())
-    _raise_on(rc, "decode_attn_quant_paged")
-    launches["decode_attn_quant_paged"] += 1
-    return out.reshape(B, 1, H, hd)
+    return _quant_attn("decode_attn_quant_paged", q, k_pages, k_scale,
+                       v_pages, v_scale, page_pos, q_pos, page_table, window)
+
+
+def verify_attn_quant(q: torch.Tensor, k_codes: torch.Tensor,
+                      k_scale: torch.Tensor, v_codes: torch.Tensor,
+                      v_scale: torch.Tensor, pos: torch.Tensor,
+                      q_pos: torch.Tensor, *,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """S-query speculative-verify attention on int8 ring KV codes, one
+    launch: q (B, S, H, hd), q_pos (B, S) int32, each query masked by its
+    own position; the cache operands as in :func:`decode_attn_quant`.
+    Query j equals :func:`decode_attn_quant` at ``q_pos[:, j]`` bit for
+    bit. Returns (B, S, H, hd) f32."""
+    return _quant_attn("verify_attn_quant", q, k_codes, k_scale, v_codes,
+                       v_scale, pos, q_pos, None, window)
+
+
+def verify_attn_quant_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                            k_scale: torch.Tensor, v_pages: torch.Tensor,
+                            v_scale: torch.Tensor, page_pos: torch.Tensor,
+                            page_table: torch.Tensor, q_pos: torch.Tensor, *,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """:func:`verify_attn_quant` over the paged layout (operands as in
+    :func:`decode_attn_quant_paged`, q (B, S, H, hd), q_pos (B, S)); query
+    j equals :func:`decode_attn_quant_paged` at ``q_pos[:, j]`` bit for
+    bit."""
+    return _quant_attn("verify_attn_quant_paged", q, k_pages, k_scale,
+                       v_pages, v_scale, page_pos, q_pos, page_table, window)
 
 
 # ---------------------------------------------------------------------------

@@ -155,3 +155,30 @@ def decode_attn_quant_paged_ref(qf: torch.Tensor, k_pages: torch.Tensor,
                          page_table).gather()
     return decode_attn_quant_ref(qf, dense.k, dense.k_scale, dense.v,
                                  dense.v_scale, dense.pos, q_pos, window)
+
+
+def verify_attn_quant_ref(qf: torch.Tensor, k_codes: torch.Tensor,
+                          k_scale: torch.Tensor, v_codes: torch.Tensor,
+                          v_scale: torch.Tensor, pos: torch.Tensor,
+                          q_pos: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """S-query verify attention: :func:`decode_attn_quant_ref` once per
+    query index j at ``q_pos[:, j]``. qf (B, S, KV, G, hd) f32 pre-scaled,
+    q_pos (B, S) int32; returns (B, S, KV, G, hd) f32."""
+    return torch.stack([
+        decode_attn_quant_ref(qf[:, j], k_codes, k_scale, v_codes, v_scale,
+                              pos, q_pos[:, j], window)
+        for j in range(qf.shape[1])], dim=1)
+
+
+def verify_attn_quant_paged_ref(qf: torch.Tensor, k_pages: torch.Tensor,
+                                k_scale: torch.Tensor, v_pages: torch.Tensor,
+                                v_scale: torch.Tensor, page_pos: torch.Tensor,
+                                page_table: torch.Tensor, q_pos: torch.Tensor,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """:func:`verify_attn_quant_ref` over the paged layout, on the dense
+    view ``PagedKVCache.gather`` builds."""
+    dense = PagedKVCache(k_pages, v_pages, k_scale, v_scale, page_pos,
+                         page_table).gather()
+    return verify_attn_quant_ref(qf, dense.k, dense.k_scale, dense.v,
+                                 dense.v_scale, dense.pos, q_pos, window)

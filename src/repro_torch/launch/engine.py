@@ -31,6 +31,16 @@ prompt's full pages are then registered for the next request. Decode writes
 into the slot's own pages; a finished slot releases its references and
 freed pages get their ``pos`` rows cleared.
 
+Self-speculative decoding (``speculate=k``, a ``runtime.session.SpecSession``
+adapter): each round, the uniform low-bit draft pack proposes k tokens per
+slot (k one-token decodes, the argmax fed back on the device), the searched
+target pack verifies ``[cur, d1..dk]`` in one multi-token pass, greedy
+acceptance keeps the longest matching prefix, and KV rows past each slot's
+last fed token roll back by position. Every emitted token is the target's
+own greedy token. The host uploads the round's inputs, and reads targets,
+accept lengths, emit counts and margins back once, after the round: nothing
+inside it synchronises.
+
 Phase timers stop after ``torch.cuda.synchronize()`` on a CUDA device (the
 host reads the sampled tokens anyway), so a phase's time covers its device
 work, not its launch latency.
@@ -57,6 +67,27 @@ from repro_torch.runtime import dispatch
 from repro_torch.runtime import kv_cache as qkv
 
 
+def check_speculate(cfg: ModelConfig, k: int) -> None:
+    """Whether ``cfg`` can decode with ``speculate=k``: k >= 0, and for
+    k > 0 every cache of the schedule rewinds by position past a rejected
+    draft token (attention only, no sliding window)."""
+    dispatch.ROUTES.validate("spec", "self" if k else "off")
+    if k < 0:
+        raise ValueError(f"speculate must be >= 0, got {k}")
+    if not k:
+        return
+    bad = {s.kind for s in lm.iter_sites(cfg)} - set(lm.ATTN_KINDS)
+    if bad:
+        raise ValueError(
+            f"speculate > 0 requires an attention-only schedule: "
+            f"{sorted(bad)} state is sequential and cannot roll back "
+            "past a rejected draft token")
+    if cfg.sliding_window or cfg.local_window:
+        raise ValueError(
+            "speculate > 0 does not support sliding-window archs: "
+            "the ring window overwrites rows a rollback would need")
+
+
 @dataclasses.dataclass
 class EngineConfig:
     """Engine knobs."""
@@ -71,6 +102,8 @@ class EngineConfig:
     kv_layout: str = "ring"  # "ring" | "paged" (pooled pages + prefix reuse)
     page_size: int = 8  # tokens per KV page (paged layout only)
     n_pages: int = 0  # paged pool size; 0 = (slots + 1) * pages per slot
+    eos_id: Optional[int] = None  # optional early-stop token id
+    speculate: int = 0  # self-speculative draft length k (0 = off)
 
 
 @dataclasses.dataclass
@@ -94,6 +127,9 @@ class EngineStats:
     admitted: int = 0
     completed: int = 0
     tokens_generated: int = 0
+    spec_rounds: int = 0  # draft + verify rounds (speculate > 0)
+    spec_draft_tokens: int = 0  # tokens the low-bit draft proposed
+    spec_accepted_tokens: int = 0  # proposals the target confirmed
     t_prefill_s: float = 0.0
     t_decode_s: float = 0.0
     latency: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -102,10 +138,16 @@ class EngineStats:
     def decode_tokens_per_s(self) -> float:
         return self.tokens_generated / max(self.t_decode_s, 1e-9)
 
+    @property
+    def spec_accept_rate(self) -> float:
+        """Fraction of drafted tokens the target verified (greedy match)."""
+        return self.spec_accepted_tokens / max(self.spec_draft_tokens, 1)
+
     def as_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
         d.update(d.pop("latency"))
         d["decode_tokens_per_s"] = self.decode_tokens_per_s
+        d["spec_accept_rate"] = self.spec_accept_rate
         return d
 
 
@@ -152,7 +194,8 @@ class LMAdapter:
 class _Slot:
     """Host-side bookkeeping for one engine slot."""
 
-    __slots__ = ("req", "next_tok", "next_pos", "gen", "done", "admitted_at")
+    __slots__ = ("req", "next_tok", "next_pos", "gen", "done", "admitted_at",
+                 "spec_drafted", "spec_accepted")
 
     def __init__(self, req: Request, first_tok: int, now: int):
         self.req = req
@@ -161,6 +204,8 @@ class _Slot:
         self.gen: List[int] = [first_tok]
         self.done = False
         self.admitted_at = now
+        self.spec_drafted = 0  # draft proposals made for this slot
+        self.spec_accepted = 0  # proposals the target confirmed
 
 
 def _insert(full, row, slot: int) -> None:
@@ -221,6 +266,15 @@ class DecodeEngine:
             # what a shared-prefix page hit avoids recomputing
             self._flops_per_token = 2.0 * sum(
                 q.macs_per_token * q.n_mats for q in lm.enumerate_qlayers(cfg))
+        self._spec_k = int(self.ecfg.speculate)
+        self.draft_params = getattr(adapter, "draft_params", None)
+        check_speculate(cfg, self._spec_k)
+        if self._spec_k and (not hasattr(adapter, "verify")
+                             or self.draft_params is None):
+            raise ValueError(
+                "speculate > 0 needs a dual-policy adapter "
+                "(runtime.session.SpecSession): a draft_params tree to "
+                "propose tokens and a verify() pass to confirm them")
         if kv_mode == "int8":
             self.decode_attn_route = \
                 "fused" if self.device.type == "cuda" else "dequant-fp"
@@ -284,6 +338,9 @@ class DecodeEngine:
             decode_attn_route=self.decode_attn_route,
             admitted=c("admitted"), completed=c("completed"),
             tokens_generated=c("tokens_generated"),
+            spec_rounds=int(m.value("spec.rounds")),
+            spec_draft_tokens=int(m.value("spec.draft_tokens")),
+            spec_accepted_tokens=int(m.value("spec.accepted_tokens")),
             t_prefill_s=m.value("engine.t_prefill_s"),
             t_decode_s=m.value("engine.t_decode_s"), latency=lat)
 
@@ -355,7 +412,8 @@ class DecodeEngine:
         toks = slot.gen[: slot.req.max_new]
         self.completions[rid] = Completion(
             rid=rid, prompt_len=slot.req.prompt_len, tokens=toks,
-            admitted_at=slot.admitted_at, finished_at=now)
+            admitted_at=slot.admitted_at, finished_at=now,
+            spec_drafted=slot.spec_drafted, spec_accepted=slot.spec_accepted)
         self.margins[rid] = self.margins[rid][: len(toks)]
         m = self.metrics
         m.counter("engine.completed").inc()
@@ -466,7 +524,7 @@ class DecodeEngine:
         # request is the fenced prefill time (queue wait is the scheduler's)
         m.histogram("engine.ttft_ms").observe(dt * 1e3)
         self.slots[idx] = _Slot(req, first, now)
-        if req.max_new == 1:
+        if req.max_new == 1 or first == self.ecfg.eos_id:
             self._mark_done(idx, now)
 
     def _decode_step(self, now: int) -> None:
@@ -500,7 +558,110 @@ class DecodeEngine:
             s.next_tok = int(nxt[i])
             s.next_pos += 1
             itl.observe(dt * 1e3)
-            if len(s.gen) >= s.req.max_new:
+            if len(s.gen) >= s.req.max_new or nxt[i] == self.ecfg.eos_id:
+                self._mark_done(i, now)
+
+    # -- self-speculative decode --------------------------------------------
+    def _spec_draft_body(self, steps: int, tok, pos, state):
+        """``steps`` one-token decodes of the draft pack, writing draft KV
+        rows at p..p+steps-1; the argmax stays on the device and feeds the
+        next step. Returns (drafts (n, steps) int32, state)."""
+        drafts = []
+        for _ in range(steps):
+            logits, state = self.adapter.decode(self.draft_params, tok, pos,
+                                                state)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            pos = torch.where(pos < 0, pos, pos + 1)
+            drafts.append(tok)
+        return torch.cat(drafts, dim=1), state
+
+    def _spec_verify_fn(self, tok, drafts, pos, remaining, state):
+        """The target pass over ``[cur, d1..dk]`` at positions p..p+k (it
+        overwrites every draft KV row with the target's and writes row
+        p+k), then on the device: greedy acceptance, emission truncation
+        (``max_new`` first, then the first EOS: the order a token-at-a-time
+        engine stops in), and the rollback past each slot's last fed row.
+        Free slots (pos -1) ride along at -1 with a cut nothing reaches.
+        Returns (targets (n, k+1), top-2 margins (n, k+1), accepted (n,),
+        emitted (n,), state)."""
+        k = drafts.shape[1]
+        off = torch.arange(k + 1, dtype=torch.int32, device=pos.device)
+        vpos = torch.where(pos[:, None] < 0, -1, pos[:, None] + off[None])
+        logits, state = self.adapter.verify(
+            self.params, torch.cat([tok, drafts], dim=1), vpos, state)
+        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        accept = torch.cumprod((drafts == targets[:, :k]).to(torch.int32),
+                               dim=1)
+        a = accept.sum(dim=1)
+        emit = torch.minimum(a + 1, remaining)
+        if self.ecfg.eos_id is not None:
+            hits = (targets == self.ecfg.eos_id) & (off[None] < emit[:, None])
+            first = torch.argmax(hits.to(torch.int32), dim=1)
+            emit = torch.where(hits.any(dim=1), first + 1, emit)
+        cut = torch.where(pos < 0, 2 ** 30, pos + emit)
+        state = lm.rollback_decode_state(state, cut)
+        return targets, top2[..., 0] - top2[..., 1], a, emit, state
+
+    def _spec_fused(self, steps: int, tok, pos, remaining, state):
+        """One whole round on the device, with no host synchronisation:
+        the draft steps, the verify pass, acceptance and rollback. Returns
+        ((n, 2 * (steps + 1) + 2) float64: targets, margins, accepted and
+        emitted per slot, for one read), state)."""
+        drafts, state = self._spec_draft_body(steps, tok, pos, state)
+        targets, margins, a, emit, state = self._spec_verify_fn(
+            tok, drafts, pos, remaining, state)
+        f = torch.float64      # holds the token ids and counts exactly
+        return torch.cat([targets.to(f), margins.to(f), a[:, None].to(f),
+                          emit[:, None].to(f)], dim=1), state
+
+    def _spec_round(self, now: int) -> None:
+        """One speculative round over the live slots (module docstring):
+        emits 1..k+1 tokens per slot, each the target's greedy token."""
+        live = [i for i, s in enumerate(self.slots)
+                if s is not None and not s.done]
+        # a live slot has at least one token to go, so k >= 1
+        k = min(self._spec_k, min(self.slots[i].req.max_new
+                                  - len(self.slots[i].gen) for i in live))
+        n = self.ecfg.slots
+        toks = np.zeros((n, 1), np.int32)
+        pos = np.full((n,), -1, np.int32)
+        remaining = np.zeros((n,), np.int32)
+        for i in live:
+            s = self.slots[i]
+            toks[i, 0] = s.next_tok
+            pos[i] = s.next_pos
+            remaining[i] = s.req.max_new - len(s.gen)
+        t0 = time.perf_counter()
+        out, self.state = self._spec_fused(
+            k, *(torch.as_tensor(a, device=self.device)
+                 for a in (toks, pos, remaining)), self.state)
+        host = out.cpu().numpy()            # the round's one read
+        self._fence()
+        dt = time.perf_counter() - t0
+        tgt, marg = host[:, :k + 1].astype(np.int64), host[:, k + 1:2 * k + 2]
+        acc, emit = host[:, -2].astype(np.int64), host[:, -1].astype(np.int64)
+        m = self.metrics
+        m.counter("engine.t_decode_s").inc(dt)
+        m.counter("engine.decode_steps").inc()
+        m.counter("engine.slot_steps").inc(len(live))
+        m.counter("engine.padded_slot_steps").inc(len(self._occupied()))
+        m.counter("spec.rounds").inc()
+        m.counter("spec.draft_tokens").inc(k * len(live))
+        m.counter("spec.accepted_tokens").inc(int(acc[live].sum()))
+        m.histogram("engine.decode_step_ms").observe(dt * 1e3)
+        itl = m.histogram("engine.itl_ms")
+        for i in live:
+            s = self.slots[i]
+            s.spec_drafted += k
+            s.spec_accepted += int(acc[i])
+            e = int(emit[i])
+            s.gen.extend(int(t) for t in tgt[i, :e])
+            self.margins[s.req.rid].extend(float(x) for x in marg[i, :e])
+            s.next_tok = int(tgt[i, e - 1])
+            s.next_pos += e
+            itl.observe(dt * 1e3)
+            if len(s.gen) >= s.req.max_new or s.next_tok == self.ecfg.eos_id:
                 self._mark_done(i, now)
 
     # -- main loop ----------------------------------------------------------
@@ -522,7 +683,10 @@ class DecodeEngine:
                     page_need=self._pages_per_slot if self._paged else 0):
                 self._admit(req, idx, now)
         if any(s is not None and not s.done for s in self.slots):
-            self._decode_step(now)
+            if self._spec_k:
+                self._spec_round(now)
+            else:
+                self._decode_step(now)
         elif not self._occupied() and not self.scheduler.has_pending():
             return False
         self.metrics.counter("engine.iterations").inc()

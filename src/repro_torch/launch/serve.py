@@ -2,7 +2,10 @@
 ``runtime.session.QuantizedSession``, served through the continuous-batching
 engine (``launch.engine``) with greedy decode, over an int8 (or fp) ring KV
 cache or, with ``--kv-layout paged``, pooled int8 pages with shared-prefix
-reuse and chunked append prefill.
+reuse and chunked append prefill. ``--speculate K`` decodes
+self-speculatively: a uniform ``--draft-bits`` repack of the same weights
+proposes K tokens per round and the searched policy verifies them in one
+multi-token pass (greedy only, int8 KV, either layout).
 
 The weights are the port's seeded random initialisation (no checkpoint of a
 published model ships with the repository); the policy is a searched
@@ -19,6 +22,8 @@ Examples:
   python -m repro_torch.launch.serve --smoke --device cpu --kv-layout paged \
       --check --stagger
   python -m repro_torch.launch.serve --policy searched.json --check
+  python -m repro_torch.launch.serve --smoke --device cpu --speculate 4 \
+      --draft-bits 2
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.policy import MPQPolicy
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.engine import DecodeEngine, EngineConfig, \
-    decisive_prefix
+    check_speculate, decisive_prefix
 from repro_torch.launch.scheduler import Request
 from repro_torch.models import lm
 from repro_torch.models.quant_layers import QuantContext
@@ -107,27 +112,90 @@ def check_kv(kv: str, kv_layout: str) -> None:
                          "int8 codes + scales")
 
 
+def check_spec(cfg, speculate: int, draft_bits: int, *, kv: str = "int8",
+               policy_given: bool = True) -> None:
+    """The ``--speculate`` contract, each incompatibility with its reason:
+    int8 KV, a policy to draft for, a draft width in [2, 8] (it must also
+    be a searched width: ``SpecSession`` checks that against the config),
+    and a schedule the engine can roll back (``check_speculate``).
+    Speculation is greedy because the engine decodes greedily."""
+    check_speculate(cfg, speculate)
+    if not speculate:
+        return
+    if not policy_given:
+        raise ValueError(
+            "--speculate needs --policy <searched.json> (or --smoke, which "
+            "serves the demo policy): the draft is a low-bit repack of the "
+            "target's packed weights")
+    if kv != "int8":
+        raise ValueError(
+            "--speculate requires --kv int8: draft and verify share one int8 "
+            "KV cache, rolled back past the first rejection")
+    if not 2 <= draft_bits <= 8:
+        raise ValueError(f"--draft-bits must be in [2, 8], got {draft_bits}")
+
+
 def serve_quantized(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                     cache_len: int, prefill_chunk: int, device=None,
                     kv: str = "int8", kv_layout: str = "ring",
-                    page_size: int = 8):
-    """Pack ``policy`` into a ``QuantizedSession`` and serve ``reqs``
-    through the engine over a ``kv`` ring KV cache or the paged int8
-    layout. Returns (session, engine, completions)."""
-    from repro_torch.runtime.session import QuantizedSession
+                    page_size: int = 8, speculate: int = 0,
+                    draft_bits: int = 2):
+    """Pack ``policy`` into a ``QuantizedSession`` (a ``SpecSession`` with
+    its ``draft_bits`` draft pack when ``speculate`` > 0) and serve
+    ``reqs`` through the engine over a ``kv`` ring KV cache or the paged
+    int8 layout. Returns (session, engine, completions)."""
+    from repro_torch.runtime.session import QuantizedSession, SpecSession
     check_kv(kv, kv_layout)
+    check_spec(cfg, speculate, draft_bits, kv=kv)
     kv_quant = "int8" if kv == "int8" else "none"
-    sess = QuantizedSession(cfg, params, policy, make_context(cfg),
-                            kv_quant=kv_quant)
+    if speculate:
+        sess = SpecSession(cfg, params, policy, make_context(cfg),
+                           kv_quant=kv_quant, draft_w_bits=draft_bits)
+    else:
+        sess = QuantizedSession(cfg, params, policy, make_context(cfg),
+                                kv_quant=kv_quant)
     eng = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
                        device=device,
                        ecfg=EngineConfig(slots=slots, cache_len=cache_len,
                                          prefill_chunk=prefill_chunk,
                                          kv_quant=kv_quant,
                                          kv_layout=kv_layout,
-                                         page_size=page_size))
+                                         page_size=page_size,
+                                         speculate=speculate))
     eng.submit_all(reqs)
     return sess, eng, eng.run()
+
+
+def token_at_a_time(sess, cfg, reqs, eng):
+    """The speculative engine's session, layout and slots through a
+    token-at-a-time engine (``speculate=0``). Returns (engine,
+    completions)."""
+    ecfg = dataclasses.replace(eng.ecfg, speculate=0)
+    base = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
+                        device=eng.device, ecfg=ecfg)
+    base.submit_all(reqs)
+    return base, base.run()
+
+
+def compare_spec(out, base, base_out, min_margin: float = 1e-2):
+    """Speculative completions ``out`` against the token-at-a-time engine
+    ``base``'s ``base_out``: (tokens identical in all, tokens compared, steps
+    decisive and compared, [rids that differ on a decisive step]). A step is
+    decisive when ``base``'s top-2 margin exceeds ``min_margin``: the verify
+    pass computes its logits from S rows at once, and a tie closer than the
+    float32 rounding of the head may fall either way."""
+    same = total = compared = 0
+    bad = []
+    for rid, c in out.items():
+        ref = base_out[rid].tokens
+        same += sum(a == b for a, b in zip(c.tokens, ref))
+        total += len(ref)
+        n, miss = decisive_prefix(c.tokens, ref, base.margins[rid],
+                                  min_margin)
+        compared += n
+        if miss is not None or len(c.tokens) != len(ref):
+            bad.append(rid)
+    return same, total, compared, bad
 
 
 def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
@@ -223,18 +291,29 @@ def main(argv=None):
                          "their first prompt-len // 2 tokens)")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per KV page (--kv-layout paged)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: a uniform --draft-bits "
+                         "repack of the same packed weights proposes K "
+                         "tokens per round and the searched policy verifies "
+                         "them in one multi-token pass (needs --policy or "
+                         "--smoke, --kv int8)")
+    ap.add_argument("--draft-bits", type=int, default=2,
+                    help="weight bits of the draft pack (--speculate); one "
+                         "of the arch's searched widths")
     ap.add_argument("--check", action="store_true",
                     help="also run the fake-quant reference engine (float32 "
                          "and float64) and compare greedy tokens on decisive "
                          "steps (check_greedy)")
     args = ap.parse_args(argv)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     try:
         check_kv(args.kv, args.kv_layout)
+        check_spec(cfg, args.speculate, args.draft_bits, kv=args.kv,
+                   policy_given=bool(args.policy) or args.smoke)
     except ValueError as e:
         raise SystemExit(str(e))
 
     dev = resolve_device(args.device)
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     policy = (MPQPolicy.load(args.policy) if args.policy
               else demo_mixed_policy(cfg))
     params = lm.init_params(cfg, seed=0, device=dev)
@@ -248,7 +327,9 @@ def main(argv=None):
               prefill_chunk=PREFILL_CHUNK, device=dev)
     sess, eng, out = serve_quantized(cfg, params, policy, reqs, kv=args.kv,
                                      kv_layout=args.kv_layout,
-                                     page_size=args.page_size, **kw)
+                                     page_size=args.page_size,
+                                     speculate=args.speculate,
+                                     draft_bits=args.draft_bits, **kw)
     print_stats("quantized", eng)
     if args.kv_layout == "paged":
         st = eng.stats
@@ -262,6 +343,27 @@ def main(argv=None):
     print(f"packed weights: {s['packed_bytes']} B (+{s['scale_bytes']} B "
           f"scales) vs policy accounting {s['policy_bytes']:.0f} B "
           f"(x{s['packed_vs_policy']:.3f}) on {dev}")
+    if args.speculate:
+        st = eng.stats
+        print(f"speculate k={args.speculate} draft_bits={args.draft_bits}: "
+              f"{st.spec_rounds} rounds | drafted {st.spec_draft_tokens} "
+              f"accepted {st.spec_accepted_tokens} (accept rate "
+              f"{st.spec_accept_rate:.2f}) | draft pack {sess.draft_bytes()} B "
+              f"on top of {s['packed_bytes']} B")
+        if args.smoke:
+            # the speculative gate: the same packed session through a
+            # token-at-a-time engine; speculation may change the step count
+            # and nothing else
+            base, base_out = token_at_a_time(sess, cfg, reqs, eng)
+            same, total, n, bad = compare_spec(out, base, base_out)
+            if bad:
+                raise SystemExit(
+                    "speculative decode diverged from token-at-a-time "
+                    f"packed decode on a decisive step: rids {bad}")
+            print(f"speculative tokens equal token-at-a-time packed decode "
+                  f"on {n} decisive steps ({same} of {total} tokens "
+                  f"identical; {st.decode_steps} spec rounds vs "
+                  f"{base.stats.decode_steps} decode steps)")
     print("generated[rid=0]:", out[0].tokens)
     if args.check:
         n, bad, _ = check_greedy(cfg, params, policy, reqs, out, kv=args.kv,

@@ -1,7 +1,8 @@
 """Attention: GQA with RoPE'd inputs for training and prefill
 (``self_attention``), the one-token decode path over fp / int8 ring KV
-caches and the paged int8 layout, and the chunked append prefill of one
-paged slot (``append_attention``).
+caches and the paged int8 layout, the S-token speculative verify pass
+(``verify_attention``), and the chunked append prefill of one paged slot
+(``append_attention``).
 
 ``self_attention`` switches as the reference does: from 2048 tokens on
 (S a multiple of the 512-row q block) it takes ``flash_attention_cv`` --
@@ -283,6 +284,51 @@ def decode_attention(q: torch.Tensor, cache, k_new: torch.Tensor,
         out = direct_attention(q, k, v, pos32.reshape(1), new.pos,
                                causal=True, window=window)
     return out, new
+
+
+def verify_attention(q: torch.Tensor, cache, k_new: torch.Tensor,
+                     v_new: torch.Tensor, pos: torch.Tensor, *,
+                     window: Optional[int]):
+    """Multi-token verify for self-speculative decoding: append all S rows
+    per slot (``cache.append_batch``), then attend each query at its own
+    position. ``q (B, S, H, hd)``, ``pos (B, S)`` per-slot absolute
+    positions (-1 rows for inactive slots). On the int8 layouts' fused
+    route one ``verify_attn_quant[_paged]`` launch attends all S queries;
+    on the dequant-fp route and for fp caches each query j attends through
+    the one-token per-slot softmax. Either way rows at positions past a
+    query's own mask out, so query j's output is the one-token
+    ``decode_attention``'s at ``pos[:, j]``. Returns (out (B, S, H, hd),
+    new cache)."""
+    from repro_torch.runtime import dispatch
+    out_dtype = v_new.dtype
+    pos32 = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    new = cache.append_batch(k_new, v_new, pos32)
+    paged = isinstance(new, PagedKVCache)
+    if isinstance(new, qkv.QUANT_CACHE_TYPES) and \
+            dispatch.resolve_decode_attn(q.device) != "dequant-fp":
+        from repro_torch.kernels import ops
+        pos32 = pos32.contiguous()
+        if paged:
+            out = ops.verify_attn_quant_paged(
+                q, new.k, new.k_scale, new.v, new.v_scale, new.pos,
+                new.page_table, pos32, window=window)
+        else:
+            out = ops.verify_attn_quant(q, new.k, new.k_scale, new.v,
+                                        new.v_scale, new.pos, pos32,
+                                        window=window)
+        return out.to(out_dtype), new
+    dense = new.gather() if paged else new
+    if dense.pos.dim() != 2:
+        raise ValueError("verify_attention needs a per-slot cache (pos (B, "
+                         "Sc))")
+    if isinstance(dense, QuantKVCache):
+        k = qkv.dequantize(dense.k, dense.k_scale, k_new.dtype)
+        v = qkv.dequantize(dense.v, dense.v_scale, out_dtype)
+    else:
+        k, v = dense.k, dense.v
+    return torch.cat([_attend_rows(q[:, j:j + 1], k, v, dense.pos,
+                                   pos32[:, j], window)
+                      for j in range(q.shape[1])], dim=1), new
 
 
 def append_attention(q: torch.Tensor, cache: PagedKVCache,

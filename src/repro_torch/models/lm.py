@@ -17,9 +17,12 @@ arrays for the stacked body; a gradient reaches exactly the selected bank
 entry of each unit.
 
 Modes: ``train`` (full-sequence logits, no state: ``apply_train`` /
-``loss_fn``), ``prefill`` (logits at the last position + decode state) and
-``decode`` (one token per batch row with state). Decode state is
-``{"sites": {"<gidx>": cache}}``, one KV cache per attention site.
+``loss_fn``), ``prefill`` (logits at the last position + decode state),
+``decode`` (one token per batch row with state), ``verify`` (S tokens per
+slot at per-slot positions, the speculative verify pass: ``apply_verify``)
+and ``append`` (a prefill chunk of one paged slot). Decode state is
+``{"sites": {"<gidx>": cache}}``, one KV cache per attention site;
+``rollback_decode_state`` rewinds it past a rejected draft.
 """
 from __future__ import annotations
 
@@ -304,9 +307,10 @@ def _bget(bits, key):
 def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
                    mode: str, state, pos, prefill_cap=None, slot=None):
     """Self-attention residual sub-block. ``mode`` is ``train``,
-    ``prefill``, ``decode`` (one token per slot) or ``append`` (a chunk of
-    one paged slot ``slot``: ``pos`` the chunk's absolute positions, -1 on
-    pad rows). Returns (x, new_state)."""
+    ``prefill``, ``decode`` (one token per slot), ``verify`` (S tokens per
+    slot: ``pos (B, S)`` absolute positions, -1 on inactive slots) or
+    ``append`` (a chunk of one paged slot ``slot``: ``pos`` the chunk's
+    absolute positions, -1 on pad rows). Returns (x, new_state)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
@@ -320,10 +324,14 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
         q = _qk_rms(q, p["q_norm"], cfg.norm_eps)
         k = _qk_rms(k, p["k_norm"], cfg.norm_eps)
     per_slot = mode == "decode" and torch.as_tensor(pos).dim() == 1
-    if mode in ("decode", "append"):
+    if mode in ("decode", "verify", "append"):
         p_ = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     if mode == "decode":
         positions = torch.clamp(p_, min=0) if per_slot else p_.reshape(1)
+    elif mode == "verify":
+        # one angle per (slot, token); sentinel rows (-1) take angle 0 and
+        # are masked everywhere
+        positions = torch.clamp(p_, min=0).reshape(-1)
     elif mode == "append":
         # pad rows carry -1: their angle is irrelevant (the write drops them)
         positions = torch.clamp(p_, min=0)
@@ -332,6 +340,8 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
     cos, sin = _rope_cos_sin(cfg, positions)
     if per_slot:              # (B, hd/2) -> (B, 1, 1, hd/2): one angle per slot
         cos, sin = cos[:, None, None], sin[:, None, None]
+    elif mode == "verify":    # (B*S, hd/2) -> (B, S, 1, hd/2), over the heads
+        cos, sin = cos.reshape(B, S, 1, -1), sin.reshape(B, S, 1, -1)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin).to(ctx.compute_dtype)
     window = cfg.sliding_window
@@ -339,14 +349,15 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
         out = attn.self_attention(q.to(ctx.compute_dtype), k, v,
                                   causal=cfg.causal, window=window)
         new_state = None
-    elif mode == "decode":
+    elif mode in ("decode", "verify"):
         if ctx.kv_quant == "fake":
             # reference view of an int8 slot: the new row is stored (and
             # attended) quantize-dequantized, in an fp cache
             k = qkv.fake_quant_kv(k)
             v = qkv.fake_quant_kv(v)
-        out, new_state = attn.decode_attention(q, state, k, v, pos,
-                                               window=window)
+        fn = attn.decode_attention if mode == "decode" \
+            else attn.verify_attention
+        out, new_state = fn(q, state, k, v, pos, window=window)
     elif mode == "append":
         out, new_state = attn.append_attention(q, state, k, v, p_, slot,
                                                window=window)
@@ -431,6 +442,17 @@ def trim_decode_state(states, true_len: int):
         k: c._replace(pos=torch.where(c.pos < true_len, c.pos,
                                       torch.full_like(c.pos, -1)))
         for k, c in states["sites"].items()}}
+
+
+def rollback_decode_state(states, cut):
+    """Invalidate KV rows at positions >= the per-slot ``cut`` ((B,) int32)
+    in every cache of a per-slot decode state: the speculative rollback.
+    Draft rows past the first rejection are rewound (ring: the pos stamp;
+    paged: the pos stamp through the table), so the cache is the one a
+    token-at-a-time engine that decoded only the accepted tokens holds (pos
+    exactly, codes and scales on every valid row)."""
+    return {"sites": {k: c.rollback(cut)
+                      for k, c in states["sites"].items()}}
 
 
 def finish_prefill(x, states, params, cfg: ModelConfig, ctx: QuantContext,
@@ -524,6 +546,19 @@ def apply_decode(params, cfg: ModelConfig, token, pos, states, bits,
     x, new_states = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
                               mode="decode", states=states, pos=pos)
     return lm_head(x, params, cfg, ctx, table)[:, 0], new_states
+
+
+def apply_verify(params, cfg: ModelConfig, tokens, pos, states, bits,
+                 ctx: QuantContext, table=None):
+    """Speculative multi-token verify of the fake-quant graph: ``tokens (B,
+    S)`` at per-slot positions ``pos (B, S)`` (-1 rows for inactive
+    slots). Writes the S KV rows per slot computed under these params and
+    returns (logits (B, S, V), new states): position j's logits and rows
+    are what S one-token ``apply_decode`` calls give."""
+    x = embed_inputs(params, cfg, tokens, ctx, table)
+    x, new_states = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
+                              mode="verify", states=states, pos=pos)
+    return lm_head(x, params, cfg, ctx, table), new_states
 
 
 # ===========================================================================

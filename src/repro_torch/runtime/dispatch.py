@@ -79,6 +79,10 @@ ROUTES = RouteTable({
     "matmul": ("dequant-fp", "cuda-int8", "cuda-w4"),
     "decode_attn": ("fused", "dequant-fp"),
     "kv_layout": ("ring", "paged"),
+    # how decode tokens are produced: plain target decode, or
+    # self-speculative (the low-bit draft pack proposes, the searched
+    # target verifies: launch/engine._spec_round)
+    "spec": ("off", "self"),
 })
 
 

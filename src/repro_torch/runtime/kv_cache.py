@@ -100,6 +100,42 @@ def _ring_append(cache, rows: Dict[str, torch.Tensor], pos: torch.Tensor):
     return cache._replace(**upd)
 
 
+def _ring_append_batch(cache, rows: Dict[str, torch.Tensor],
+                       pos: torch.Tensor):
+    """S rows per slot of the per-slot layout (speculative verify): ``rows``
+    values ``(B, S, ...)`` land at absolute positions ``pos (B, S)``, each
+    at ring index ``max(pos, 0) % cap`` as in :func:`_ring_append`. A
+    sentinel slot (all ``pos = -1``) sends its S writes to index 0 with
+    ``pos = -1``: every write there stamps the same -1, and the codes of a
+    -1 row are never attended, so which of the duplicate writes lands does
+    not matter."""
+    cap = cache.k.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.pos.device)
+    slot = torch.remainder(torch.clamp(pos, min=0), cap).long()
+    b = torch.arange(cache.k.shape[0], device=slot.device)[:, None]
+    upd = {}
+    for f, r in rows.items():
+        new = getattr(cache, f).clone()
+        new[b, slot] = r.to(new.dtype)
+        upd[f] = new
+    new_pos = cache.pos.clone()
+    new_pos[b, slot] = pos
+    upd["pos"] = new_pos
+    return cache._replace(**upd)
+
+
+def _ring_rollback(cache, cut: torch.Tensor):
+    """Stamp ``pos = -1`` on per-slot ring rows at positions ``>= cut[b]``
+    (``cut (B,)``): the speculative rejection rewind. It reads the position
+    stamps only, so it does not depend on where the ring put a row; codes
+    and scales stay resident (a -1 row is never attended), and a sentinel
+    slot (all -1) is unchanged."""
+    cut = torch.as_tensor(cut, dtype=torch.int32, device=cache.pos.device)
+    drop = (cache.pos >= 0) & (cache.pos >= cut[:, None])
+    return cache._replace(pos=torch.where(drop, torch.full_like(cache.pos, -1),
+                                          cache.pos))
+
+
 def _evict_pos(cache, slot: int):
     """Invalidate one slot's rows by stamping its ``pos`` to -1 (codes and
     scales stay resident; a -1 position is never valid to attend)."""
@@ -121,6 +157,14 @@ class FpKVCache(NamedTuple):
         """Write one token row per batch row, ``k_new (B, 1, KV, hd)``."""
         return _ring_append(self, {"k": k_new, "v": v_new}, pos)
 
+    def append_batch(self, k_new, v_new, pos) -> "FpKVCache":
+        """S rows per slot, ``k_new (B, S, KV, hd)`` at ``pos (B, S)``."""
+        return _ring_append_batch(self, {"k": k_new, "v": v_new}, pos)
+
+    def rollback(self, cut) -> "FpKVCache":
+        """Invalidate rows at positions ``>= cut (B,)`` (per-slot only)."""
+        return _ring_rollback(self, cut)
+
     def evict(self, slot: int) -> "FpKVCache":
         return _evict_pos(self, slot)
 
@@ -141,6 +185,19 @@ class QuantKVCache(NamedTuple):
         vq, vs = quantize_rows(v_new)
         return _ring_append(self, {"k": kq, "v": vq,
                                    "k_scale": ks, "v_scale": vs}, pos)
+
+    def append_batch(self, k_new, v_new, pos) -> "QuantKVCache":
+        """S rows per slot at once, ``k_new (B, S, KV, hd)`` at ``pos (B,
+        S)``. ``quantize_rows`` reduces over ``hd`` only, so the codes and
+        scales are bit for bit those of S single-row appends."""
+        kq, ks = quantize_rows(k_new)
+        vq, vs = quantize_rows(v_new)
+        return _ring_append_batch(self, {"k": kq, "v": vq,
+                                         "k_scale": ks, "v_scale": vs}, pos)
+
+    def rollback(self, cut) -> "QuantKVCache":
+        """Invalidate rows at positions ``>= cut (B,)`` (per-slot only)."""
+        return _ring_rollback(self, cut)
 
     def evict(self, slot: int) -> "QuantKVCache":
         return _evict_pos(self, slot)
@@ -233,6 +290,31 @@ class PagedKVCache(NamedTuple):
         vq, vs = quantize_rows(v_new)
         flat = self._flat(pos[:, None], self.page_table)[:, 0]
         return self._write(flat, kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0], pos)
+
+    def append_batch(self, k_new, v_new, pos) -> "PagedKVCache":
+        """S rows per slot (speculative verify): ``k_new (B, S, KV, hd)``
+        at per-slot positions ``pos (B, S)``; sentinel, unmapped and
+        past-capacity rows drop, as in :meth:`append`."""
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.pos.device)
+        kq, ks = quantize_rows(k_new)
+        vq, vs = quantize_rows(v_new)
+        return self._write(self._flat(pos, self.page_table), kq, ks, vq, vs,
+                           pos)
+
+    def rollback(self, cut) -> "PagedKVCache":
+        """Clear ``pos`` of each slot's rows at positions ``>= cut[b]``
+        (``cut (B,)``), through the slot's table: the speculative rejection
+        rewind. Codes and scales stay resident, as in :meth:`free_pages`.
+        The cleared rows lie on refcount-1 pages: a cut lands past the
+        prompt, and only full prompt pages are ever shared."""
+        cut = torch.as_tensor(cut, dtype=torch.int32, device=self.pos.device)
+        t = torch.arange(self.capacity, dtype=torch.int32,
+                         device=self.pos.device)
+        t = t[None].expand(self.page_table.shape[0], -1)
+        t = torch.where(t >= cut[:, None], t, torch.full_like(t, -1))
+        flat = self._flat(t, self.page_table)
+        return self._replace(pos=_drop_scatter(
+            self.pos, flat, torch.full_like(t, -1)))
 
     def append_rows(self, k_new, v_new, q_pos, slot: int) -> "PagedKVCache":
         """Chunked (multi-token) append for one slot: ``k_new (1, C, KV,

@@ -19,8 +19,9 @@ Packing also tags activation-reuse groups: projections of one site whose
 common input once per forward (wq/wk/wv; mlp_wi/mlp_wg).
 
 The session exposes the engine's model-adapter interface (``prefill`` /
-``decode`` / ``append`` / ``init_state`` / ``state_per_slot``; ``append``
-is the chunked prefill of the paged layout); matmuls route through
+``decode`` / ``verify`` / ``append`` / ``init_state`` / ``state_per_slot``;
+``verify`` is the speculative multi-token pass, ``append`` the chunked
+prefill of the paged layout); matmuls route through
 ``runtime.dispatch.packed_qeinsum`` (CUDA kernels on the card, the
 bit-exact dequant-then-fp route on the CPU). The 8-bit fake-quantized
 embedding table -- read by the embedding lookup and by the tied head -- is a
@@ -167,6 +168,17 @@ class QuantizedSession:
         return lm.lm_head(x, params, self.cfg, self.ctx, self.table)[:, 0], \
             new_states
 
+    def verify(self, params, tok, pos, states):
+        """Speculative verify: S = k + 1 tokens per slot in one multi-token
+        step (``lm`` mode ``verify``): all S rows appended, each query
+        attending rows at positions up to its own, so hidden states and KV
+        rows are what S ``decode`` calls give. ``tok``/``pos`` (B, S);
+        returns (logits (B, S, V), states)."""
+        x = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
+        x, new_states = self._forward(params, x, "verify", states, pos, None)
+        return lm.lm_head(x, params, self.cfg, self.ctx, self.table), \
+            new_states
+
     def append(self, params, tok, pos, slot: int, last_idx: int, states):
         """Chunked (paged) prefill: run a (1, C) token chunk through the
         model for ONE slot, writing KV rows at absolute positions ``pos``
@@ -188,6 +200,53 @@ class QuantizedSession:
 
     def state_per_slot(self, row):
         return lm.decode_state_per_slot(row)
+
+
+def draft_policy(policy: MPQPolicy, qlayers, bits,
+                 draft_w_bits: int = 2) -> MPQPolicy:
+    """The self-speculative draft policy of a searched target: the same
+    layers and a_bits (so activation quantization and its reuse groups are
+    the target's), every weight at ``draft_w_bits``. Both policies read
+    the same trained indicator banks, so the width must be one of the
+    searched ``bits``."""
+    db = int(draft_w_bits)
+    if db not in {int(b) for b in bits}:
+        raise ValueError(
+            f"draft_w_bits={db} is not in the searched bit set "
+            f"{sorted(int(b) for b in bits)}; the draft policy can only "
+            "read bit-widths the indicator banks were trained for")
+    return MPQPolicy({q.name: db for q in qlayers}, dict(policy.a_bits),
+                     meta={"kind": "spec-draft", "draft_w_bits": db,
+                           "target": dict(policy.meta)})
+
+
+class SpecSession(QuantizedSession):
+    """Two packed trees of one set of trained weights and banks, for
+    self-speculative decoding: ``params`` under the searched target policy
+    (the emitted tokens are its greedy tokens) and ``draft_params`` under
+    the uniform low-bit :func:`draft_policy`, which only proposes tokens.
+    Both run through the same adapter methods; the engine drafts with
+    ``draft_params`` and verifies with ``params``."""
+
+    def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
+                 ctx: Optional[QuantContext] = None, *,
+                 kv_quant: str = "int8", draft_w_bits: int = 2):
+        self.draft_w_bits = int(draft_w_bits)
+        self.policy_draft = draft_policy(policy, lm.enumerate_qlayers(cfg),
+                                         cfg.bits, self.draft_w_bits)
+        super().__init__(cfg, params, policy, ctx, kv_quant=kv_quant)
+        # the second tree through the same packing, with the draft policy
+        # active for the call
+        self.policy = self.policy_draft
+        try:
+            self.draft_params = self._build_params(params)
+        finally:
+            self.policy = policy
+
+    def draft_bytes(self) -> int:
+        """Measured device bytes of the draft tree's packed codes: what a
+        round reads k times."""
+        return packing.tree_packed_bytes(self.draft_params)
 
 
 def _tag_act_groups(sp, packed_paths, site_key: str) -> None:

@@ -264,6 +264,151 @@ def test_paged_engine_equals_ring_engine_on_the_card(dev):
     assert compared > 0
 
 
+def _verify_positions(q_pos, S):
+    """(B, S) verify positions ending at each slot's one-token query
+    position (a -1 slot stays -1)."""
+    qp = q_pos.cpu().numpy()
+    v = np.where(qp[:, None] < 0, -1,
+                 np.maximum(qp[:, None] - (S - 1) + np.arange(S), 0))
+    return torch.from_numpy(v.astype(np.int32)).to(q_pos.device)
+
+
+def _check_verify(out, S, one, tag):
+    """Query j of a verify launch is the one-token launch at q_pos[:, j]."""
+    for j in range(S):
+        assert torch.equal(out[:, j:j + 1], one(j)), (tag, j)
+
+
+@pytest.mark.parametrize("S", [1, 2, 5, 8])
+@pytest.mark.parametrize("G", [2, 1, 4])
+@pytest.mark.parametrize("window", [None, 48])
+def test_verify_attn_quant_kernel(dev, S, G, window):
+    """The verify kernel against its plain version, and bit for bit
+    against S launches of the one-token kernel, in one launch."""
+    B, Sc, KV, hd = 4, 320, 8, 128
+    rng = np.random.default_rng(S * 10 + G)
+    q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, -1], np.int32)
+    kc, ks, vc, vs, pos = _ring(rng, B, Sc, KV, hd, dev, np.maximum(q_pos, 0))
+    q = torch.from_numpy(rng.standard_normal((B, S, KV * G, hd)).astype(np.float32)).to(dev)
+    qp = _verify_positions(torch.from_numpy(q_pos), S).to(dev)
+    n0 = dict(ops.launches)
+    out = ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches["verify_attn_quant"] == n0["verify_attn_quant"] + 1
+    assert ops.launches["decode_attn_quant"] == n0["decode_attn_quant"]
+    qf = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
+    want = ref.verify_attn_quant_ref(qf, kc, ks, vc, vs, pos, qp,
+                                     window).reshape(out.shape)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
+    _check_verify(out, S, lambda j: ops.decode_attn_quant(
+        q[:, j:j + 1].contiguous(), kc, ks, vc, vs, pos,
+        qp[:, j].contiguous(), window=window), (S, G, window))
+
+
+@pytest.mark.parametrize("ps,rows", [(3, 30), (8, 320), (16, 320),
+                                     (64, 128), (8, 4096)])
+@pytest.mark.parametrize("S", [1, 2, 5, 8])
+@pytest.mark.parametrize("G", [2, 1, 4])
+def test_verify_attn_quant_paged_kernel(dev, ps, rows, S, G):
+    """The paged verify kernel against its plain version and, bit for bit,
+    against S launches of the one-token paged kernel, on permuted, shared
+    and unmapped pages."""
+    B, KV, hd = 4, 8, 128
+    rng = np.random.default_rng(rows + ps + S + G)
+    kp, ks, vp, vs, pos, tbl, qp1 = _paged(rng, B, rows // ps, ps, KV, hd, dev)
+    q = torch.from_numpy(rng.standard_normal((B, S, KV * G, hd)).astype(np.float32)).to(dev)
+    qp = _verify_positions(qp1, S)
+    window = 40 if S == 5 else None
+    n0 = dict(ops.launches)
+    out = ops.verify_attn_quant_paged(q, kp, ks, vp, vs, pos, tbl, qp,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert ops.launches["verify_attn_quant_paged"] == \
+        n0["verify_attn_quant_paged"] + 1
+    assert ops.launches["decode_attn_quant_paged"] == \
+        n0["decode_attn_quant_paged"]
+    qf = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
+    want = ref.verify_attn_quant_paged_ref(qf, kp, ks, vp, vs, pos, tbl, qp,
+                                           window).reshape(out.shape)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-6)
+    _check_verify(out, S, lambda j: ops.decode_attn_quant_paged(
+        q[:, j:j + 1].contiguous(), kp, ks, vp, vs, pos, tbl,
+        qp[:, j].contiguous(), window=window), (ps, rows, S, G))
+
+
+def test_verify_wrappers_reject_bad_operands(dev):
+    rng = np.random.default_rng(6)
+    kc, ks, vc, vs, pos = _ring(rng, 2, 64, 2, 64, dev, np.array([10, 20]))
+    q = torch.zeros((2, 3, 4, 64), device=dev)
+    qp = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                     # q_pos (B,) for S=3
+        ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp[:, 0].contiguous())
+    with pytest.raises(TypeError):                      # q_pos not int32
+        ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp.long())
+    with pytest.raises(ValueError):                     # G > 8
+        ops.verify_attn_quant(torch.zeros((2, 3, 36, 64), device=dev), kc, ks,
+                              vc, vs, pos, qp)
+    with pytest.raises(ValueError):                     # mixed devices
+        ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp.cpu())
+
+
+def test_spec_engine_on_the_card_syncs_only_between_rounds(dev, monkeypatch):
+    """A speculative engine at smoke size through the kernels: every round
+    runs under ``set_sync_debug_mode("error")`` (the host reads once, after
+    it), one verify launch per layer and round and no one-token launch
+    inside the verify pass, a rejected draft (so rows were rolled back), and
+    the token-at-a-time engine's tokens on every decisive step, on both
+    layouts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import engine as teng
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+    cfg = smoke_config("limpq-demo")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    policy = tserve.demo_mixed_policy(cfg)
+    reqs = tserve.build_requests(SyntheticLM(cfg), 5, 24, 8, stagger=True,
+                                 share_prefix=16)
+    fused, verify = teng.DecodeEngine._spec_fused, \
+        teng.DecodeEngine._spec_verify_fn
+    rounds, inside = [], []
+
+    def guarded(self, *a):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fused(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def counted(self, *a):
+        n0 = dict(ops.launches)
+        out = verify(self, *a)
+        inside.append({k: ops.launches[k] - n0[k] for k in n0})
+        rounds.append(1)
+        return out
+
+    monkeypatch.setattr(teng.DecodeEngine, "_spec_fused", guarded)
+    monkeypatch.setattr(teng.DecodeEngine, "_spec_verify_fn", counted)
+    kw = dict(slots=3, cache_len=40, prefill_chunk=16, device=dev)
+    for layout, name in (("ring", "verify_attn_quant"),
+                         ("paged", "verify_attn_quant_paged")):
+        lay = dict(kv_layout=layout, page_size=8)
+        inside.clear()
+        sess, eng, out = tserve.serve_quantized(cfg, params, policy, reqs,
+                                                speculate=3, **kw, **lay)
+        assert eng.stats.spec_rounds == len(inside) > 0
+        # a rejected draft: the rounds rolled rows back on this layout
+        assert eng.stats.spec_accepted_tokens < eng.stats.spec_draft_tokens
+        one = "decode_attn_quant" + ("_paged" if layout == "paged" else "")
+        assert all(d[name] == cfg.n_layers and d[one] == 0 for d in inside)
+        base, base_out = tserve.token_at_a_time(sess, cfg, reqs, eng)
+        same, total, compared, bad = tserve.compare_spec(out, base, base_out)
+        assert not bad and compared > 0, (layout, same, total, compared)
+        if layout == "paged":
+            eng.pool.check()
+
+
 def test_wrappers_reject_bad_operands(dev):
     x = torch.zeros((4, 64), dtype=torch.int8, device=dev)
     w = torch.zeros((64, 32), dtype=torch.int8, device=dev)
