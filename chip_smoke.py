@@ -69,7 +69,27 @@ In order:
    version; once with them quantized, the fake-quant kernels against their
    plain versions and the flash kernel on both sides, so that every
    quantizer code is the same on both sides; the full-depth differences
-   with every kernel against its plain version are printed, not gated.
+   with every kernel against its plain version are printed, not gated;
+8. RWKV serve phase: rwkv6-7b at its published widths and depth (32
+   layers, d_model 4096, 64 heads of 64, d_ff 14336, vocab 65536, untied
+   head; seeded random weights, 7.58 B parameters, 30.3 GB in float32)
+   under ``demo_mixed_policy`` (w-bits cycle 2..6 over 256 projections),
+   8 requests of 128-256 prompt tokens (seven multiples of 32, whose
+   prefill runs the ``wkv`` kernel, and one of 200, which runs the
+   step-by-step scan) and 32 new tokens over 4 slots, ring of 320,
+   continuous batching, greedy. Gates: (a) ``wkv`` launched 32 times per
+   prefill of a multiple of 32 and never in a decode step, both matmul
+   kernels launched, no kernel-eligible projection on dequant-fp, no
+   attention kernel; (b) greedy tokens as in phase 4 (the reference
+   engines run plain, the float64 control in float64 throughout), printed
+   at 32 layers and gated at the same widths with 2 layers (as gate (e):
+   at 32 layers the float32 and float64 evaluations part on confident
+   steps, so none is decisive); (c)
+   packed bytes within 5%; (d) no host synchronisation inside a decode step
+   (``set_sync_debug_mode("error")``). The ``wkv`` kernel itself is held to
+   2e-4 (atol and rtol, y and the final state) against its plain version in
+   the kernel phases, from zero and from a random state, and with the
+   strongest decay (log w = -8).
 
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
@@ -121,6 +141,7 @@ SOURCES = {
                           "src/repro/kernels/quant_attention.py:299"),
     "verify_attn_quant_paged": ("src/repro_torch/csrc/decode_attn_quant.cu",
                                 "src/repro/kernels/quant_attention.py:327"),
+    "wkv": ("src/repro_torch/csrc/wkv.cu", "src/repro/kernels/rwkv_scan.py:70"),
 }
 SERVE_KERNELS = ("quant_matmul", "quant_matmul_w4", "decode_attn_quant",
                  "decode_attn_quant_paged", "verify_attn_quant",
@@ -156,6 +177,17 @@ FQ_MAIN = ((2048, 3072), 4)
 FLASH_CASES = [(2048, True, None), (4096, True, None), (2048, True, 512),
                (2048, False, None)]
 FLASH_MAIN = (2048, True, None)
+# wkv: (B, S, H, hd, chunk); summary row one 256-token rwkv6-7b prefill;
+# tolerance (y and state, atol and rtol): the reference's wkv_pallas
+# contract (tests/test_kernels.py)
+WKV_CASES = [(1, 256, 64, 64, 32), (1, 2048, 64, 64, 32), (4, 32, 64, 64, 32),
+             (2, 96, 4, 16, 16)]
+WKV_MAIN, WKV_TOL = WKV_CASES[0], 2e-4
+# RWKV serve phase prompts: seven multiples of the wkv chunk, one not
+RWKV_PROMPTS = [256, 128, 224, 160, 200, 192, 256, 128]
+RWKV_CHUNK = 32
+ATTN_KERNELS = ("decode_attn_quant", "decode_attn_quant_paged",
+                "verify_attn_quant", "verify_attn_quant_paged", "flash_fwd")
 TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
@@ -733,6 +765,65 @@ def flash_phase(torch, ops, ref, flush, dev):
         print(f"[kernel] flash_fwd {tag:32s} err={err:.1e}/{err_lse:.1e} "
               f"ms={rows[-1]['ms']:.4f} plain={rows[-1]['plain_ms']:.4f} "
               f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
+              flush=True)
+    return rows
+
+
+def wkv_ops(B: int, S: int, H: int, hd: int, T: int) -> int:
+    """Float operations of the chunked wkv (an exp counted as one): per
+    (batch, head) and chunk, (r e^Lx) S, the strictly causal pair weights,
+    the bonus diagonal, A v, the cumulative sums and decays, the state
+    update."""
+    pairs = T * (T - 1) // 2
+    per_chunk = (2 * T * hd * hd + 5 * pairs * hd + 3 * T * hd
+                 + T * (T + 1) * hd + 5 * T * hd + 2 * T * hd * hd + hd * hd)
+    return B * H * (S // T) * per_chunk
+
+
+def wkv_phase(torch, ops, ref, flush, dev):
+    """``wkv`` against its plain version (``ref.wkv_chunked_ref``) from zero
+    state and from a random one, y and the final state to ``WKV_TOL``; the
+    strongest decay (log w = -8) finite and within it too; kernel and plain
+    version timed from zero state (the prefill's call)."""
+    rows = []
+    for B, S, H, hd, T in WKV_CASES:
+        g = torch.Generator(device=dev).manual_seed(S * 7 + H + hd + T)
+        r, k, v = (torch.randn((B, S, H, hd), generator=g, device=dev)
+                   for _ in range(3))
+        lw = -(torch.rand((B, S, H, hd), generator=g, device=dev) * 1.99
+               + 0.01)
+        u = torch.randn((H, hd), generator=g, device=dev) * 0.5
+        s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.3
+        err = 0.0
+        for lw_, st in ((lw, None), (lw, s0), (torch.full_like(lw, -8.0), None)):
+            y, state = ops.wkv(r, k, v, lw_, u, st, chunk=T)
+            yp, sp = ref.wkv_chunked_ref(r, k, v, lw_, u, st, chunk=T)
+            torch.cuda.synchronize()
+            e = max(float((y - yp).abs().max()),
+                    float((state - sp).abs().max()))
+            gate(bool(torch.isfinite(y).all() and torch.isfinite(state).all()
+                      and torch.allclose(y, yp, rtol=WKV_TOL, atol=WKV_TOL)
+                      and torch.allclose(state, sp, rtol=WKV_TOL,
+                                         atol=WKV_TOL)),
+                 f"wkv B={B} S={S} H={H} hd={hd} chunk={T} "
+                 f"{'from a state' if st is not None else 'zero state'} "
+                 f"log_w min {float(lw_.min()):.2f} differs from its plain "
+                 f"version (max |err| {e})")
+            err = max(err, e)
+        n = B * S * H * hd
+        n_bytes = 4 * (5 * n + H * hd + B * H * hd * hd)
+        b_ms, b_by = bound_ms(n_bytes, wkv_ops(B, S, H, hd, T), F32_OPS_PER_S)
+        rows.append(dict(
+            name="wkv", shape=f"B={B} S={S} H={H} hd={hd} chunk={T}",
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: ops.wkv(r, k, v, lw, u, chunk=T), flush),
+            plain_ms=cuda_ms(torch, lambda: ref.wkv_chunked_ref(
+                r, k, v, lw, u, chunk=T), flush),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            main=(B, S, H, hd, T) == WKV_MAIN))
+        print(f"[kernel] wkv B={B} S={S:<4d} H={H:<2d} hd={hd:<2d} chunk={T} "
+              f"err={err:.1e} ms={rows[-1]['ms']:.4f} "
+              f"plain={rows[-1]['plain_ms']:.4f} bound={b_ms:.4f}({b_by})",
               flush=True)
     return rows
 
@@ -1543,6 +1634,162 @@ def self_draft_check(torch, ops, dev, reqs):
                 rejected_decisive=decisive)
 
 
+def rwkv_serve_phase(torch, ops, dev):
+    """rwkv6-7b at full width and depth over the ring (module docstring,
+    phase 8); the weights are freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import Request
+    from repro_torch.models import lm
+    from repro_torch.runtime.session import summarize
+
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    n_params = lm.param_count(params)
+    policy = serve.demo_mixed_policy(cfg)
+    data = SyntheticLM(cfg)
+    reqs = [Request(rid=i, tokens=data.batch(i, 1, p)["tokens"][0],
+                    max_new=GEN) for i, p in enumerate(RWKV_PROMPTS)]
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev)
+    torch.cuda.synchronize()
+    print(f"[rwkv] {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}x{cfg.rwkv_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab}, {n_params} parameters "
+          f"({4 * n_params / 1e9:.1f} GB f32), init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    sess, eng, out = serve.serve_quantized(cfg, params, policy, reqs, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    print(f"[rwkv] ring: {len(out)} requests in {wall:.2f}s wall (packing "
+          f"included): prefill p50 {d['prefill_p50_ms']:.2f} ms, decode step "
+          f"p50 {d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens, {st.prefill_tokens} prompt tokens); "
+          f"peak device memory {peak_gb:.2f} GB", flush=True)
+    print(f"[rwkv] launches {launches}; routes {sess.route_counts.routes}",
+          flush=True)
+
+    # (a) wkv once per layer in each prefill of a multiple of the chunk and
+    # never in a decode step (any decode launch would exceed the count),
+    # both matmul kernels, no attention kernel, no fallback
+    chunked = sum(p % RWKV_CHUNK == 0 for p in RWKV_PROMPTS)
+    gate(launches["wkv"] == cfg.n_layers * chunked,
+         f"wkv launched {launches['wkv']} times, expected {cfg.n_layers} x "
+         f"{chunked} prefills of a multiple of {RWKV_CHUNK}")
+    gate(launches["quant_matmul"] > 0 and launches["quant_matmul_w4"] > 0
+         and all(launches[k] == 0 for k in ATTN_KERNELS),
+         f"rwkv serving launched {launches}")
+    gate(sess.route_counts.eligible_fp == 0,
+         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
+         "dequant-fp")
+    gate(not sess.route_counts.routes["decode_attn"],
+         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    # (b) greedy tokens vs the fake-quant reference engine on decisive steps
+    # (serve.check_greedy), printed at 32 layers and gated at 2 (as gate
+    # (e)): through 32 recurrent layers the 2-6-bit quantizers turn the
+    # last-bit differences of two float evaluations into code steps that
+    # the wkv state carries to every later token, and the float32 reference
+    # and its float64 control part on confident steps of every request, so
+    # no step is decisive there
+    t1 = time.perf_counter()
+    # the reference stays plain PyTorch, its wkv too
+    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+        compared, bad, unstable = serve.check_greedy(cfg, params, policy,
+                                                     reqs, out, **kw)
+        noise = prefill_noise(torch, cfg, params, policy, sess,
+                              [reqs[0], reqs[1], reqs[4]], dev)
+    n_tok = sum(len(c.tokens) for c in out.values())
+    print(f"[rwkv] {cfg.n_layers} layers, greedy tokens vs fake-quant "
+          f"reference: {compared} of {n_tok} steps decisive and compared, "
+          f"diverged rids {bad}; the reference's float32 and float64 "
+          f"evaluations part on a confident step in rids {unstable} "
+          f"(reference engines {time.perf_counter() - t1:.1f}s)", flush=True)
+    gate(not bad, f"greedy tokens diverged on decisive steps: rids {bad}")
+    del params
+    torch.cuda.empty_cache()
+    cut = cfg.scaled(n_layers=2)
+    params = lm.init_params(cut, seed=0, device=dev)
+    policy_cut = serve.demo_mixed_policy(cut)
+    n0 = ops.launches["wkv"]
+    _, _, out_cut = serve.serve_quantized(cut, params, policy_cut, reqs, **kw)
+    wkv_cut = ops.launches["wkv"] - n0
+    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+        compared_cut, bad_cut, unstable_cut = serve.check_greedy(
+            cut, params, policy_cut, reqs, out_cut, **kw)
+    print(f"[rwkv] {cut.n_layers} layers, full width: greedy tokens vs "
+          f"fake-quant reference: {compared_cut} of {n_tok} steps decisive "
+          f"and compared, diverged rids {bad_cut}; float32 and float64 part "
+          f"on a confident step in rids {unstable_cut}; wkv launches "
+          f"{wkv_cut}", flush=True)
+    gate(wkv_cut == cut.n_layers * chunked,
+         f"{cut.n_layers} layers: wkv launched {wkv_cut} times")
+    gate(not bad_cut, f"{cut.n_layers} layers: greedy tokens diverged on "
+         f"decisive steps: rids {bad_cut}")
+    gate(compared_cut > 0, f"{cut.n_layers} layers: no decisive step to "
+         "compare")
+    del params
+    torch.cuda.empty_cache()
+    # (c) packed bytes vs the policy's accounting
+    s = summarize(sess)
+    print(f"[rwkv] packed weights {s['packed_bytes']} B vs policy "
+          f"{s['policy_bytes']:.0f} B (x{s['packed_vs_policy']:.4f})",
+          flush=True)
+    gate(abs(s["packed_vs_policy"] - 1.0) <= 0.05,
+         f"packed bytes off the policy accounting by x{s['packed_vs_policy']}")
+    # (d) one decode step of 4 slots under sync-debug "error": no host sync,
+    # and no wkv launch
+    state = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
+    sess.decode(sess.params, tok, pos, state)
+    torch.cuda.synchronize()
+    n0 = dict(ops.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.decode(sess.params, tok, pos, state)
+    except RuntimeError as e:
+        raise GateError(f"an rwkv decode step synchronised the host: {e}") \
+            from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    step_launches = {k: ops.launches[k] - n0[k] for k in n0}
+    gate(step_launches["wkv"] == 0
+         and step_launches["quant_matmul"] + step_launches["quant_matmul_w4"]
+         == 8 * cfg.n_layers,
+         f"one rwkv decode step launched {step_launches}")
+    print(f"[rwkv] one decode step under sync-debug 'error': no host sync; "
+          f"kernel launches {step_launches}", flush=True)
+    step = profile_decode_step(torch, sess, dev, "rwkv")
+    return launches, dict(
+        params=n_params, decode_step_profile=step, wall_s=wall,
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, peak_mem_gb=peak_gb,
+        chunked_prefills=chunked, decode_step_launches=step_launches,
+        decisive_compared=compared, reference_unstable_rids=unstable,
+        prefill_noise=noise, cut_layers=cut.n_layers,
+        cut_decisive_compared=compared_cut,
+        cut_reference_unstable_rids=unstable_cut,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1570,6 +1817,7 @@ def main() -> int:
     rows += verify_attn_phase(torch, ops, ref, flush, dev)
     rows += fake_quant_phase(torch, ops, ref, flush, dev)
     rows += flash_phase(torch, ops, ref, flush, dev)
+    rows += wkv_phase(torch, ops, ref, flush, dev)
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1612,16 +1860,21 @@ def main() -> int:
                  f"train pass through the kernels differs from the plain "
                  f"versions beyond {tol}: {d}")
     train_res["vs_plain"] = vs_plain
+    torch.cuda.empty_cache()
+    rwkv_launches, rwkv_res = rwkv_serve_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
-    # one, the verify kernels from the speculative phases (every phase's
-    # counts are in chip_smoke.json)
+    # one, the verify kernels from the speculative phases, wkv from the
+    # RWKV phase (every phase's counts are in chip_smoke.json)
     launches = dict(serve_launches, **train_launches)
     launches["decode_attn_quant_paged"] = \
         paged_launches["decode_attn_quant_paged"]
     launches["verify_attn_quant"] = spec_launches["verify_attn_quant"]
     launches["verify_attn_quant_paged"] = \
         spec_paged_launches["verify_attn_quant_paged"]
+    launches["wkv"] = rwkv_launches["wkv"]
+    rwkv_res["launches"] = rwkv_launches
     serve_res["launches"], paged_res["launches"] = serve_launches, \
         paged_launches
     spec_res["launches"], spec_paged_res["launches"] = spec_launches, \
@@ -1644,7 +1897,7 @@ def main() -> int:
         {"card": card, "cases": rows, "train": train_res,
          "serve": serve_res, "paged_serve": paged_res,
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
-         "kernels": kernels},
+         "rwkv_serve": rwkv_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

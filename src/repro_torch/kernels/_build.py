@@ -49,6 +49,9 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     "flash_attention": {
         "flash_fwd": [_P] * 5 + [_I] * 7 + [_P],
     },
+    "wkv": {
+        "wkv": [_P] * 8 + [_I] * 5 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()

@@ -4,8 +4,10 @@ A wrapper given CUDA tensors checks them and launches its kernel on the
 current stream, or raises; there is no fallback. Given CPU tensors it runs
 the kernel's plain version (``kernels.ref``) -- the only way the CPU tests
 reach these functions. The training kernels (fake-quant, flash forward)
-also run their plain versions on CUDA tensors inside ``plain_on_cuda()``,
-which only tests and ``chip_smoke.py`` enter. ``launches`` counts kernel launches per wrapper
+and ``wkv`` also run their plain versions on CUDA tensors inside
+``plain_on_cuda()``, which only tests, ``chip_smoke.py`` and the serve
+CLI's fake-quant reference engines (``serve.reference_engine``, which reach
+``wkv`` in prefill) enter. ``launches`` counts kernel launches per wrapper
 (one per launch, nowhere else), so a run can show that its path went
 through the kernels.
 """
@@ -24,12 +26,16 @@ launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
                             "decode_attn_quant_paged": 0,
                             "verify_attn_quant": 0,
                             "verify_attn_quant_paged": 0, "fake_quant_fwd": 0,
-                            "fake_quant_bwd": 0, "flash_fwd": 0}
+                            "fake_quant_bwd": 0, "flash_fwd": 0, "wkv": 0}
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
 FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
 MAX_TABLE = 4096                        # page-table entries a paged block holds
+WKV_CHUNKS, WKV_HEAD_DIMS = (16, 32), (8, 16, 32, 64)  # csrc/wkv.cu instances
 TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
+# the kernels whose plain versions ``plain_on_cuda`` can run on the card
+# (the fake-quant reference engines of an rwkv schedule reach ``wkv``)
+PLAIN_KERNELS = TRAIN_KERNELS + ("wkv",)
 _PLAIN: List[FrozenSet[str]] = [frozenset()]
 
 
@@ -58,11 +64,11 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 @contextlib.contextmanager
 def plain_on_cuda(*names: str):
-    """Run the plain versions of the named training kernels (all of
-    ``TRAIN_KERNELS`` when none is named) on CUDA tensors for the scope.
-    Only tests and ``chip_smoke.py`` enter it, for kernel-vs-plain
-    comparisons; no entry point does."""
-    bad = set(names) - set(TRAIN_KERNELS)
+    """Run the plain versions of the named kernels of ``PLAIN_KERNELS`` (the
+    training kernels when none is named) on CUDA tensors for the scope.
+    Only tests, ``chip_smoke.py`` and the reference engines of ``serve``
+    enter it; no served or trained path does."""
+    bad = set(names) - set(PLAIN_KERNELS)
     if bad:
         raise ValueError(f"plain_on_cuda: unknown kernels {sorted(bad)}")
     _PLAIN.append(frozenset(names or TRAIN_KERNELS))
@@ -73,8 +79,9 @@ def plain_on_cuda(*names: str):
 
 
 def _kernel_route(name: str, *ts: torch.Tensor) -> bool:
-    """Whether training kernel ``name`` launches: yes on CUDA tensors,
-    unless inside ``plain_on_cuda``; CPU tensors take the plain versions."""
+    """Whether kernel ``name`` of ``PLAIN_KERNELS`` launches: yes on CUDA
+    tensors, unless inside ``plain_on_cuda``; CPU tensors take the plain
+    versions."""
     return _on_cuda(*ts) and name not in _PLAIN[-1]
 
 
@@ -396,3 +403,44 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _raise_on(rc, "flash_fwd")
     launches["flash_fwd"] += 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv (prefill of a multiple of the chunk length)
+# ---------------------------------------------------------------------------
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        log_w: torch.Tensor, u: torch.Tensor,
+        state0: Optional[torch.Tensor] = None, chunk: int = 32):
+    """Chunked RWKV6 wkv recurrence: r/k/v/log_w (B, S, H, hd) with ``S %
+    chunk == 0``, u (H, hd), state0 (B, H, hd, hd) or None (zero state).
+    Returns (y (B, S, H, hd), final state (B, H, hd, hd)), the reference's
+    ``wkv_chunked``; from zero state y is ``wkv_pallas``'s. The kernel takes
+    float32 contiguous operands, chunk in ``WKV_CHUNKS`` and hd in
+    ``WKV_HEAD_DIMS``."""
+    B, S, H, hd = r.shape
+    ts = (r, k, v, log_w, u) + (() if state0 is None else (state0,))
+    if not _kernel_route("wkv", *ts):
+        return ref.wkv_chunked_ref(r, k, v, log_w, u, state0, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "wkv: the kernel has no backward yet (RWKV training is a later "
+            "slice); call it on tensors that do not require grad")
+    if chunk not in WKV_CHUNKS or hd not in WKV_HEAD_DIMS or S < 1 \
+            or S % chunk:
+        raise ValueError(f"wkv: needs chunk in {WKV_CHUNKS}, hd in "
+                         f"{WKV_HEAD_DIMS} and S a positive multiple of the "
+                         f"chunk, got chunk={chunk} hd={hd} S={S}")
+    for t, name in ((r, "r"), (k, "k"), (v, "v"), (log_w, "log_w")):
+        _check(t, name, torch.float32, (B, S, H, hd))
+    _check(u, "u", torch.float32, (H, hd))
+    if state0 is not None:
+        _check(state0, "state0", torch.float32, (B, H, hd, hd))
+    y = torch.empty_like(r)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    rc = _build.load("wkv").wkv(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), None if state0 is None else state0.data_ptr(),
+        y.data_ptr(), state.data_ptr(), B, S, H, hd, chunk, _stream())
+    _raise_on(rc, "wkv")
+    launches["wkv"] += 1
+    return y, state

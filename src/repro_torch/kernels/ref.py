@@ -7,7 +7,7 @@ card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -182,3 +182,92 @@ def verify_attn_quant_paged_ref(qf: torch.Tensor, k_pages: torch.Tensor,
                          page_table).gather()
     return verify_attn_quant_ref(qf, dense.k, dense.k_scale, dense.v,
                                  dense.v_scale, dense.pos, q_pos, window)
+
+
+def _wide(*ts: torch.Tensor) -> torch.dtype:
+    """float32, or the widest floating type of ``ts`` if that is wider (the
+    reference computes in float32; a float64 evaluation stays float64)."""
+    dt = torch.float32
+    for t in ts:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def wkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step-by-step RWKV6 wkv recurrence. r/k/v/log_w (B, S, H, hd), u (H,
+    hd), state (B, H, hd, hd); i runs over key channels, j over value
+    channels:
+
+        y_t = r_t . (S_t + (u * k_t) v_t^T);  S_{t+1} = diag(w_t) S_t + k_t v_t^T
+
+    Returns (y (B, S, H, hd), final state), in the inputs' own types."""
+    ys = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t = r[:, t], k[:, t], v[:, t]
+        w_t = torch.exp(log_w[:, t])
+        y = torch.einsum("bhi,bhij->bhj", r_t, state) \
+            + torch.einsum("bhi,bhi,bhj->bhj", r_t, u * k_t, v_t)
+        state = w_t[..., None] * state + torch.einsum("bhi,bhj->bhij", k_t,
+                                                      v_t)
+        ys.append(y)
+    return torch.stack(ys, dim=1), state
+
+
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            log_w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`wkv_scan_ref` from zero state in float32 or wider: the
+    step-by-step oracle of the chunked form. Returns y (B, S, H, hd)."""
+    dt = _wide(r, k, v, log_w, u)
+    B, _, H, hd = r.shape
+    state = torch.zeros((B, H, hd, hd), dtype=dt, device=r.device)
+    y, _ = wkv_scan_ref(*(a.to(dt) for a in (r, k, v, log_w, u)), state)
+    return y
+
+
+def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_w: torch.Tensor, u: torch.Tensor,
+                    state0: Optional[torch.Tensor] = None, chunk: int = 32
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked RWKV6 wkv (the reference's ``wkv_chunked``), from ``state0``
+    (zero when None). Shapes as :func:`wkv_scan_ref`; ``S % chunk == 0``.
+
+    Per chunk, with L the inclusive cumulative log-decay and Lx = L - lw:
+    ``y = (r e^Lx) S0 + A v + (sum_i r u k) v`` with ``A[t, s] = sum_i
+    r[t, i] k[s, i] e^{min(Lx[t, i] - L[s, i], 0)}`` for t > s, and ``S <-
+    diag(e^{L_T}) S0 + (k e^{L_T - L})^T v``: every exponent <= 0. Computes
+    in float32 or wider; returns (y in r's type, final state)."""
+    B, S, H, hd = r.shape
+    if S % chunk:
+        raise ValueError(f"wkv: S={S} is not a multiple of chunk={chunk}")
+    dt = _wide(r, k, v, log_w, u)
+    n, T = S // chunk, chunk
+
+    def split(a):                                    # (n, B, H, T, hd)
+        return a.to(dt).reshape(B, n, T, H, hd).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(split, (r, k, v, log_w))
+    uu = u.to(dt)[None, :, None, :]                   # (1, H, 1, hd)
+    tri = torch.tril(torch.ones((T, T), dtype=dt, device=r.device), -1)
+    S0 = torch.zeros((B, H, hd, hd), dtype=dt, device=r.device) \
+        if state0 is None else state0.to(dt)
+    ys = []
+    for c in range(n):
+        rt, kt, vt, lwt = rc[c], kc[c], vc[c], lwc[c]
+        L = torch.cumsum(lwt, dim=2)                  # sum_{tau <= t} lw
+        Lx = L - lwt                                  # sum_{tau < t} lw
+        y = torch.einsum("bhti,bhij->bhtj", rt * torch.exp(Lx), S0)
+        expo = Lx[:, :, :, None, :] - L[:, :, None, :, :]   # (B,H,t,tau,hd)
+        dec = torch.exp(torch.clamp(expo, max=0.0)) * tri[None, None, :, :,
+                                                          None]
+        A = torch.einsum("bhti,bhtsi,bhsi->bhts", rt, dec, kt)
+        y = y + torch.einsum("bhts,bhsj->bhtj", A, vt)
+        y = y + torch.einsum("bhti,bhti,bhtj->bhtj", rt, uu * kt, vt)
+        LT = L[:, :, -1:, :]                          # (B, H, 1, hd)
+        k_dec = kt * torch.exp(LT - L)
+        S0 = torch.exp(LT[:, :, 0, :, None]) * S0 \
+            + torch.einsum("bhti,bhtj->bhij", k_dec, vt)
+        ys.append(y)
+    y = torch.stack(ys, dim=0).permute(1, 0, 3, 2, 4).reshape(B, S, H, hd)
+    return y.to(r.dtype), S0

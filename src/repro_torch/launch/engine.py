@@ -67,6 +67,18 @@ from repro_torch.runtime import dispatch
 from repro_torch.runtime import kv_cache as qkv
 
 
+def check_kv_layout(cfg: ModelConfig, kv_layout: str) -> None:
+    """Whether ``cfg``'s schedule can serve over ``kv_layout``: the paged
+    layout serves attention-only schedules in the port so far."""
+    dispatch.ROUTES.validate("kv_layout", kv_layout)
+    bad = {s.kind for s in lm.iter_sites(cfg)} - set(lm.ATTN_KINDS)
+    if kv_layout == "paged" and bad:
+        raise NotImplementedError(
+            f"kv_layout='paged' on a schedule with {sorted(bad)} sites "
+            "(recurrent state beside the pages, chunked append through the "
+            "wkv state) comes with a later slice; serve it over the ring")
+
+
 def check_speculate(cfg: ModelConfig, k: int) -> None:
     """Whether ``cfg`` can decode with ``speculate=k``: k >= 0, and for
     k > 0 every cache of the schedule rewinds by position past a rejected
@@ -182,10 +194,13 @@ class LMAdapter:
                                self.ctx, table=self._table_for(params))
 
     def init_state(self, batch, capacity, dtype, per_slot=True, device=None):
+        # recurrent state in the compute dtype: a float64 evaluation keeps
+        # its carried state float64
         return lm.init_decode_state(
             self.cfg, batch, capacity, dtype=dtype, per_slot=per_slot,
             kv_quant="int8" if self.ctx.kv_quant == "int8" else "none",
-            device=device)
+            device=device,
+            rec_dtype=torch.promote_types(dtype, self.ctx.compute_dtype))
 
     def state_per_slot(self, row):
         return lm.decode_state_per_slot(row)
@@ -210,11 +225,12 @@ class _Slot:
 
 def _insert(full, row, slot: int) -> None:
     """Write a one-row per-slot state into row ``slot`` of the engine state
-    (in place: the engine owns its state tensors)."""
+    (in place: the engine owns its state tensors). A site's state is a
+    cache (a NamedTuple of tensors) or a recurrent site's plain tuple of
+    tensors; both carry the slot axis first on every tensor."""
     for key, c in full["sites"].items():
-        r = row["sites"][key]
-        for f, t in zip(c._fields, c):
-            t[slot] = getattr(r, f)[0].to(t.dtype)
+        for t, r in zip(c, row["sites"][key]):
+            t[slot] = r[0].to(t.dtype)
 
 
 class DecodeEngine:
@@ -237,7 +253,7 @@ class DecodeEngine:
         self.device = torch.device(device) if device is not None else \
             params["embed"]["w"].device
         kv_mode = getattr(adapter, "kv_quant", self.ecfg.kv_quant)
-        dispatch.ROUTES.validate("kv_layout", self.ecfg.kv_layout)
+        check_kv_layout(cfg, self.ecfg.kv_layout)
         self._paged = self.ecfg.kv_layout == "paged"
         self.layout: Optional[qkv.KVCacheLayout] = None
         self.pool: Optional[qkv.PagePool] = None
@@ -377,8 +393,9 @@ class DecodeEngine:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
     def _each_cache(self, fn) -> None:
-        self.state = {"sites": {k: fn(c)
-                                for k, c in self.state["sites"].items()}}
+        """``fn`` on every KV cache of the engine state (recurrent site
+        state has no rows to evict or pages to free)."""
+        self.state = lm.map_caches(self.state, fn)
 
     def _clear_freed(self, freed: List[int]) -> None:
         """Clear the device ``pos`` rows of pages whose refcount hit zero.

@@ -37,8 +37,9 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.policy import MPQPolicy
 from repro_torch.data import SyntheticLM
+from repro_torch.kernels import ops
 from repro_torch.launch.engine import DecodeEngine, EngineConfig, \
-    check_speculate, decisive_prefix
+    check_kv_layout, check_speculate, decisive_prefix
 from repro_torch.launch.scheduler import Request
 from repro_torch.models import lm
 from repro_torch.models.quant_layers import QuantContext
@@ -204,7 +205,10 @@ def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
     """The fake-quant graph (``LMAdapter``) through the same engine (ring
     layout), with int8 KV slots referenced as quantize-dequantize in fp
     (``kv="fp"``: plain fp rows); ``compute_dtype`` float64 evaluates the
-    same graph at higher precision (the control)."""
+    same graph at higher precision (the control). On the card it runs the
+    kernels' plain versions (``ops.plain_on_cuda``): a reference computes
+    in plain PyTorch, and the float64 control reaches ``wkv``, whose kernel
+    takes float32 only."""
     ctx = dataclasses.replace(make_context(cfg), compute_dtype=compute_dtype)
     eng = DecodeEngine(params, cfg, lm.bits_from_policy(cfg, policy), ctx,
                        device=device,
@@ -213,7 +217,8 @@ def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                                          kv_quant="fake" if kv == "int8"
                                          else "none"))
     eng.submit_all(reqs)
-    return eng, eng.run()
+    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+        return eng, eng.run()
 
 
 def compare_greedy(out, ref, ref_out, ctrl=None, ctrl_out=None,
@@ -308,9 +313,10 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     try:
         check_kv(args.kv, args.kv_layout)
+        check_kv_layout(cfg, args.kv_layout)
         check_spec(cfg, args.speculate, args.draft_bits, kv=args.kv,
                    policy_given=bool(args.policy) or args.smoke)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
 
     dev = resolve_device(args.device)

@@ -1,4 +1,5 @@
-"""Config-driven LM, dense/attention layer kinds (serving and training).
+"""Config-driven LM: dense attention layers (serving and training) and RWKV6
+layers (serving).
 
 A config expands into a *schedule*: ``prefix`` layers, a repeating
 ``pattern`` whose params are stacked ``repeats`` times on a leading axis
@@ -20,9 +21,11 @@ Modes: ``train`` (full-sequence logits, no state: ``apply_train`` /
 ``loss_fn``), ``prefill`` (logits at the last position + decode state),
 ``decode`` (one token per batch row with state), ``verify`` (S tokens per
 slot at per-slot positions, the speculative verify pass: ``apply_verify``)
-and ``append`` (a prefill chunk of one paged slot). Decode state is
-``{"sites": {"<gidx>": cache}}``, one KV cache per attention site;
-``rollback_decode_state`` rewinds it past a rejected draft.
+and ``append`` (a prefill chunk of one paged slot); an RWKV6 layer runs
+``prefill`` and ``decode`` (``train`` without state). Decode state is
+``{"sites": {"<gidx>": state}}``: a KV cache per attention site, the tuple
+``(x_prev time-mix, wkv, x_prev channel-mix)`` per rwkv site;
+``rollback_decode_state`` rewinds the caches past a rejected draft.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.core.policy import MPQPolicy
 from repro_torch.core.qspec import QLayer
 from repro_torch.core.quantizer import bit_range, init_scale_from_stats
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        dense_init, embed_init, norm_init)
 from repro_torch.models.quant_layers import (QuantContext,
@@ -59,17 +63,19 @@ class Schedule(NamedTuple):
 
 
 class LayerSite(NamedTuple):
-    kind: str          # attn | dense
+    kind: str          # attn | dense | rwkv
     segment: str       # "prefix.0" | "body.2" | "suffix.1"
     unit: int          # repeat index within body, else 0
     gidx: int          # global execution index
 
 
 def build_schedule(cfg: ModelConfig) -> Schedule:
-    if cfg.family in ("moe", "vlm", "hybrid", "ssm") or cfg.encoder_only:
+    if cfg.family in ("moe", "vlm", "hybrid") or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoder families only "
-            f"(family {cfg.family!r} comes with a later slice)")
+            f"{cfg.name}: the port runs dense decoder and rwkv (ssm) "
+            f"families only (family {cfg.family!r} comes with a later slice)")
+    if cfg.family == "ssm":
+        return Schedule((), ("rwkv",), cfg.n_layers, ())
     return Schedule((), ("attn",), cfg.n_layers, ())
 
 
@@ -111,13 +117,19 @@ def site_params(params, site: LayerSite):
 # init
 # ===========================================================================
 def _layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r}")
     d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
 
     def nrm():
         return {k: v.expand(tuple(stacked) + tuple(v.shape)).contiguous()
                 for k, v in norm_init(d, cfg.norm_type, device).items()}
+
+    if kind == "rwkv":
+        p = {"norm1": nrm(), "norm2": nrm()}
+        p.update(rec.rwkv_init(gen, d, cfg.n_heads, cfg.rwkv_head_dim, ff,
+                               cfg.bits, stacked=stacked, device=device))
+        return p
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r}")
 
     def qd_(i, o):
         return qdense_init(gen, i, o, cfg.bits, stacked=stacked, device=device)
@@ -177,9 +189,14 @@ def param_count(params) -> int:
 # ===========================================================================
 def _kind_qdefs(cfg: ModelConfig, kind: str):
     """[(path, in, out, n_mats, macs_per_token, w_params, qkind)]"""
+    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    if kind == "rwkv":
+        return [((name,), i, o, 1, i * o, i * o, "rwkv") for name, i, o in (
+            ("wr", d, d), ("wk", d, d), ("wv", d, d), ("wg", d, d),
+            ("wo", d, d), ("cm_wk", d, ff), ("cm_wv", ff, d),
+            ("cm_wr", d, d))]
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
-    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     defs = [
         (("wq",), d, qd, 1, d * qd, d * qd, "attn"),
         (("wk",), d, kvd, 1, d * kvd, d * kvd, "attn"),
@@ -396,9 +413,32 @@ def _mlp_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext):
                        ctx)
 
 
+def _rwkv_layer(x, p, bits, cfg: ModelConfig, ctx: QuantContext, mode: str,
+                state):
+    """RWKV6 block: time-mix, then channel-mix, each a pre-norm residual.
+    ``state`` (x_prev time-mix, wkv, x_prev channel-mix) or None (zero).
+    Returns (x, new_state), no state in ``train`` mode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(
+            f"rwkv layers run train, prefill and decode; mode {mode!r} "
+            "(speculative verify, paged append) comes with a later slice")
+    st = state or (None, None, None)
+    h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
+    tm_state = None if st[0] is None else (st[0], st[1])
+    out, (xp_tm, wkv) = rec.rwkv_time_mix(h, p, bits, ctx, cfg.n_heads,
+                                          cfg.rwkv_head_dim, state=tm_state)
+    x = x + out
+    h2 = apply_norm(x, p["norm2"], cfg.norm_type, cfg.norm_eps)
+    out2, xp_cm = rec.rwkv_channel_mix(h2, p, bits, ctx, state=st[2])
+    new_st = (xp_tm, wkv, xp_cm) if mode != "train" else None
+    return x + out2, new_st
+
+
 def apply_layer(kind: str, x, p, bits, cfg: ModelConfig, ctx: QuantContext, *,
                 mode: str, state=None, pos=None, prefill_cap=None, slot=None):
     """One residual layer. Returns (x, new_state)."""
+    if kind == "rwkv":
+        return _rwkv_layer(x, p, bits, cfg, ctx, mode, state)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     x, st = _attn_sublayer(x, p, bits, cfg, ctx, mode, state, pos, prefill_cap,
@@ -435,13 +475,18 @@ def lm_head(x, params, cfg: ModelConfig, ctx: QuantContext,
     return logits.to(torch.float32)
 
 
+def map_caches(states, fn):
+    """``fn`` applied to every KV cache of a decode state; recurrent site
+    state passes through."""
+    return {"sites": {k: fn(c) if isinstance(c, qkv.CACHE_TYPES) else c
+                      for k, c in states["sites"].items()}}
+
+
 def trim_decode_state(states, true_len: int):
     """Invalidate KV rows at positions >= ``true_len`` (a prompt padded at
     the end leaves pad-token rows whose positions would look valid)."""
-    return {"sites": {
-        k: c._replace(pos=torch.where(c.pos < true_len, c.pos,
-                                      torch.full_like(c.pos, -1)))
-        for k, c in states["sites"].items()}}
+    return map_caches(states, lambda c: c._replace(
+        pos=torch.where(c.pos < true_len, c.pos, torch.full_like(c.pos, -1))))
 
 
 def rollback_decode_state(states, cut):
@@ -451,8 +496,7 @@ def rollback_decode_state(states, cut):
     paged: the pos stamp through the table), so the cache is the one a
     token-at-a-time engine that decoded only the accepted tokens holds (pos
     exactly, codes and scales on every valid row)."""
-    return {"sites": {k: c.rollback(cut)
-                      for k, c in states["sites"].items()}}
+    return map_caches(states, lambda c: c.rollback(cut))
 
 
 def finish_prefill(x, states, params, cfg: ModelConfig, ctx: QuantContext,
@@ -566,11 +610,22 @@ def apply_verify(params, cfg: ModelConfig, tokens, pos, states, bits,
 # ===========================================================================
 def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
                     dtype=torch.float32, per_slot: bool = False,
-                    kv_quant: str = "none", layout=None, device=None):
-    """Fresh decode state (a KV cache) for ONE attention site;
+                    kv_quant: str = "none", layout=None, device=None,
+                    rec_dtype=None):
+    """Fresh decode state for ONE site. An attention site gets a KV cache:
     ``kv_quant="int8"`` selects codes + scales, and ``layout`` (a
     ``runtime.kv_cache.KVCacheLayout``) overrides both -- it is how the
-    paged pool layout is selected."""
+    paged pool layout is selected. An rwkv site gets zeros ``(x_prev (B, 1,
+    D), wkv (B, H, hd, hd), x_prev (B, 1, D))`` in ``rec_dtype`` (default
+    ``dtype``), the wkv state in float32 or wider."""
+    if kind == "rwkv":
+        dt = rec_dtype or dtype
+        hd, D = cfg.rwkv_head_dim, cfg.d_model
+        return (torch.zeros((batch, 1, D), dtype=dt, device=device),
+                torch.zeros((batch, cfg.n_heads, hd, hd),
+                            dtype=torch.promote_types(dt, torch.float32),
+                            device=device),
+                torch.zeros((batch, 1, D), dtype=dt, device=device))
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     window = cfg.sliding_window
@@ -583,14 +638,16 @@ def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, *,
                       dtype=torch.float32, per_slot: bool = False,
-                      kv_quant: str = "none", layout=None, device=None):
+                      kv_quant: str = "none", layout=None, device=None,
+                      rec_dtype=None):
     return {"sites": {site_key(s.gidx): init_site_state(
         cfg, s.kind, batch, capacity, dtype=dtype, per_slot=per_slot,
-        kv_quant=kv_quant, layout=layout, device=device)
+        kv_quant=kv_quant, layout=layout, device=device, rec_dtype=rec_dtype)
         for s in iter_sites(cfg)}}
 
 
 def decode_state_per_slot(states):
-    """Widen a prefill-produced decode state to the per-slot layout."""
+    """Widen a prefill-produced decode state to the per-slot layout
+    (recurrent site state carries its batch axis already)."""
     return {"sites": {k: attn.cache_per_slot(c)
                       for k, c in states["sites"].items()}}

@@ -193,10 +193,10 @@ class QuantizedSession:
 
     def init_state(self, batch, capacity, dtype, per_slot=True, device=None,
                    layout=None):
-        return lm.init_decode_state(self.cfg, batch, capacity, dtype=dtype,
-                                    per_slot=per_slot,
-                                    kv_quant=self.ctx.kv_quant, layout=layout,
-                                    device=device)
+        return lm.init_decode_state(
+            self.cfg, batch, capacity, dtype=dtype, per_slot=per_slot,
+            kv_quant=self.ctx.kv_quant, layout=layout, device=device,
+            rec_dtype=torch.promote_types(dtype, self.ctx.compute_dtype))
 
     def state_per_slot(self, row):
         return lm.decode_state_per_slot(row)

@@ -592,3 +592,125 @@ def test_plain_on_cuda_runs_the_named_plain_versions(dev):
     with ops.plain_on_cuda():
         ops.flash_fwd(q, k, k, causal=True, q_block=64, kv_block=64)
     assert ops.launches["flash_fwd"] == n0["flash_fwd"] + 1
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv
+# ---------------------------------------------------------------------------
+WKV_CASES = [(1, 32, 1, 16, 16), (2, 64, 4, 32, 32), (4, 96, 8, 64, 32),
+             (3, 2048, 2, 64, 32), (1, 256, 64, 64, 32), (2, 160, 16, 64, 16),
+             (1, 48, 3, 16, 16), (4, 32, 64, 64, 32), (2, 96, 4, 16, 16),
+             (1, 64, 2, 32, 16)]
+
+
+def _wkv_operands(dev, B, S, H, hd, seed, strong=False):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    r, k, v = (t(rng.standard_normal((B, S, H, hd))) for _ in range(3))
+    lw = t(np.full((B, S, H, hd), -8.0) if strong
+           else -rng.uniform(0.01, 2.0, (B, S, H, hd)))
+    u = t(rng.standard_normal((H, hd)) * 0.5)
+    s0 = t(rng.standard_normal((B, H, hd, hd)) * 0.3)
+    return r, k, v, lw, u, s0
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+@pytest.mark.parametrize("given_state", [False, True])
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv_kernel_against_plain(dev, case, given_state, strong):
+    """y and the final state against the chunked plain version to 2e-4
+    (atol and rtol, the reference's wkv_pallas contract: the cumulative
+    sums run in another order), from zero or a given state, and with the
+    strongest decay (log w = -8) finite."""
+    B, S, H, hd, T = case
+    r, k, v, lw, u, s0 = _wkv_operands(dev, B, S, H, hd, sum(case), strong)
+    st = s0 if given_state else None
+    n0 = ops.launches["wkv"]
+    y, state = ops.wkv(r, k, v, lw, u, st, chunk=T)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv"] == n0 + 1
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    yp, sp = ref.wkv_chunked_ref(r, k, v, lw, u, st, chunk=T)
+    assert torch.allclose(y, yp, atol=2e-4, rtol=2e-4), \
+        float((y - yp).abs().max())
+    assert torch.allclose(state, sp, atol=2e-4, rtol=2e-4), \
+        float((state - sp).abs().max())
+
+
+def test_wkv_wrapper_rejects_bad_operands(dev):
+    r, k, v, lw, u, s0 = _wkv_operands(dev, 1, 64, 2, 16, 0)
+    with pytest.raises(TypeError):                      # no float64 route
+        ops.wkv(r.double(), k.double(), v.double(), lw.double(), u.double())
+    with pytest.raises(ValueError, match="multiple"):   # S % chunk
+        ops.wkv(r[:, :40].contiguous(), k[:, :40].contiguous(),
+                v[:, :40].contiguous(), lw[:, :40].contiguous(), u)
+    with pytest.raises(ValueError, match="chunk"):      # chunk 8
+        ops.wkv(r, k, v, lw, u, chunk=8)
+    wide = [torch.zeros((1, 32, 2, 48), device=dev) for _ in range(4)]
+    with pytest.raises(ValueError, match="hd"):         # hd 48
+        ops.wkv(*wide, torch.zeros((2, 48), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, lw, u)
+    with pytest.raises(ValueError, match="shape"):
+        ops.wkv(r, k, v, lw, u, s0[:, :1].contiguous())
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.wkv(r, k, v, lw, u.cpu())
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.wkv(r.requires_grad_(), k, v, lw, u)
+    r.requires_grad_(False)
+    n0 = ops.launches["wkv"]
+    with ops.plain_on_cuda("wkv"):                      # float64, plain
+        y, _ = ops.wkv(r.double(), k.double(), v.double(), lw.double(),
+                       u.double())
+    assert ops.launches["wkv"] == n0 and y.dtype == torch.float64
+
+
+def test_rwkv_engine_on_the_card_launches_wkv_in_prefill_only(dev,
+                                                            monkeypatch):
+    """A smoke rwkv engine through the kernels: ``wkv`` once per layer in
+    each prefill of a multiple of 32 and never in a decode step, every
+    decode step under ``set_sync_debug_mode("error")``, and the fake-quant
+    reference's tokens on every decisive step."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.scheduler import Request
+    from repro_torch.models import lm
+    from repro_torch.runtime.session import QuantizedSession
+    cfg = smoke_config("rwkv6-7b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    policy = tserve.demo_mixed_policy(cfg)
+    data = SyntheticLM(cfg)
+    lens = [64, 32, 20, 96, 45]
+    reqs = [Request(i, data.batch(i, 1, n)["tokens"][0], 6)
+            for i, n in enumerate(lens)]
+    decode = QuantizedSession.decode
+    in_decode = []
+
+    def guarded(self, *a):
+        n0 = ops.launches["wkv"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return decode(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            in_decode.append(ops.launches["wkv"] - n0)
+
+    monkeypatch.setattr(QuantizedSession, "decode", guarded)
+    kw = dict(slots=2, cache_len=112, prefill_chunk=128, device=dev)
+    n0 = dict(ops.launches)
+    sess, eng, out = tserve.serve_quantized(cfg, params, policy, reqs, **kw)
+    launched = {k: ops.launches[k] - n0[k] for k in n0}
+    chunked = sum(n % 32 == 0 for n in lens)
+    assert launched["wkv"] == cfg.n_layers * chunked
+    assert launched["quant_matmul"] > 0 and launched["quant_matmul_w4"] > 0
+    assert len(in_decode) == eng.stats.decode_steps > 0
+    assert not any(in_decode)
+    assert sess.route_counts.eligible_fp == 0
+    compared, bad, _ = tserve.check_greedy(cfg, params, policy, reqs, out,
+                                           **kw)
+    assert not bad and compared > 0
