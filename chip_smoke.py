@@ -15,9 +15,12 @@ In order:
    another order, over up to 155M terms), int8 decode attention on the ring
    and on pooled pages (permuted page ids, pages shared between slots,
    unmapped table entries, evicted rows, a slot at query position -1) to
-   rtol 2e-5 / atol 2e-6, the S-query verify attention on both layouts
-   to rtol 2e-5 / atol 2e-6 and bit for bit against S one-token launches,
-   flash forward to 2e-5 (out) / 1e-5 (lse) -- and time
+   rtol 2e-5 / atol 2e-6 (and, on the ring, bit for bit a launch on q
+   pre-scaled on the card: the kernel's own q scale), the S-query verify
+   attention on both layouts to rtol 2e-5 / atol 2e-6 and bit for bit
+   against S one-token launches, each attention row with its split over
+   cache rows (rows per block, splits, blocks); flash forward to 2e-5
+   (out) / 1e-5 (lse) -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -242,6 +245,19 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
                                         else "operations")
 
 
+def attn_split(ops, B: int, KV: int, Sc: int, S: int = 1) -> dict:
+    """The attention kernels' split of an Sc-row cache: rows per block (L),
+    splits per (slot, kv head, query) and the launch's blocks."""
+    L = ops.attn_split_rows(B, KV, Sc)
+    n = max(1, -(-Sc // L))
+    return dict(rows_per_split=L, n_split=n, blocks=B * KV * n * S)
+
+
+def split_str(sp: dict) -> str:
+    return (f"L={sp['rows_per_split']} splits={sp['n_split']} "
+            f"blocks={sp['blocks']}")
+
+
 def matmul_phase(torch, ops, ref, flush, dev):
     rows = []
     for w4 in (False, True):
@@ -323,11 +339,19 @@ def attn_phase(torch, ops, ref, flush, dev):
             return ref.decode_attn_quant_ref(qf, kc, ks, vc, vs, pos_t, qp)
 
         want = plain().reshape(out.shape)
+        # the kernel's own q * hd**-0.5 gives the bits of the pre-scale the
+        # wrapper launched before: a launch on the pre-scaled q with scale 1
+        prescaled = ops._quant_attn("decode_attn_quant", q * (hd ** -0.5),
+                                    kc, ks, vc, vs, pos_t, qp, None, None,
+                                    q_scale=1.0)
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
         gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
              f"decode_attn_quant Sc={Sc} differs from its plain version "
              f"(max |err| {err})")
+        gate(bool(torch.equal(out, prescaled)),
+             f"decode_attn_quant Sc={Sc}: the in-kernel q scale differs from "
+             "the pre-scaled launch")
         # yardstick: SDPA on the dequantized cache under the same mask
         kd = (kc.float() * ks[..., None]).permute(0, 2, 1, 3).contiguous()
         vd = (vc.float() * vs[..., None]).permute(0, 2, 1, 3).contiguous()
@@ -350,8 +374,10 @@ def attn_phase(torch, ops, ref, flush, dev):
             ms=cuda_ms(torch, lambda: ops.decode_attn_quant(*args), flush),
             plain_ms=cuda_ms(torch, plain, flush),
             library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
-            bound_by=b_by, main=Sc == MAIN_SC))
+            bound_by=b_by, main=Sc == MAIN_SC, q_scale_bitwise=True,
+            split=attn_split(ops, B, KV, Sc)))
         print(f"[kernel] decode_attn_quant Sc={Sc:<5d} err={err:.1e} "
+              f"{split_str(rows[-1]['split'])} "
               f"ms={rows[-1]['ms']:.4f} plain={rows[-1]['plain_ms']:.4f} "
               f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
               flush=True)
@@ -465,9 +491,11 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
                        flush),
             plain_ms=cuda_ms(torch, plain, flush),
             library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
-            bound_by=b_by, main=(ps, rows) == PAGED_MAIN))
+            bound_by=b_by, main=(ps, rows) == PAGED_MAIN,
+            split=attn_split(ops, B, KV, rows)))
         print(f"[kernel] decode_attn_quant_paged {tag:16s} err={err:.1e} "
               f"ring-kernel-on-gathered-view bitwise={bitwise} "
+              f"{split_str(rows_out[-1]['split'])} "
               f"ms={rows_out[-1]['ms']:.4f} "
               f"plain={rows_out[-1]['plain_ms']:.4f} "
               f"sdpa={rows_out[-1]['library_ms']:.4f} "
@@ -553,7 +581,8 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
                 and (pr == PAGED_MAIN if paged else True))
         row = dict(name=kern.__name__, shape=f"B={B} {tag} KV={KV} hd={hd}",
                    max_abs_err=err, equals_one_token_launches=True,
-                   main=main)
+                   main=main, split=attn_split(ops, B, KV,
+                                               pr[1] if paged else Sc, S))
         if main:
             # this run's work: the cache (each distinct mapped page once),
             # q, positions and out; every query attends every row
@@ -598,6 +627,7 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
                 bound_by=b_by)
             print(f"[kernel] {kern.__name__} {tag} err={err:.1e} "
                   f"= {S} one-token launches bit for bit; "
+                  f"{split_str(row['split'])} "
                   f"ms={row['ms']:.4f} ({S} one-token launches "
                   f"{row['one_token_launches_ms']:.4f}) "
                   f"plain={row['plain_ms']:.4f} "
@@ -984,10 +1014,12 @@ def train_phase(torch, ops, dev):
     return total, res
 
 
-def profile_device(torch, fn, top: int = 8):
+def profile_device(torch, fn, top: int = 8, watch: str = ""):
     """``fn`` under torch.profiler: wall ms, kernel launches, device busy ms
     (the sum over device-side kernel events only: a host op's device time
-    repeats its kernels') and the ``top`` kernels by device time."""
+    repeats its kernels'), the ``top`` kernels by device time and, when
+    ``watch`` is given, the device ms and launches of the kernels whose
+    name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1009,7 +1041,11 @@ def profile_device(torch, fn, top: int = 8):
                 kernel_launches=sum(e.count for e in ev
                                     if e.key == "cudaLaunchKernel"),
                 top=[(e.key[:64], dev_us(e) / 1e3, e.count)
-                     for e in kernels[:top]])
+                     for e in kernels[:top]],
+                watched=(watch, sum(dev_us(e) for e in kernels
+                                    if watch and watch in e.key) / 1e3,
+                         sum(e.count for e in kernels
+                             if watch and watch in e.key)))
 
 
 def count_syncs(torch, fn) -> int:
@@ -1144,12 +1180,16 @@ def profile_decode_step(torch, sess, dev, label="serve", layout=None):
     for _ in range(2):
         sess.decode(sess.params, tok, pos, st)
     res = profile_device(torch, lambda: sess.decode(sess.params, tok, pos,
-                                                    st), top=4)
+                                                    st), top=4,
+                         watch="decode_attn_quant_kernel")
     res["host_syncs"] = count_syncs(
         torch, lambda: sess.decode(sess.params, tok, pos, st))
     probe = count_syncs(torch, lambda: torch.ones(1, device=dev).item())
     gate(probe >= 1, f"the sync counter saw {probe} syncs in one .item()")
     print_profile(label, "one decode step", res)
+    _, attn_ms, attn_n = res["watched"]
+    print(f"[{label}] attention kernel in that step: {attn_ms:.3f} ms over "
+          f"{attn_n} launches", flush=True)
     print(f"[{label}] one decode step synchronises the host "
           f"{res['host_syncs']} times (the engine reads the tokens after it)",
           flush=True)

@@ -37,10 +37,10 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
         "qmm_w4": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "decode_attn_quant": {
-        "decode_attn_quant": [_P] * 8 + [_I] * 6 + [_P],
-        "decode_attn_quant_paged": [_P] * 9 + [_I] * 7 + [_P],
-        "verify_attn_quant": [_P] * 8 + [_I] * 7 + [_P],
-        "verify_attn_quant_paged": [_P] * 9 + [_I] * 8 + [_P],
+        "decode_attn_quant": [_P] * 10 + [_I] * 7 + [_F, _P],
+        "decode_attn_quant_paged": [_P] * 11 + [_I] * 8 + [_F, _P],
+        "verify_attn_quant": [_P] * 10 + [_I] * 8 + [_F, _P],
+        "verify_attn_quant_paged": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
     "fake_quant": {
         "fake_quant_fwd": [_P, _P, _P, _L, _F, _F, _I, _P],

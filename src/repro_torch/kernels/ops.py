@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, FrozenSet, List, Optional
+from typing import Dict, FrozenSet, List, Optional, Tuple
 
 import torch
 
@@ -30,13 +30,19 @@ launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
 FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
-MAX_TABLE = 4096                        # page-table entries a paged block holds
+MAX_TABLE = 4096                        # page-table entries of a slot
+# csrc/decode_attn_quant.cu: cache rows per pipeline tile; the blocks a
+# launch aims for, four on each of the H100's 132 SMs
+ATTN_TILE, ATTN_TARGET_BLOCKS = 64, 4 * 132
 WKV_CHUNKS, WKV_HEAD_DIMS = (16, 32), (8, 16, 32, 64)  # csrc/wkv.cu instances
 TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
 # the kernels whose plain versions ``plain_on_cuda`` can run on the card
 # (the fake-quant reference engines of an rwkv schedule reach ``wkv``)
 PLAIN_KERNELS = TRAIN_KERNELS + ("wkv",)
 _PLAIN: List[FrozenSet[str]] = [frozenset()]
+# the attention kernels' split tickets, per (device, stream): zeroed once,
+# and every launch leaves them zeroed
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -156,16 +162,44 @@ def _check_attn_shape(name: str, G: int, hd: int,
         raise ValueError(f"{name}: window must be > 0, got {window}")
 
 
+def attn_split_rows(B: int, KV: int, Sc: int) -> int:
+    """Cache rows each block of the decode-attention kernels takes (L): a
+    slot's ``ATTN_TILE``-row tiles spread evenly over at most
+    ``ceil(ATTN_TARGET_BLOCKS / (B * KV))`` splits, the launch's block
+    target, and at least one tile per split. It depends on
+    (B, KV, Sc) only -- never on the number of queries or on the layout --
+    so a verify query splits as its one-token launch does, and a paged
+    launch as the ring launch on its gathered view (Sc = P * ps): each pair
+    agrees bit for bit."""
+    n_tiles = max(1, -(-Sc // ATTN_TILE))
+    want = -(-ATTN_TARGET_BLOCKS // max(1, B * KV))
+    return ATTN_TILE * -(-n_tiles // min(n_tiles, want))
+
+
+def _tickets(dev: torch.device, n: int, stream: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 split tickets for launches on ``stream``
+    of device ``dev``, allocated (zeroed) only when the cached ones are too
+    few."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def _quant_attn(name: str, q: torch.Tensor, kc: torch.Tensor,
                 ks: torch.Tensor, vc: torch.Tensor, vs: torch.Tensor,
                 pos: torch.Tensor, q_pos: torch.Tensor,
-                table: Optional[torch.Tensor],
-                window: Optional[int]) -> torch.Tensor:
+                table: Optional[torch.Tensor], window: Optional[int],
+                q_scale: Optional[float] = None) -> torch.Tensor:
     """The four attention wrappers on one launcher: q (B, S, H, hd) with
     q_pos (B, S) for the verify entry points, (B,) with S = 1 for the
     one-token ones; the ring layout when ``table`` is None, else the paged
-    one. q is pre-scaled by hd**-0.5 here, as the TPU wrappers did. Returns
-    (B, S, H, hd) f32."""
+    one. q is scaled by ``q_scale`` (hd**-0.5 when None): here before the
+    plain versions, as the TPU wrappers did, and in the kernel as it loads
+    q (the same float32 multiply, so the same bits, without a launch).
+    Returns (B, S, H, hd) f32."""
     verify = name.startswith("verify")
     paged = table is not None
     if paged:
@@ -182,9 +216,11 @@ def _quant_attn(name: str, q: torch.Tensor, kc: torch.Tensor,
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match codes "
                          f"{tuple(kc.shape)}"
                          + (f" and table {tuple(table.shape)}" if paged else ""))
-    qf = q.reshape(B, S, KV, G, hd).to(torch.float32) * (hd ** -0.5)
+    scale = hd ** -0.5 if q_scale is None else q_scale
+    qf = q.reshape(B, S, KV, G, hd).to(torch.float32)
     tensors = (qf, kc, ks, vc, vs, pos, q_pos) + ((table,) if paged else ())
     if not _on_cuda(*tensors):
+        qf = qf * scale
         if verify:
             fn = ref.verify_attn_quant_paged_ref if paged \
                 else ref.verify_attn_quant_ref
@@ -212,15 +248,27 @@ def _quant_attn(name: str, q: torch.Tensor, kc: torch.Tensor,
     _check(q_pos, "q_pos", torch.int32, (B, S) if verify else (B,))
     if paged:
         _check(table, "page_table", torch.int32, (B, P))
-    out = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=qf.device)
+        Sc = P * ps
+    if kc.data_ptr() % 4 or vc.data_ptr() % 4:
+        raise ValueError(f"{name}: codes must be 4-byte aligned")
+    dev = qf.device
+    L = attn_split_rows(B, KV, Sc)
+    n_split = max(1, -(-Sc // L))
+    out = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=dev)
+    # the splits' partials: acc (G, hd) each, then (m, l) of each query row
+    part = torch.empty((B * S * KV * n_split * G * (hd + 2),),
+                       dtype=torch.float32, device=dev) if n_split > 1 else None
+    stream = _stream()
+    tickets = _tickets(dev, B * S * KV, stream.value)
     ptrs = [t.data_ptr() for t in (qf, kc, ks, vc, vs, pos)]
     ptrs += [table.data_ptr()] if paged else []
-    ptrs += [q_pos.data_ptr(), out.data_ptr()]
+    ptrs += [q_pos.data_ptr(), out.data_ptr(),
+             None if part is None else part.data_ptr(), tickets.data_ptr()]
     dims = [B] + ([S] if verify else [])
     dims += [P, ps] if paged else [Sc]
-    dims += [KV, G, hd, 0 if window is None else int(window)]
-    rc = getattr(_build.load("decode_attn_quant"), name)(*ptrs, *dims,
-                                                         _stream())
+    dims += [KV, G, hd, 0 if window is None else int(window), L]
+    rc = getattr(_build.load("decode_attn_quant"), name)(*ptrs, *dims, scale,
+                                                         stream)
     _raise_on(rc, name)
     launches[name] += 1
     return out.reshape(B, S, H, hd)

@@ -82,7 +82,7 @@ def _ring(rng, B, Sc, KV, hd, dev, q_pos):
     return kc, ks, vc, vs, torch.from_numpy(pos).to(dev)
 
 
-@pytest.mark.parametrize("Sc", [320, 4096, 100])
+@pytest.mark.parametrize("Sc", [320, 4096, 100, 1, 63, 65, 4097])
 @pytest.mark.parametrize("G", [2, 1, 4])
 def test_decode_attn_quant_allclose(dev, Sc, G):
     B, KV, hd = 4, 8, 128
@@ -144,7 +144,8 @@ def _paged(rng, B, P, ps, KV, hd, dev):
 
 
 @pytest.mark.parametrize("ps,rows", [(8, 320), (16, 320), (8, 4096),
-                                     (16, 4096), (3, 30), (64, 128)])
+                                     (16, 4096), (3, 30), (64, 128),
+                                     (3, 99), (7, 70), (5, 4095)])
 @pytest.mark.parametrize("G", [2, 1, 4])
 def test_decode_attn_quant_paged_allclose_and_equals_ring(dev, ps, rows, G):
     """The paged kernel against its plain version (the reference contract)
@@ -334,6 +335,178 @@ def test_verify_attn_quant_paged_kernel(dev, ps, rows, S, G):
     _check_verify(out, S, lambda j: ops.decode_attn_quant_paged(
         q[:, j:j + 1].contiguous(), kp, ks, vp, vs, pos, tbl,
         qp[:, j].contiguous(), window=window), (ps, rows, S, G))
+
+
+# ---------------------------------------------------------------------------
+# the split over cache rows (ops.attn_split_rows): edges, masked splits,
+# the in-launch combine's tickets, the in-kernel q scale
+# ---------------------------------------------------------------------------
+def _q(rng, B, S, H, hd, dev):
+    return torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32)).to(dev)
+
+
+def _ring_to_pages(rng, ring, ps):
+    """The slots of ``ring`` as a page pool: slot b's block j in page
+    ``perm[b * P + j]`` of a random permutation, so the gathered view is
+    ``ring`` itself, bit for bit."""
+    kc, ks, vc, vs, pos = ring
+    B, Sc = pos.shape
+    P = Sc // ps
+    perm = torch.from_numpy(rng.permutation(B * P)).to(kc.device)
+
+    def pages(x):
+        blocks = x.reshape((B * P, ps) + tuple(x.shape[2:]))
+        y = torch.empty_like(blocks)
+        y[perm] = blocks
+        return y
+
+    return (pages(kc), pages(ks), pages(vc), pages(vs), pages(pos),
+            perm.reshape(B, P).to(torch.int32))
+
+
+def _plain_ring(q, kc, ks, vc, vs, pos, qp, window=None):
+    B, S, H, hd = q.shape
+    KV = kc.shape[2]
+    qf = q.reshape(B, S, KV, H // KV, hd) * (hd ** -0.5)
+    return ref.verify_attn_quant_ref(qf, kc, ks, vc, vs, pos,
+                                     qp.reshape(B, S), window).reshape(q.shape)
+
+
+@pytest.mark.parametrize("window", [None, 200])
+def test_decode_attn_quant_masked_splits(dev, window):
+    """Sc=4096 in 256-row splits: slot 0 has two whole splits evicted; slot
+    1 is written up to position 1000, so with a window of 200 only split 3
+    attends and every other split is wholly masked; slot 2 is empty and
+    queries at -1 (every row masked: the plain version's uniform average);
+    slot 3 is a wrapped ring. The paged pool of the same rows gives the
+    same bits."""
+    B, Sc, KV, G, hd = 4, 4096, 8, 2, 128
+    assert ops.attn_split_rows(B, KV, Sc) == 256
+    rng = np.random.default_rng(7 + (window or 0))
+    q_pos = np.array([Sc - 1, 1000, -1, 3 * Sc + 5], np.int32)
+    kc, ks, vc, vs, pos = _ring(rng, B, Sc, KV, hd, dev, q_pos)
+    pos[0, 512:1024] = -1
+    q = _q(rng, B, 1, KV * G, hd, dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    out = ops.decode_attn_quant(q, kc, ks, vc, vs, pos, qp, window=window)
+    torch.testing.assert_close(
+        out, _plain_ring(q, kc, ks, vc, vs, pos, qp, window),
+        rtol=2e-5, atol=2e-6)
+    assert bool(torch.isfinite(out).all())
+    pages = _ring_to_pages(rng, (kc, ks, vc, vs, pos), 16)
+    assert torch.equal(
+        ops.decode_attn_quant_paged(q, *pages, qp, window=window), out)
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+@pytest.mark.parametrize("S", [1, 5, 8])
+def test_verify_attn_quant_splits_as_one_token_launches(dev, layout, S):
+    """At Sc=4096 (16 splits a query) verify query j is bit for bit the
+    one-token launch at q_pos[:, j], on both layouts."""
+    B, Sc, KV, G, hd = 4, 4096, 8, 2, 128
+    rng = np.random.default_rng(S + (layout == "paged"))
+    q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, -1], np.int32)
+    ring = _ring(rng, B, Sc, KV, hd, dev, np.maximum(q_pos, 0))
+    paged = layout == "paged"
+    cache = _ring_to_pages(rng, ring, 16) if paged else ring
+    kern = ops.verify_attn_quant_paged if paged else ops.verify_attn_quant
+    one = ops.decode_attn_quant_paged if paged else ops.decode_attn_quant
+    q = _q(rng, B, S, KV * G, hd, dev)
+    qp = _verify_positions(torch.from_numpy(q_pos), S).to(dev)
+    out = kern(q, *cache, qp)
+    torch.testing.assert_close(out, _plain_ring(q, *ring, qp), rtol=2e-5,
+                               atol=2e-6)
+    _check_verify(out, S, lambda j: one(q[:, j:j + 1].contiguous(), *cache,
+                                        qp[:, j].contiguous()), (layout, S))
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_split_tickets_reset_between_launches(dev, layout):
+    """The same launch gives the same bits again, also after launches of
+    other grid sizes (5 splits on 2 slots, a 5-query verify): the block
+    that combines a (slot, query, kv head) leaves its ticket at 0."""
+    KV, G, hd = 8, 2, 128
+    rng = np.random.default_rng(11)
+    paged = layout == "paged"
+
+    def launcher(B, Sc, S):
+        q_pos = rng.integers(Sc // 2, 2 * Sc, B).astype(np.int32)
+        ring = _ring(rng, B, Sc, KV, hd, dev, q_pos)
+        cache = _ring_to_pages(rng, ring, 8) if paged else ring
+        q = _q(rng, B, S, KV * G, hd, dev)
+        if S == 1:
+            fn = ops.decode_attn_quant_paged if paged else ops.decode_attn_quant
+            qp = torch.from_numpy(q_pos).to(dev)
+        else:
+            fn = ops.verify_attn_quant_paged if paged else ops.verify_attn_quant
+            qp = _verify_positions(torch.from_numpy(q_pos), S).to(dev)
+        return lambda: fn(q, *cache, qp)
+
+    big, small, verify = launcher(4, 4096, 1), launcher(2, 320, 1), \
+        launcher(4, 1024, 5)
+    first = big()
+    again = big()
+    s1, v1 = small(), verify()
+    last = big()
+    s2, v2 = small(), verify()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, last)
+    assert torch.equal(s1, s2) and torch.equal(v1, v2)
+    assert all(int(t.abs().sum()) == 0 for t in ops._TICKETS.values())
+
+
+@pytest.mark.parametrize("name", ["decode_attn_quant", "decode_attn_quant_paged",
+                                  "verify_attn_quant", "verify_attn_quant_paged"])
+def test_kernel_scales_q_as_the_wrapper_did(dev, name):
+    """The kernel multiplies q by hd**-0.5 as it loads it: the bits of the
+    pre-scale the wrapper used to launch. A launch on q equals a launch on
+    ``q * hd**-0.5`` (the card's float32 multiply) with the scale 1."""
+    B, Sc, KV, G, hd = 4, 320, 8, 2, 128
+    S = 5 if name.startswith("verify") else 1
+    rng = np.random.default_rng(len(name))
+    q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, -1], np.int32)
+    ring = _ring(rng, B, Sc, KV, hd, dev, np.maximum(q_pos, 0))
+    if name.endswith("paged"):
+        *cache, table = _ring_to_pages(rng, ring, 8)
+    else:
+        cache, table = ring, None
+    q = _q(rng, B, S, KV * G, hd, dev)
+    qp = torch.from_numpy(q_pos).to(dev) if S == 1 else \
+        _verify_positions(torch.from_numpy(q_pos), S).to(dev)
+    out = ops._quant_attn(name, q, *cache, qp, table, None)
+    pre = ops._quant_attn(name, q * (hd ** -0.5), *cache, qp, table, None,
+                          q_scale=1.0)
+    assert torch.equal(out, pre)
+
+
+@pytest.mark.parametrize("G,hd,offset", [(3, 100, 0), (8, 72, 0), (8, 256, 0),
+                                         (5, 4, 0), (2, 128, 4), (1, 64, 8)])
+def test_decode_attn_quant_other_widths(dev, G, hd, offset):
+    """Head widths off the 16-byte copy (hd % 16 != 0, or codes 4 or 8
+    bytes past an aligned address: 4- and 8-byte copies), the 4- and
+    8-row register instances, and G=8 at hd=256 (over 48 KB of shared
+    memory) against the plain version; the paged pool of the same rows,
+    copied 16 bytes at a time where hd allows, gives the same bits."""
+    B, Sc, KV = 2, 700, 3
+    rng = np.random.default_rng(G * hd + offset)
+    q_pos = np.array([Sc + 9, Sc // 3], np.int32)
+    kc, ks, vc, vs, pos = _ring(rng, B, Sc, KV, hd, dev, q_pos)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        y = buf[offset:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    kc_s, vc_s = shifted(kc), shifted(vc)
+    assert kc_s.data_ptr() % 16 == offset % 16
+    q = _q(rng, B, 1, KV * G, hd, dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    out = ops.decode_attn_quant(q, kc_s, ks, vc_s, vs, pos, qp)
+    torch.testing.assert_close(out, _plain_ring(q, kc, ks, vc, vs, pos, qp),
+                               rtol=2e-5, atol=2e-6)
+    pages = _ring_to_pages(rng, (kc, ks, vc, vs, pos), 7)
+    assert torch.equal(ops.decode_attn_quant_paged(q, *pages, qp), out)
 
 
 def test_verify_wrappers_reject_bad_operands(dev):
