@@ -7,9 +7,11 @@ In order:
 
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
-   at once);
+   at once); print the registers, spills, shared memory and blocks per SM
+   of every instance of the flash and matmul kernels;
 2. kernel phases: hold each kernel against its plain PyTorch version on the
-   card at the main paths' Qwen3-0.6B shapes -- both int8 matmuls,
+   card at the main paths' Qwen3-0.6B shapes -- both int8 matmuls (at M = 4
+   and M = 128, also at the RWKV6-7B projection shapes),
    fake-quant forward and its dv bit for bit (atol 0), the fake-quant ds
    to rtol 1e-4 of |ds| plus 1e-6 of sum |g * dsd| (float32 sums in
    another order, over up to 155M terms), int8 decode attention on the ring
@@ -43,12 +45,15 @@ In order:
    reference's top-2 margin > 1e-2 and its float64 evaluation agreeing
    (``serve.check_greedy``); a request's comparison stops at its first
    non-decisive step; (c) packed weight bytes within 5% of
-   ``MPQPolicy.size_bytes``. The reference engine runs the plain versions
+   ``MPQPolicy.size_bytes``; (d) one profiled decode step launches 4650
+   kernels (one per matmul and attention call, with the rest of the step's
+   kernels). The reference engine runs the plain versions
    (``ops.plain_on_cuda()``), so its fake-quant is plain PyTorch;
 5. paged serve phase: the same 8 requests, their first 128 tokens (16 pages
    of 8) made the same, served over pooled int8 pages with shared-prefix
    remapping and chunked append prefill. Gates: ``decode_attn_quant_paged``
-   launched 28 times per decode step and ``decode_attn_quant`` never; greedy
+   launched 28 times per decode step and ``decode_attn_quant`` never, and
+   one profiled decode step launches 5182 kernels; greedy
    tokens as in (b); prefix hits, and fewer tokens prefilled than the ring
    phase; the page pool consistent and every slot empty after the drain;
 6. speculative serve phases, ring and paged: the same requests as phases 4
@@ -120,7 +125,11 @@ F32_OPS_PER_S = 67e12
 # (K, N) of the Qwen3-0.6B projections: wq, wk/wv, wo, mlp_wi/wg, mlp_wo
 QWEN3_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
             (3072, 1024)]
+# (K, N) of the RWKV6-7B projections: the time mix and channel-mix
+# receptance, channel-mix key, channel-mix value
+RWKV6_KN = [(4096, 4096), (4096, 14336), (14336, 4096)]
 MAIN_KN = (1024, 3072)      # the summary row of each matmul: a decode GEMV
+PREFILL_M = 128             # the matmuls' prefill rows (M > 16: tensor cores)
 MAIN_SC = 320               # the summary row of decode attention: the serve ring
 PROMPTS = [256, 128, 224, 160, 192, 144, 240, 176]
 GEN, SLOTS, CACHE_LEN, PREFILL_CHUNK = 32, 4, 320, 256
@@ -192,6 +201,9 @@ RWKV_CHUNK = 32
 ATTN_KERNELS = ("decode_attn_quant", "decode_attn_quant_paged",
                 "verify_attn_quant", "verify_attn_quant_paged", "flash_fwd")
 TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
+# kernel launches of one profiled Qwen3-0.6B decode step over the ring and
+# over pages: one launch per matmul and attention call, no more
+DECODE_STEP_LAUNCHES = {"serve": 4650, "paged": 5182}
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
 # layers: loss rtol, and per-gradient-leaf relative L2, the reference's ds
@@ -212,18 +224,24 @@ def gate(ok: bool, what: str) -> None:
         raise GateError(what)
 
 
-def cuda_ms(torch, fn, flush, reps: int = 40, warmup: int = 5) -> float:
+def cuda_ms(torch, fn, flush, reps: int = 40, warmup: int = 5,
+            clean: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each after an L2
     flush (the serving path reads every weight cold). A spin kernel of
     ~1 ms ahead of each launch lets the host queue the flush, the events and
     ``fn``'s kernels before the device reaches them, so the events time the
-    device's work and not the host's launch latency."""
+    device's work and not the host's launch latency. The flush writes 64 MB,
+    which leaves the L2 full of dirty lines that ``fn``'s misses must write
+    back first; ``clean`` flushes by reading the 64 MB instead."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         torch.cuda._sleep(SPIN_CYCLES)
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -258,12 +276,40 @@ def split_str(sp: dict) -> str:
             f"blocks={sp['blocks']}")
 
 
+def print_kernel_resources(_build) -> None:
+    """Registers and local (spill) bytes per thread as ptxas allocated them,
+    shared memory (static and dynamic) and resident blocks per SM, from the
+    runtime's function attributes and occupancy calculator, for every
+    instance of the two kernels redesigned last."""
+    import ctypes
+    info = (ctypes.c_int * 4)()
+    flash = _build.load("flash_attention")
+    qmm = _build.load("quant_matmul")
+    occ = [(f"flash_fwd_kernel<hd={hd}, heads={gb}>", flash.flash_fwd_occupancy,
+            (hd, gb)) for hd in (128, 64, 32) for gb in (2, 1)]
+    occ += [(f"qmm_splitk_kernel<rows={mr}>", qmm.qmm_occupancy, (0, mr))
+            for mr in (1, 2, 3, 4, 8, 16)]
+    occ += [("qmm_mma_kernel", qmm.qmm_occupancy, (1, 0)),
+            ("qmm_w4_kernel", qmm.qmm_occupancy, (2, 0))]
+    for name, fn, args in occ:
+        gate(fn(*args, ctypes.addressof(info)) == 0,
+             f"occupancy query of {name} failed")
+        regs, smem, blocks, local = info
+        print(f"[resources] {name}: {regs} registers, {local} B local "
+              f"(spills), {smem} B shared, {blocks} blocks per SM", flush=True)
+        gate(blocks >= 1, f"{name} cannot run a block on an SM")
+
+
 def matmul_phase(torch, ops, ref, flush, dev):
+    """Both matmul kernels at M = 4 (decode: ``qmm_int8``'s split-K route)
+    and M = 128 (prefill: its tensor-core route) over the Qwen3-0.6B and
+    RWKV6-7B projection shapes, bit for bit their plain versions; the plain
+    versions run fewer timed reps at the RWKV6-7B shapes."""
     rows = []
     for w4 in (False, True):
         name = "quant_matmul_w4" if w4 else "quant_matmul"
-        for M in (4, 128):
-            for K, N in QWEN3_KN:
+        for M in (4, PREFILL_M):
+            for K, N in QWEN3_KN + RWKV6_KN:
                 g = torch.Generator(device=dev).manual_seed(K * 31 + N + M)
                 x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                                   dtype=torch.int8)
@@ -293,18 +339,37 @@ def matmul_phase(torch, ops, ref, flush, dev):
                     lib_ms = cuda_ms(torch, lambda: torch._int_mm(xm, w), flush)
                 n_bytes = M * K + w.numel() + 8 + M * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * M * K * N, INT8_OPS_PER_S)
+                # the decode rows of the two serve shapes also after a
+                # flush that leaves the L2 clean
+                clean_ms = cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush,
+                                   clean=True) \
+                    if M == 4 and (K, N) in (MAIN_KN, RWKV6_KN[1]) else None
                 rows.append(dict(
                     name=name, shape=f"M={M} K={K} N={N}", max_abs_err=err,
+                    clean_l2_ms=clean_ms,
                     ms=cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush),
                     plain_ms=cuda_ms(torch, lambda: plain(x, w, s_x, s_w),
-                                     flush),
+                                     flush, reps=40 if K * N < 1 << 24
+                                     else 10),
                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                     main=(M == 4 and (K, N) == MAIN_KN)))
                 print(f"[kernel] {name:16s} M={M:<3d} K={K:<4d} N={N:<4d} "
                       f"err={err:.1e} ms={rows[-1]['ms']:.4f} "
                       f"plain={rows[-1]['plain_ms']:.4f} "
                       f"lib={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-                      f"bound={b_ms:.4f}({b_by})", flush=True)
+                      f"bound={b_ms:.4f}({b_by})"
+                      + ("" if clean_ms is None
+                         else f" clean-L2={clean_ms:.4f}"), flush=True)
+    tiny = torch.empty(1024, device=dev)
+    floor = cuda_ms(torch, tiny.zero_, flush)
+    print(f"[kernel] timing floor: one 4 KB fill kernel {floor:.4f} ms under "
+          f"the same events and flush", flush=True)
+    for r in rows:
+        if r["name"] == "quant_matmul" and r["shape"] == (
+                f"M={PREFILL_M} K={MAIN_KN[0]} N={MAIN_KN[1]}"):
+            print(f"[kernel] quant_matmul prefill row {r['shape']}: "
+                  f"ms={r['ms']:.4f} beside torch._int_mm "
+                  f"{r['library_ms']:.4f}", flush=True)
     return rows
 
 
@@ -999,7 +1064,7 @@ def train_phase(torch, ops, dev):
     # the counted run; its result is dropped)
     state = opt.init(params)
     res["qat_step_profile"] = profile_device(
-        torch, lambda: qstep(params, state, b))
+        torch, lambda: qstep(params, state, b), watch="flash_fwd_kernel")
     print_profile("train", "one QAT step", res["qat_step_profile"])
     del state
     res.update(importance_ms=imp_ms, importance_losses=imp_loss,
@@ -1074,6 +1139,10 @@ def print_profile(label: str, what: str, res: dict) -> None:
           flush=True)
     for name, ms, n in res["top"]:
         print(f"[{label}]   {ms:9.2f} ms {n:6d}x  {name}", flush=True)
+    watch, w_ms, w_n = res["watched"]
+    if watch:
+        print(f"[{label}] {watch} in it: {w_ms:.3f} ms over {w_n} launches",
+              flush=True)
 
 
 def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
@@ -1164,10 +1233,13 @@ def prefill_noise(torch, cfg, params, policy, sess, reqs, dev):
     return rows
 
 
-def profile_decode_step(torch, sess, dev, label="serve", layout=None):
+def profile_decode_step(torch, sess, dev, label="serve", layout=None,
+                        watch="decode_attn_quant_kernel"):
     """One decode step of the served model (4 slots) under torch.profiler:
-    kernel launches, host time and device time. With a paged ``layout``
-    each slot maps pages of its own."""
+    kernel launches, host time, device time and that of the kernels named
+    ``watch``. With a paged ``layout`` each slot maps pages of its own. The
+    Qwen3-0.6B steps (labels of ``DECODE_STEP_LAUNCHES``) launch exactly
+    that many kernels: one launch per matmul and attention call."""
     st = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev,
                          layout=layout)
     if layout is not None:
@@ -1180,16 +1252,16 @@ def profile_decode_step(torch, sess, dev, label="serve", layout=None):
     for _ in range(2):
         sess.decode(sess.params, tok, pos, st)
     res = profile_device(torch, lambda: sess.decode(sess.params, tok, pos,
-                                                    st), top=4,
-                         watch="decode_attn_quant_kernel")
+                                                    st), top=4, watch=watch)
     res["host_syncs"] = count_syncs(
         torch, lambda: sess.decode(sess.params, tok, pos, st))
     probe = count_syncs(torch, lambda: torch.ones(1, device=dev).item())
     gate(probe >= 1, f"the sync counter saw {probe} syncs in one .item()")
     print_profile(label, "one decode step", res)
-    _, attn_ms, attn_n = res["watched"]
-    print(f"[{label}] attention kernel in that step: {attn_ms:.3f} ms over "
-          f"{attn_n} launches", flush=True)
+    want = DECODE_STEP_LAUNCHES.get(label)
+    gate(want is None or res["kernel_launches"] == want,
+         f"[{label}] one decode step launched {res['kernel_launches']} "
+         f"kernels, expected {want}")
     print(f"[{label}] one decode step synchronises the host "
           f"{res['host_syncs']} times (the engine reads the tokens after it)",
           flush=True)
@@ -1814,7 +1886,8 @@ def rwkv_serve_phase(torch, ops, dev):
          f"one rwkv decode step launched {step_launches}")
     print(f"[rwkv] one decode step under sync-debug 'error': no host sync; "
           f"kernel launches {step_launches}", flush=True)
-    step = profile_decode_step(torch, sess, dev, "rwkv")
+    step = profile_decode_step(torch, sess, dev, "rwkv",
+                               watch="qmm_splitk_kernel")
     return launches, dict(
         params=n_params, decode_step_profile=step, wall_s=wall,
         prefill_p50_ms=d["prefill_p50_ms"],
@@ -1848,6 +1921,7 @@ def main() -> int:
     _build.build_all()
     print(f"[build] {len(_build.SYMBOLS)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    print_kernel_resources(_build)
 
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

@@ -16,36 +16,91 @@
 //
 // What bounds it on an H100: 4 * hd float operations per attended (q, k)
 // pair against 4 * hd bytes per row of q, k, v and out, so at S = 2048 the
-// operations over the float32 rate bound it (no TF32: the 2e-5 contract
-// would not hold).
+// operations over the float32 rate bound it: full float32 FFMA on the CUDA
+// cores (TF32 would need a parity contract of its own; the rtol 2e-5
+// contract holds only in float32). The first port of this kernel reached
+// 30% of that bound: its inner loops read one shared word per 2 (QK) or
+// 2.7 (PV) FMAs, and an SM issues about one warp-wide shared load per
+// clock against four warp-wide FFMAs; K and V were copied synchronously
+// into one buffer; and each of the G query heads of a GQA group read the
+// same K/V tiles again.
 //
-// Design (simple and right first; tensor cores, TMA and a pipelined ring
-// come later): one block of 256 threads per (b*KV*G row group, 64-row q
-// tile). The q tile stays in shared memory; a loop over 64-row kv tiles
-// takes the place of the TPU's sequential grid axis and skips tiles that
-// lie wholly under the causal or window mask. Per tile, K lands in shared
-// memory and each thread computes a 4x4 block of logits (rows ty+16i,
-// columns tx+16j) in f32 FMA; the row max and sum reduce over the 16 lanes
-// that share the rows with shuffles; (m, l) and the thread's 4 x hd/16
-// slice of the output accumulator stay in registers; p goes to shared
-// memory, V replaces K in the same buffer, and the thread accumulates
-// p @ V for its rows. Pitches of hd+4 (q), hd+2 (k/v) and 65 (p) keep the
-// shared-memory reads free of bank conflicts. 84 KB of shared memory at
-// hd = 128 lets two blocks share an SM.
+// Design:
+// - One block per (b, kv head, pair of query heads, 64-position q tile):
+//   the block's R = 64 * GB query rows (GB = 2 when G is even, else 1) share
+//   each K/V tile, so a tile is read from device memory G / GB times per
+//   group instead of G times. 256 threads as 16 x 16 (ty, tx).
+// - Register blocking with 16-byte shared reads. Thread (ty, tx) owns rows
+//   ty * TM .. + TM - 1 (TM = R / 16: 8 or 4), logit columns tx + 16 j
+//   (j < 4) and output columns in float4 chunks tx + 16 c (a float2 at
+//   hd = 32). Q, K and V sit row-major in shared memory with the float4
+//   chunk index XOR-swizzled (Q rows by thread row, K and V rows by
+//   row & 7), so that the rows a warp reads in one instruction fall in
+//   distinct banks and a thread's addresses cost one XOR per chunk. QK: per
+//   four dimensions, TM + 4 float4 reads for 16 * TM FMAs (8 per 16-byte
+//   read at TM = 8). P goes to shared memory column-major (its rows
+//   contiguous) and is read back by the half-warp that wrote it; PV: per kv
+//   row, TM / 4 + HD / 64 float4 reads for TM * HD / 16 FMAs (16 per read
+//   at TM = 8, hd = 128).
+// - Two K and two V buffers, filled with 16-byte cp.async one tile ahead:
+//   tile t + 1's K and V are in flight during all of tile t, and one block
+//   barrier a tile guards both buffers and P (one buffer each needed four).
+//   230,400 B of shared memory at hd = 128 with two heads: one block an SM.
+// - Causal scheduling: blockIdx.y walks the q tiles last first, so the
+//   blocks with the most unmasked kv tiles start first and the last wave is
+//   short. Tiles wholly under the causal or window mask are skipped; the
+//   mask is evaluated only on tiles that cross the diagonal or the window's
+//   edge.
+// - expf / logf as before: the exponentials are 32 per thread and tile
+//   against 8192 FMAs, so exp2f with log2(e) folded in would save nothing
+//   measurable.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BQ = 64;   // q rows per block
+constexpr int BQ = 64;   // q positions per block
 constexpr int BKV = 64;  // kv rows per loop step
-constexpr int PP = BKV + 1;
 constexpr float NEG_INF = -1e30f;
 
+template <int HD, int GB>
+struct Shape {
+  static constexpr int R = BQ * GB;      // query rows per block
+  static constexpr int TM = R / 16;      // rows per thread
+  static constexpr int CH = HD / 4;      // float4 chunks per row
+  // output columns per thread: OC vectors of OV floats (float4 chunks
+  // tx + 16 c; at hd = 32 one float2, columns 2 tx and 2 tx + 1)
+  static constexpr int OC = HD >= 64 ? HD / 64 : 1;
+  static constexpr int OV = HD >= 64 ? 4 : 2;
+  static constexpr int PP = R + 4;       // P pitch in floats
+  // Q, two K and two V buffers, P
+  static constexpr int SMEM = (R * HD + 4 * BKV * HD + BKV * PP) * 4;
+};
+
+// Float offset of float4 chunk `ch` of row `r` in a row-major tile whose
+// chunk index is XOR-swizzled by `s` (0..7). Q rows swizzle by their
+// thread row (r / TM: the two thread rows of a warp read distinct banks),
+// K and V rows by r & 7 (the 8 rows that 8 lanes read at once read
+// distinct banks); either way a thread's swizzle is one value for all the
+// rows it reads at one chunk, so an address costs one XOR per chunk.
 template <int HD>
-constexpr int smem_bytes() {
-  return (BQ * (HD + 4) + BKV * (HD + 2) + BQ * PP) * 4;
+__device__ __forceinline__ int at(int r, int ch, int s) {
+  return r * HD + ((ch ^ s) << 2);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // rows of 16 lanes (tx = 0..15) share one set of q rows
@@ -60,66 +115,51 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// one K or V tile: BKV rows of HD floats, row stride `stride` in device memory
 template <int HD>
-__device__ __forceinline__ void load_kv_tile(float* dst,
-                                             const float* __restrict__ src,
-                                             size_t row_stride, int t0) {
-  constexpr int KP = HD + 2;
-  for (int idx = threadIdx.x; idx < BKV * HD / 4; idx += THREADS) {
-    const int r = idx / (HD / 4);
-    const int c = (idx % (HD / 4)) * 4;
-    const float4 x =
-        *reinterpret_cast<const float4*>(src + (size_t)(t0 + r) * row_stride + c);
-    float2* d = reinterpret_cast<float2*>(dst + r * KP + c);  // KP even
-    d[0] = make_float2(x.x, x.y);
-    d[1] = make_float2(x.z, x.w);
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          size_t stride) {
+  constexpr int CH = HD / 4;
+  for (int idx = threadIdx.x; idx < BKV * CH; idx += THREADS) {
+    const int r = idx / CH, ch = idx % CH;
+    cp_async16(dst + at<HD>(r, ch, r & 7), src + (size_t)r * stride + ch * 4);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
+template <int HD, int GB>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int S, int KV, int G, int causal,
                  int window) {
-  constexpr int QP = HD + 4;
-  constexpr int KP = HD + 2;
-  constexpr int NC = HD / 16;  // output columns per thread
+  using P = Shape<HD, GB>;
+  constexpr int R = P::R, TM = P::TM, CH = P::CH, OC = P::OC, OV = P::OV;
+  constexpr int PP = P::PP;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;             // BQ x QP
-  float* kvs = qs + BQ * QP;    // BKV x KP, K then V
-  float* ps = kvs + BKV * KP;   // BQ x PP
+  float* qs = smem;                 // R x HD, swizzled
+  float* ks0 = qs + R * HD;         // two K buffers, BKV x HD, swizzled
+  float* vs0 = ks0 + 2 * BKV * HD;  // two V buffers
+  float* ps = vs0 + 2 * BKV * HD;   // BKV x PP: p[row r][kv c] at c * PP + r
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int row = blockIdx.y;               // ((b * KV + h) * G + g)
-  const int g = row % G;
-  const int h = (row / G) % KV;
-  const int b = row / (G * KV);
+  const int n_q = gridDim.y;
+  const int qt = n_q - 1 - blockIdx.y;   // the largest causal work first
+  const int q0 = qt * BQ;
+  const int hg = blockIdx.x;             // ((b * KV + h) * G / GB + gp)
+  const int n_gp = G / GB;
+  const int gbase = (hg % n_gp) * GB;
+  const int h = (hg / n_gp) % KV;
+  const int b = hg / (n_gp * KV);
   const size_t q_stride = (size_t)KV * G * HD;   // between sequence rows
   const size_t kv_stride = (size_t)KV * HD;
-  const float* qb = q + (((size_t)b * S * KV + h) * G + g) * HD;
-  float* ob = out + (((size_t)b * S * KV + h) * G + g) * HD;
   const float* kb = k + ((size_t)b * S * KV + h) * HD;
   const float* vb = v + ((size_t)b * S * KV + h) * HD;
-
-  for (int idx = tid; idx < BQ * HD / 4; idx += THREADS) {
-    const int r = idx / (HD / 4);
-    const int c = (idx % (HD / 4)) * 4;
-    *reinterpret_cast<float4*>(qs + r * QP + c) =
-        *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * q_stride + c);
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
 
   const int n_kv = S / BKV;
   int kt_hi = n_kv - 1;
@@ -130,107 +170,212 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     kt_lo = first > 0 ? first / BKV : 0;
   }
 
+  // prologue: Q and the first K and V tiles
+  for (int idx = tid; idx < R * CH; idx += THREADS) {
+    const int r = idx / CH, ch = idx % CH;
+    const float* src = q + (((size_t)b * S + q0 + r % BQ) * KV + h) * G * HD +
+                       (size_t)(gbase + r / BQ) * HD + ch * 4;
+    cp_async16(qs + at<HD>(r, ch, (r / TM) & 7), src);
+  }
+  load_tile<HD>(ks0, kb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
+  load_tile<HD>(vs0, vb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
+  cp_async_commit();
+
+  float m[TM], l[TM], o[TM][OC][OV];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+#pragma unroll
+      for (int e = 0; e < OV; ++e) o[i][c][e] = 0.0f;
+  }
+  const float* qrow = qs + ty * TM * HD;   // this thread's rows, swizzle sq
+  const int sq = ty & 7;
+  const int sk = tx & 7;                   // rows tx + 16 j of a K tile
+
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * BKV;
-    __syncthreads();  // the previous tile's p @ V is done with kvs
-    load_kv_tile<HD>(kvs, kb, kv_stride, k0);
+    const int buf = (kt - kt_lo) & 1;
+    const float* ks = ks0 + buf * BKV * HD;
+    const float* vs = vs0 + buf * BKV * HD;
+    cp_async_wait_all();
+    // K and V of this tile landed for every thread, and every thread is
+    // done with the other buffers (the previous tile) and with P
     __syncthreads();
+    if (kt < kt_hi) {
+      load_tile<HD>(ks0 + (buf ^ 1) * BKV * HD,
+                    kb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
+      load_tile<HD>(vs0 + (buf ^ 1) * BKV * HD,
+                    vb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
+    }
+    cp_async_commit();
 
-    float s[4][4];
+    // ---- S = Q K^T for rows ty * TM + i, columns tx + 16 j
+    float s[TM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[4], bb[4];
+    const float* krow = ks + tx * HD;
+#pragma unroll 4
+    for (int ch = 0; ch < CH; ++ch) {
+      const int oq = (ch ^ sq) << 2, ok = (ch ^ sk) << 2;
+      float4 a[TM], kk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QP + d];
+      for (int i = 0; i < TM; ++i) a[i] = lds4(qrow + i * HD + oq);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = kvs[(tx + 16 * j) * KP + d];
+      for (int j = 0; j < 4; ++j) kk[j] = lds4(krow + 16 * j * HD + ok);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, kk[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, kk[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, kk[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, kk[j].w, s[i][j]);
+        }
     }
 
+    // ---- mask (only on tiles that cross the diagonal or the window edge),
+    // online softmax, p to shared memory
+    const bool masked = (causal && k0 + BKV - 1 > q0) ||
+                        (window > 0 && q0 + BQ - 1 - k0 >= window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = NEG_INF;
+    for (int i = 0; i < TM; ++i) {
+      if (masked) {
+        const int qpos = q0 + (ty * TM + i) % BQ;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool valid = (!causal || kpos <= qpos) &&
-                           (window <= 0 || qpos - kpos < window);
-        s[i][j] += valid ? 0.0f : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = k0 + tx + 16 * j;
+          const bool valid = (!causal || kpos <= qpos) &&
+                             (window <= 0 || qpos - kpos < window);
+          s[i][j] += valid ? 0.0f : NEG_INF;
+        }
       }
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
       mx = row_max16(mx);
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       float rs = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
       }
       rs = row_sum16(rs);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < OC; ++c)
+#pragma unroll
+        for (int e = 0; e < OV; ++e) o[i][c][e] *= alpha;
     }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i4 = 0; i4 < TM / 4; ++i4)
+        *reinterpret_cast<float4*>(ps + (tx + 16 * j) * PP + ty * TM + 4 * i4) =
+            make_float4(s[4 * i4][j], s[4 * i4 + 1][j], s[4 * i4 + 2][j],
+                        s[4 * i4 + 3][j]);
+    __syncwarp();   // P's rows are written and read by one half-warp
 
-    __syncthreads();  // every thread is done reading K; p is written
-    load_kv_tile<HD>(kvs, vb, kv_stride, k0);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BKV; ++j) {
-      float p[4];
+    // ---- O += P V for rows ty * TM + i, columns in chunks tx + 16 c;
+    // V row c sits swizzled by c & 7 = e, static in the unrolled loop
+    for (int c8 = 0; c8 < BKV; c8 += 8) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PP + j];
+      for (int e = 0; e < 8; ++e) {
+        const int c = c8 + e;
+        float pr[TM];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = kvs[j * KP + tx + 16 * c];
+        for (int i4 = 0; i4 < TM / 4; ++i4) {
+          const float4 p4 = lds4(ps + c * PP + ty * TM + 4 * i4);
+          pr[4 * i4] = p4.x;
+          pr[4 * i4 + 1] = p4.y;
+          pr[4 * i4 + 2] = p4.z;
+          pr[4 * i4 + 3] = p4.w;
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+        for (int cc = 0; cc < OC; ++cc) {
+          float vv[OV];
+          if constexpr (OV == 4) {
+            const float4 t = lds4(vs + c * HD + (((tx ^ e) + 16 * cc) << 2));
+            vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
+          } else {
+            const float2 t = *reinterpret_cast<const float2*>(
+                vs + c * HD + (((tx >> 1) ^ e) << 2) + 2 * (tx & 1));
+            vv[0] = t.x; vv[1] = t.y;
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int u = 0; u < OV; ++u)
+              o[i][cc][u] = fmaf(pr[i], vv[u], o[i][cc][u]);
+        }
       }
     }
   }
+  cp_async_wait_all();                // (only an empty group remains)
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty * TM + i;
+    const int g = gbase + r / BQ;
+    const int pos = q0 + r % BQ;
     const float lf = fmaxf(l[i], 1e-30f);
+    float* orow = out + ((size_t)b * S + pos) * q_stride + ((size_t)h * G + g) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      ob[(size_t)r * q_stride + tx + 16 * c] = acc[i][c] / lf;
-    if (tx == 0) lse[(size_t)row * S + r] = m[i] + logf(lf);
+    for (int cc = 0; cc < OC; ++cc) {
+      if constexpr (OV == 4)
+        *reinterpret_cast<float4*>(orow + 4 * (tx + 16 * cc)) =
+            make_float4(o[i][cc][0] / lf, o[i][cc][1] / lf, o[i][cc][2] / lf,
+                        o[i][cc][3] / lf);
+      else
+        *reinterpret_cast<float2*>(orow + 2 * tx) =
+            make_float2(o[i][cc][0] / lf, o[i][cc][1] / lf);
+    }
+    if (tx == 0)
+      lse[(((size_t)b * KV + h) * G + g) * S + pos] = m[i] + logf(lf);
   }
 }
 
-template <int HD>
+template <int HD, int GB>
 int launch(const float* q, const float* k, const float* v, float* out,
            float* lse, int B, int S, int KV, int G, int causal, int window,
            cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<HD>();
+  constexpr int bytes = Shape<HD, GB>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<HD, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(S / BQ, B * KV * G);
-  flash_fwd_kernel<HD><<<grid, THREADS, bytes, stream>>>(q, k, v, out, lse, S,
-                                                         KV, G, causal, window);
+  dim3 grid(B * KV * (G / GB), S / BQ);
+  flash_fwd_kernel<HD, GB><<<grid, THREADS, bytes, stream>>>(
+      q, k, v, out, lse, S, KV, G, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int GB>
+int launch_hd(const float* q, const float* k, const float* v, float* out,
+              float* lse, int B, int S, int KV, int G, int hd, int causal,
+              int window, cudaStream_t st) {
+  switch (hd) {
+    case 32:
+      return launch<32, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+    case 64:
+      return launch<64, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+    case 128:
+      return launch<128, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q, out: (B, S, KV, G, hd) f32; k, v: (B, S, KV, hd) f32; lse: (B, KV, G, S)
-// f32. S % 64 == 0, hd in {32, 64, 128}, 16-byte aligned rows; window <= 0
-// means none. Returns cudaErrorInvalidValue for a shape it does not take.
+// f32. S % 64 == 0, hd in {32, 64, 128}, 16-byte aligned rows; window <= 0 means
+// none. Returns cudaErrorInvalidValue for a shape it does not take.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int S, int KV, int G,
                          int hd, int causal, int window, void* stream) {
@@ -240,16 +385,46 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   auto of = static_cast<float*>(out);
   auto lf = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
-  if (S % BQ != 0 || S % BKV != 0 || B * KV * G > 65535)
+  if (S % BQ != 0 || S % BKV != 0 || S / BQ > 65535 || B * KV * G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (hd) {
-    case 32:
-      return launch<32>(qf, kf, vf, of, lf, B, S, KV, G, causal, window, st);
-    case 64:
-      return launch<64>(qf, kf, vf, of, lf, B, S, KV, G, causal, window, st);
-    case 128:
-      return launch<128>(qf, kf, vf, of, lf, B, S, KV, G, causal, window, st);
+  if (G % 2 == 0)
+    return launch_hd<2>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal, window, st);
+  return launch_hd<1>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal, window, st);
+}
+
+// Registers, dynamic shared memory and resident blocks per SM of the
+// instance for head dim `hd` and `gb` query heads per block, from the
+// runtime. Writes four ints to `info`: registers, shared bytes, blocks per SM,
+// local (spill) bytes per thread.
+extern "C" int flash_fwd_occupancy(int hd, int gb, void* info) {
+  int* o = static_cast<int*>(info);
+  const void* fn = nullptr;
+  int bytes = 0;
+  switch (hd * 10 + gb) {
+#define FA_CASE(HD, GB)                                                  \
+  case HD * 10 + GB:                                                     \
+    fn = reinterpret_cast<const void*>(flash_fwd_kernel<HD, GB>);        \
+    bytes = Shape<HD, GB>::SMEM;                                         \
+    break;
+    FA_CASE(32, 1) FA_CASE(32, 2) FA_CASE(64, 1) FA_CASE(64, 2)
+    FA_CASE(128, 1) FA_CASE(128, 2)
+#undef FA_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                    bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  o[0] = a.numRegs;
+  o[1] = static_cast<int>(a.sharedSizeBytes) + bytes;
+  o[2] = blocks;
+  o[3] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }

@@ -33,8 +33,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 SYMBOLS: Dict[str, Dict[str, list]] = {
     "quant_matmul": {
-        "qmm_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "qmm_int8_splitk": [_P] * 7 + [_I] * 4 + [_P],
+        "qmm_int8_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "qmm_w4": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "qmm_occupancy": [_I, _I, _P],
     },
     "decode_attn_quant": {
         "decode_attn_quant": [_P] * 10 + [_I] * 7 + [_F, _P],
@@ -48,6 +50,7 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     },
     "flash_attention": {
         "flash_fwd": [_P] * 5 + [_I] * 7 + [_P],
+        "flash_fwd_occupancy": [_I, _I, _P],
     },
     "wkv": {
         "wkv": [_P] * 8 + [_I] * 5 + [_P],

@@ -29,6 +29,12 @@ launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
                             "fake_quant_bwd": 0, "flash_fwd": 0, "wkv": 0}
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
+# csrc/quant_matmul.cu: the split-K route's row instances (M <= 16; larger M
+# takes the tensor-core route), output columns per block, k rows per block
+# step, and the blocks a launch aims for: two waves of the H100's 132 SMs
+QMM_ROWS = (1, 2, 3, 4, 8, 16)
+QMM_TILE_N, QMM_STEP_K = 64, 32
+QMM_TARGET_BLOCKS = 2 * 132
 FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
 MAX_TABLE = 4096                        # page-table entries of a slot
 # csrc/decode_attn_quant.cu: cache rows per pipeline tile; the blocks a
@@ -40,8 +46,9 @@ TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
 # (the fake-quant reference engines of an rwkv schedule reach ``wkv``)
 PLAIN_KERNELS = TRAIN_KERNELS + ("wkv",)
 _PLAIN: List[FrozenSet[str]] = [frozenset()]
-# the attention kernels' split tickets, per (device, stream): zeroed once,
-# and every launch leaves them zeroed
+# int32 scratch per (device, stream) for the kernels that combine splits in
+# one launch -- the attention kernels' split tickets, the split-K matmul's
+# tickets and partial sums: zeroed once, and every launch leaves it zeroed
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -111,7 +118,25 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
-def _qmm(sym: str, name: str, x_q, w, s_x, s_w, N: int) -> torch.Tensor:
+def qmm_split_k(M: int, K: int, N: int) -> int:
+    """K rows each block of the split-K matmul route takes (M <= 16): a
+    multiple of ``QMM_STEP_K``, as many steps per split as leave at least
+    ``ceil(QMM_TARGET_BLOCKS / column tiles)`` splits (every step its own
+    split when K has fewer), capped by the x slab the row instance holds.
+    Integer sums are exact in any order, so the split never changes a
+    bit."""
+    if not 1 <= M <= QMM_ROWS[-1]:
+        raise ValueError(f"qmm_split_k: the split-K route takes 1 <= M <= "
+                         f"{QMM_ROWS[-1]}, got M={M}")
+    mr = next(r for r in QMM_ROWS if r >= M)
+    cap = 4096 if mr <= 4 else 16384 // mr    # the instance's x slab rows
+    steps = -(-K // QMM_STEP_K)
+    want = -(-QMM_TARGET_BLOCKS // -(-N // QMM_TILE_N))
+    per = max(1, min(steps // want, cap // QMM_STEP_K))
+    return QMM_STEP_K * per
+
+
+def _qmm(name: str, x_q, w, s_x, s_w, N: int) -> torch.Tensor:
     M, K = x_q.shape
     _check(x_q, "x_q", torch.int8, (M, K))
     _check_scalar(s_x, "s_x")
@@ -119,9 +144,20 @@ def _qmm(sym: str, name: str, x_q, w, s_x, s_w, N: int) -> torch.Tensor:
     if M == 0 or N == 0 or K == 0:
         raise ValueError(f"{name}: empty operand (M={M}, N={N}, K={K})")
     out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
-    fn = getattr(_build.load("quant_matmul"), sym)
-    rc = fn(x_q.data_ptr(), w.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
-            out.data_ptr(), M, N, K, _stream())
+    lib = _build.load("quant_matmul")
+    ptrs = (x_q.data_ptr(), w.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+            out.data_ptr())
+    stream = _stream()
+    if name == "quant_matmul_w4":
+        rc = lib.qmm_w4(*ptrs, M, N, K, stream)
+    elif M > QMM_ROWS[-1]:
+        rc = lib.qmm_int8_mma(*ptrs, M, N, K, stream)
+    else:
+        n_tiles = -(-N // QMM_TILE_N)
+        ws = _tickets(x_q.device, n_tiles + M * N, stream.value)
+        rc = lib.qmm_int8_splitk(*ptrs, ws.data_ptr(),
+                                 ws.data_ptr() + 4 * n_tiles, M, N, K,
+                                 qmm_split_k(M, K, N), stream)
     _raise_on(rc, name)
     launches[name] += 1
     return out
@@ -131,12 +167,13 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, s_x: torch.Tensor,
                  s_w: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) f32 with the per-tensor scale
     epilogue ``float(acc) * (s_x * s_w)``; s_x/s_w are one-element f32
-    tensors on the operands' device (never host floats)."""
+    tensors on the operands' device (never host floats). One launch: the
+    split-K route for M <= 16 (``qmm_split_k``), tensor cores above."""
     if not _on_cuda(x_q, w_q, s_x, s_w):
         return ref.quant_matmul_ref(x_q, w_q, s_x, s_w)
     K, N = w_q.shape
     _check(w_q, "w_q", torch.int8, (x_q.shape[1], N))
-    return _qmm("qmm_int8", "quant_matmul", x_q, w_q, s_x, s_w, N)
+    return _qmm("quant_matmul", x_q, w_q, s_x, s_w, N)
 
 
 def quant_matmul_w4(x_q: torch.Tensor, w_p: torch.Tensor, s_x: torch.Tensor,
@@ -149,7 +186,7 @@ def quant_matmul_w4(x_q: torch.Tensor, w_p: torch.Tensor, s_x: torch.Tensor,
     if K % 2:
         raise ValueError(f"quant_matmul_w4: K={K} must be even")
     _check(w_p, "w_p", torch.uint8, (K // 2, w_p.shape[1]))
-    return _qmm("qmm_w4", "quant_matmul_w4", x_q, w_p, s_x, s_w, w_p.shape[1])
+    return _qmm("quant_matmul_w4", x_q, w_p, s_x, s_w, w_p.shape[1])
 
 
 def _check_attn_shape(name: str, G: int, hd: int,
@@ -177,9 +214,9 @@ def attn_split_rows(B: int, KV: int, Sc: int) -> int:
 
 
 def _tickets(dev: torch.device, n: int, stream: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 split tickets for launches on ``stream``
-    of device ``dev``, allocated (zeroed) only when the cached ones are too
-    few."""
+    """At least ``n`` zeroed int32 (split tickets, and the split-K matmul's
+    partial sums) for launches on ``stream`` of device ``dev``, allocated
+    (zeroed) only when the cached ones are too few."""
     key = (dev.index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:

@@ -17,6 +17,9 @@ pytestmark = pytest.mark.cuda
 # (K, N) of the Qwen3-0.6B projections: wq, wk/wv, wo, mlp_wi/wg, mlp_wo
 QWEN3_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
             (3072, 1024)]
+# (K, N) of the RWKV6-7B projections: time-mix and channel-mix receptance,
+# channel-mix key, channel-mix value
+RWKV6_KN = [(4096, 4096), (4096, 14336), (14336, 4096)]
 
 
 @pytest.fixture
@@ -32,9 +35,11 @@ def _codes(rng, shape, lo, hi, dev):
     return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(np.int8)).to(dev)
 
 
-@pytest.mark.parametrize("M", [1, 4, 128, 37])
-@pytest.mark.parametrize("KN", QWEN3_KN + [(200, 72), (130, 33)])
+@pytest.mark.parametrize("M", [1, 4, 128, 37, 2, 8, 16, 17])
+@pytest.mark.parametrize("KN", QWEN3_KN + [(200, 72), (130, 33)] + RWKV6_KN)
 def test_quant_matmul_bitwise(dev, M, KN):
+    """Both routes (split-K for M <= 16, tensor cores above) at every
+    row instance and its neighbours, bit for bit the plain version."""
     K, N = KN
     rng = np.random.default_rng(K * 7 + N + M)
     x = _codes(rng, (M, K), -128, 127, dev)
@@ -47,6 +52,97 @@ def test_quant_matmul_bitwise(dev, M, KN):
     assert ops.launches["quant_matmul"] == n0 + 1
     want = ref.quant_matmul_ref(x, w, s_x, s_w)
     assert torch.equal(out, want), float((out - want).abs().max())
+
+
+def _split_scratch_clean():
+    return all(int(t.abs().sum()) == 0 for t in ops._TICKETS.values())
+
+
+def test_quant_matmul_split_workspace_resets(dev):
+    """Repeated split-K launches across grid sizes and row counts,
+    interleaved on one stream with a tensor-core launch, give the same bits
+    again and leave the workspace and the tickets zero: the last block of a
+    column tile re-zeroes what the tile used."""
+    rng = np.random.default_rng(5)
+    s_x = torch.tensor(0.0213, device=dev)
+    s_w = torch.tensor(0.0077, device=dev)
+    calls = []
+    for M, K, N in [(4, 4096, 14336), (1, 1024, 1024), (16, 3072, 1024),
+                    (8, 14336, 4096), (3, 2048, 1000), (128, 1024, 3072)]:
+        x = _codes(rng, (M, K), -128, 127, dev)
+        w = _codes(rng, (K, N), -128, 127, dev)
+        calls.append((x, w, ref.quant_matmul_ref(x, w, s_x, s_w)))
+    outs = [[ops.quant_matmul(x, w, s_x, s_w) for x, w, _ in calls]
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for rep in outs:
+        for (_, _, want), got in zip(calls, rep):
+            assert torch.equal(got, want)
+    assert ops._TICKETS and _split_scratch_clean()
+
+
+@pytest.mark.parametrize("x_off,w_off", [(1, 0), (0, 1), (8, 8), (1, 8)])
+@pytest.mark.parametrize("M", [4, 8, 16, 37])
+def test_quant_matmul_at_byte_offsets(dev, x_off, w_off, M):
+    """x and w that start 1 or 8 bytes past an allocation (views the vector
+    copies cannot take whole) stay bit for bit on both routes."""
+    K, N = 1024, 1024
+    rng = np.random.default_rng(x_off * 10 + w_off + M)
+    xb = _codes(rng, (M * K + x_off,), -128, 127, dev)
+    wb = _codes(rng, (K * N + w_off,), -128, 127, dev)
+    x = xb[x_off:].view(M, K)
+    w = wb[w_off:].view(K, N)
+    assert x.data_ptr() % 16 == x_off % 16 and x.is_contiguous()
+    s_x = torch.tensor(0.0123, device=dev)
+    s_w = torch.tensor(0.0456, device=dev)
+    out = ops.quant_matmul(x, w, s_x, s_w)
+    want = ref.quant_matmul_ref(x, w, s_x, s_w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), float((out - want).abs().max())
+    assert _split_scratch_clean()
+
+
+def _device_kernels(fn):
+    """The names of what the device ran (kernels, copies, memsets) for one
+    call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("what", ["qmm_split", "qmm_mma", "flash"])
+def test_one_device_kernel_per_call(dev, what):
+    """Each wrapper call is one launch on the counter and one kernel on the
+    device (the split-K combine runs inside it; no memset, no second
+    kernel), once the workspace exists."""
+    rng = np.random.default_rng(9)
+    if what == "flash":
+        B, S, KV, G, hd = 1, 256, 2, 2, 128
+        q = torch.from_numpy(rng.standard_normal((B, S, KV, G, hd))
+                             .astype(np.float32)).to(dev)
+        k = torch.from_numpy(rng.standard_normal((B, S, KV, hd))
+                             .astype(np.float32)).to(dev)
+        name = "flash_fwd"
+        call = lambda: ops.flash_fwd(q, k, k, causal=True)  # noqa: E731
+        kernel = "flash_fwd_kernel"
+    else:
+        M = 4 if what == "qmm_split" else 128
+        x = _codes(rng, (M, 1024), -128, 127, dev)
+        w = _codes(rng, (1024, 3072), -128, 127, dev)
+        s = torch.tensor(0.01, device=dev)
+        name = "quant_matmul"
+        call = lambda: ops.quant_matmul(x, w, s, s)  # noqa: E731
+        kernel = "qmm_splitk_kernel" if M == 4 else "qmm_mma_kernel"
+    call()
+    n0 = ops.launches[name]
+    names = _device_kernels(call)
+    assert ops.launches[name] == n0 + 1
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("M", [1, 4, 128])
@@ -674,12 +770,21 @@ def test_quantizer_autograd_through_the_kernels(dev, bits):
     assert abs(gs_g - gs_c) <= 1e-3 * abs(gs_c)
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("S", [64, 192])
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
-                                           (False, None), (False, 100)])
-@pytest.mark.parametrize("G", [1, 2, 4])
+FLASH_CASES = [(hd, S, causal, window, G) for hd in (32, 64, 128)
+               for S in (64, 192)
+               for causal, window in ((True, None), (True, 40), (False, None),
+                                      (False, 100))
+               for G in (1, 2, 4)] + \
+    [(128, S, causal, window, G) for S in (320, 2048)
+     for causal, window in ((True, None), (True, 512), (False, None))
+     for G in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("hd,S,causal,window,G", FLASH_CASES)
 def test_flash_fwd_kernel_against_plain(dev, hd, S, causal, window, G):
+    """Every instance (hd 32/64/128; one or two query heads per block, G
+    odd or even), tiles that the window leaves wholly or partly masked, and
+    the causal schedule's long rows at S = 2048."""
     B, KV = 2, 2
     rng = np.random.default_rng(S + hd + G)
     q = torch.from_numpy((rng.standard_normal((B, S, KV, G, hd)) * hd ** -0.5)
