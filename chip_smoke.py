@@ -8,10 +8,12 @@ In order:
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
    at once); print the registers, spills, shared memory and blocks per SM
-   of every instance of the flash and matmul kernels;
+   of every instance of the flash, matmul (int8 and nib4, both routes) and
+   wkv kernels (wkv must not spill);
 2. kernel phases: hold each kernel against its plain PyTorch version on the
-   card at the main paths' Qwen3-0.6B shapes -- both int8 matmuls (at M = 4
-   and M = 128, also at the RWKV6-7B projection shapes),
+   card at the main paths' Qwen3-0.6B shapes -- both matmuls (int8 and
+   nib4 weights, at M = 4 and M = 128, also at the RWKV6-7B projection
+   shapes, each nib4 time printed beside the int8 one),
    fake-quant forward and its dv bit for bit (atol 0), the fake-quant ds
    to rtol 1e-4 of |ds| plus 1e-6 of sum |g * dsd| (float32 sums in
    another order, over up to 155M terms), int8 decode attention on the ring
@@ -94,10 +96,12 @@ In order:
    at 32 layers the float32 and float64 evaluations part on confident
    steps, so none is decisive); (c)
    packed bytes within 5%; (d) no host synchronisation inside a decode step
-   (``set_sync_debug_mode("error")``). The ``wkv`` kernel itself is held to
-   2e-4 (atol and rtol, y and the final state) against its plain version in
-   the kernel phases, from zero and from a random state, and with the
-   strongest decay (log w = -8).
+   (``set_sync_debug_mode("error")``); (e) a profiled 256-token prefill
+   runs the ``wkv`` kernel once per layer (its device time printed, and the
+   matmul kernels' time in a profiled decode step). The ``wkv`` kernel
+   itself is held to 2e-4 (atol and rtol, y and the final state) against
+   its plain version in the kernel phases, from zero and from a random
+   state, and with the strongest decay (log w = -8).
 
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
@@ -276,21 +280,26 @@ def split_str(sp: dict) -> str:
             f"blocks={sp['blocks']}")
 
 
-def print_kernel_resources(_build) -> None:
+def print_kernel_resources(_build, ops) -> None:
     """Registers and local (spill) bytes per thread as ptxas allocated them,
     shared memory (static and dynamic) and resident blocks per SM, from the
     runtime's function attributes and occupancy calculator, for every
-    instance of the two kernels redesigned last."""
+    instance of the kernels redesigned in the last two slices (flash, both
+    matmul formats on both routes, wkv). wkv must not spill."""
     import ctypes
     info = (ctypes.c_int * 4)()
     flash = _build.load("flash_attention")
     qmm = _build.load("quant_matmul")
+    wkv = _build.load("wkv")
     occ = [(f"flash_fwd_kernel<hd={hd}, heads={gb}>", flash.flash_fwd_occupancy,
             (hd, gb)) for hd in (128, 64, 32) for gb in (2, 1)]
-    occ += [(f"qmm_splitk_kernel<rows={mr}>", qmm.qmm_occupancy, (0, mr))
-            for mr in (1, 2, 3, 4, 8, 16)]
+    for route, fmt in ((0, ""), (2, "w4_")):
+        occ += [(f"qmm_{fmt}splitk_kernel<rows={mr}>", qmm.qmm_occupancy,
+                 (route, mr)) for mr in ops.QMM_ROWS]
     occ += [("qmm_mma_kernel", qmm.qmm_occupancy, (1, 0)),
-            ("qmm_w4_kernel", qmm.qmm_occupancy, (2, 0))]
+            ("qmm_w4_mma_kernel", qmm.qmm_occupancy, (3, 0))]
+    occ += [(f"wkv_chunk_kernel<chunk={t}, hd={hd}>", wkv.wkv_occupancy,
+             (t, hd)) for t in ops.WKV_CHUNKS for hd in ops.WKV_HEAD_DIMS]
     for name, fn, args in occ:
         gate(fn(*args, ctypes.addressof(info)) == 0,
              f"occupancy query of {name} failed")
@@ -298,6 +307,7 @@ def print_kernel_resources(_build) -> None:
         print(f"[resources] {name}: {regs} registers, {local} B local "
               f"(spills), {smem} B shared, {blocks} blocks per SM", flush=True)
         gate(blocks >= 1, f"{name} cannot run a block on an SM")
+        gate(local == 0 or not name.startswith("wkv"), f"{name} spills")
 
 
 def matmul_phase(torch, ops, ref, flush, dev):
@@ -360,6 +370,19 @@ def matmul_phase(torch, ops, ref, flush, dev):
                       f"bound={b_ms:.4f}({b_by})"
                       + ("" if clean_ms is None
                          else f" clean-L2={clean_ms:.4f}"), flush=True)
+    # the nib4 kernel beside the int8 one at each (M, K, N) of this run
+    by_shape = {(r["name"], r["shape"]): r for r in rows}
+    not_slower = 0
+    for M in (4, PREFILL_M):
+        for K, N in QWEN3_KN + RWKV6_KN:
+            sh = f"M={M} K={K} N={N}"
+            w4_ms = by_shape[("quant_matmul_w4", sh)]["ms"]
+            i8_ms = by_shape[("quant_matmul", sh)]["ms"]
+            not_slower += w4_ms <= i8_ms
+            print(f"[kernel] qmm_w4 vs qmm_int8 {sh}: {w4_ms:.4f} / "
+                  f"{i8_ms:.4f} ms (x{w4_ms / i8_ms:.2f})", flush=True)
+    print(f"[kernel] qmm_w4 no slower than qmm_int8 at {not_slower} of "
+          f"{2 * len(QWEN3_KN + RWKV6_KN)} shapes", flush=True)
     tiny = torch.empty(1024, device=dev)
     floor = cuda_ms(torch, tiny.zero_, flush)
     print(f"[kernel] timing floor: one 4 KB fill kernel {floor:.4f} ms under "
@@ -1064,7 +1087,7 @@ def train_phase(torch, ops, dev):
     # the counted run; its result is dropped)
     state = opt.init(params)
     res["qat_step_profile"] = profile_device(
-        torch, lambda: qstep(params, state, b), watch="flash_fwd_kernel")
+        torch, lambda: qstep(params, state, b), watch=("flash_fwd_kernel",))
     print_profile("train", "one QAT step", res["qat_step_profile"])
     del state
     res.update(importance_ms=imp_ms, importance_losses=imp_loss,
@@ -1079,12 +1102,12 @@ def train_phase(torch, ops, dev):
     return total, res
 
 
-def profile_device(torch, fn, top: int = 8, watch: str = ""):
+def profile_device(torch, fn, top: int = 8, watch=()):
     """``fn`` under torch.profiler: wall ms, kernel launches, device busy ms
     (the sum over device-side kernel events only: a host op's device time
-    repeats its kernels'), the ``top`` kernels by device time and, when
-    ``watch`` is given, the device ms and launches of the kernels whose
-    name holds it."""
+    repeats its kernels'), the ``top`` kernels by device time and, for each
+    name in ``watch``, the device ms and launches of the kernels whose name
+    holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1107,10 +1130,10 @@ def profile_device(torch, fn, top: int = 8, watch: str = ""):
                                     if e.key == "cudaLaunchKernel"),
                 top=[(e.key[:64], dev_us(e) / 1e3, e.count)
                      for e in kernels[:top]],
-                watched=(watch, sum(dev_us(e) for e in kernels
-                                    if watch and watch in e.key) / 1e3,
-                         sum(e.count for e in kernels
-                             if watch and watch in e.key)))
+                watched=[(w, sum(dev_us(e) for e in kernels
+                                 if w in e.key) / 1e3,
+                          sum(e.count for e in kernels if w in e.key))
+                         for w in watch])
 
 
 def count_syncs(torch, fn) -> int:
@@ -1139,8 +1162,7 @@ def print_profile(label: str, what: str, res: dict) -> None:
           flush=True)
     for name, ms, n in res["top"]:
         print(f"[{label}]   {ms:9.2f} ms {n:6d}x  {name}", flush=True)
-    watch, w_ms, w_n = res["watched"]
-    if watch:
+    for watch, w_ms, w_n in res["watched"]:
         print(f"[{label}] {watch} in it: {w_ms:.3f} ms over {w_n} launches",
               flush=True)
 
@@ -1234,10 +1256,10 @@ def prefill_noise(torch, cfg, params, policy, sess, reqs, dev):
 
 
 def profile_decode_step(torch, sess, dev, label="serve", layout=None,
-                        watch="decode_attn_quant_kernel"):
+                        watch=("decode_attn_quant_kernel",)):
     """One decode step of the served model (4 slots) under torch.profiler:
     kernel launches, host time, device time and that of the kernels named
-    ``watch``. With a paged ``layout`` each slot maps pages of its own. The
+    in ``watch``. With a paged ``layout`` each slot maps pages of its own. The
     Qwen3-0.6B steps (labels of ``DECODE_STEP_LAUNCHES``) launch exactly
     that many kernels: one launch per matmul and attention call."""
     st = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev,
@@ -1886,10 +1908,24 @@ def rwkv_serve_phase(torch, ops, dev):
          f"one rwkv decode step launched {step_launches}")
     print(f"[rwkv] one decode step under sync-debug 'error': no host sync; "
           f"kernel launches {step_launches}", flush=True)
-    step = profile_decode_step(torch, sess, dev, "rwkv",
-                               watch="qmm_splitk_kernel")
+    step = profile_decode_step(
+        torch, sess, dev, "rwkv",
+        watch=("qmm_splitk_kernel", "qmm_w4_splitk_kernel"))
+    # one 256-token prefill under the profiler: wkv once per layer
+    t_pre = torch.as_tensor(reqs[0].tokens, device=dev)[None]
+    gate(t_pre.shape[1] == 256, f"the profiled prefill has {t_pre.shape[1]} "
+         "tokens")
+    sess.prefill(sess.params, t_pre, prefill_cap=CACHE_LEN)
+    pre = profile_device(torch, lambda: sess.prefill(
+        sess.params, t_pre, prefill_cap=CACHE_LEN), top=4,
+        watch=("wkv_chunk_kernel",))
+    print_profile("rwkv", "one 256-token prefill", pre)
+    gate(pre["watched"][0][2] == cfg.n_layers,
+         f"a 256-token prefill ran {pre['watched'][0][2]} wkv kernels, "
+         f"expected {cfg.n_layers}")
     return launches, dict(
-        params=n_params, decode_step_profile=step, wall_s=wall,
+        params=n_params, decode_step_profile=step, prefill_profile=pre,
+        wall_s=wall,
         prefill_p50_ms=d["prefill_p50_ms"],
         decode_step_p50_ms=d["decode_step_p50_ms"],
         decode_tokens_per_s=st.decode_tokens_per_s,
@@ -1921,7 +1957,7 @@ def main() -> int:
     _build.build_all()
     print(f"[build] {len(_build.SYMBOLS)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    print_kernel_resources(_build)
+    print_kernel_resources(_build, ops)
 
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

@@ -9,38 +9,56 @@
 // with x (M, K) int8 K-contiguous, w (K, N) int8 N-contiguous (the layout
 // pack_linear writes), the sum exact in int32 and the epilogue
 // __fmul_rn(__int2float_rn(acc), __fmul_rn(s_x, s_w)), the plain version's
-// op order. Integer sums are exact in any order, so every route and every
-// split below equals the plain version bit for bit. The scales are read on
-// the device: the host never waits for them.
+// op order. The int4 entry points take w nib4-packed: (K/2, N) bytes, packed
+// row k2 holding k = 2 k2 in its low nibble and 2 k2 + 1 in its high one,
+// offset-binary (q + 8), K even. Integer sums are exact in any order, so
+// every route and every split below equals the plain version bit for bit.
+// The scales are read on the device: the host never waits for them.
 //
 // What bounds it on an H100: at decode M is the slot count (4), so a call
-// streams the K x N weight codes once for 2 * M * K * N integer operations
-// -- a weight-streaming GEMV bounded by bytes over the 3.35 TB/s of device
-// memory (3.1 MB in 0.94 us at K=1024, N=3072; 58.7 MB in 17.5 us at
-// RWKV6-7B's K=4096, N=14336). Covering the ~1 us of memory latency at that
-// rate takes ~24 KB in flight on each of the 132 SMs. At prefill M is the
-// chunk length (128-256) and the weights are still read once, so bytes bound
-// it as long as the int8 rate keeps up (1979 TOP/s).
+// streams the weight bytes once for 2 * M * K * N integer operations -- a
+// weight-streaming GEMV bounded by bytes over the 3.35 TB/s of device memory
+// (int8: 3.1 MB in 0.94 us at K=1024, N=3072; 58.7 MB in 17.5 us at
+// RWKV6-7B's K=4096, N=14336; nib4 half of that). Covering the ~1 us of
+// memory latency at that rate takes ~24 KB in flight on each of the 132 SMs.
+// At prefill M is the chunk length (128-256) and the weights are still read
+// once, so bytes bound it as long as the int8 rate keeps up (1979 TOP/s).
 //
-// Design, two routes (the wrapper picks one by M; each call is one launch):
+// Design, two routes for each weight format (the wrapper picks one by M;
+// each call is one launch). The weight format is a template parameter of
+// both kernel bodies; each format has its own __global__ name so that a
+// profile tells them apart (qmm_splitk_kernel / qmm_w4_splitk_kernel,
+// qmm_mma_kernel / qmm_w4_mma_kernel).
 //
-// qmm_int8_splitk (M <= 16): a split-K GEMV on the CUDA cores (dp4a).
+// Split-K (M <= 16): a split-K GEMV on the CUDA cores (dp4a).
 // - Row instances MR in {1, 2, 3, 4, 8, 16}: M rounds up to the next one, so
-//   no dp4a runs on a zero row below M = 4 (the old 16-row tile ran 3/4 of
-//   its dp4a on zeros at M = 4).
+//   no dp4a runs on a zero row below M = 4.
 // - A block owns 64 output columns and a K slab of `ks` rows (a multiple of
-//   32, ops.qmm_split_k): grid (ceil(N / 64), ceil(K / ks)). The rule makes
-//   the grid at least two waves of 132 SMs at every Qwen3-0.6B and RWKV6-7B
-//   projection shape (the old grid was 16-48 blocks, each walking all of K).
-// - Each thread owns one cell per 32-row step: 4 rows x C bytes (C = 16, 8,
-//   4 for MR <= 4, 8, 16, so that its MR x C int32 sums stay in registers).
-//   Cells stream through an 8-stage cp.async ring in shared memory that
-//   only the copying thread reads back, so no barrier guards it: 7 steps
-//   (14 KB a block) are in flight while one is computed. The x slab comes
-//   along in the first copy group.
-// - A 4 x 4 byte block (four k of four columns) turns into four words of
-//   four k of one column with 8 __byte_perm, in registers; dp4a takes each
-//   against the word of four k of each x row. No byte-wise shared stores.
+//   32, ops.qmm_split_k, the same rule for both formats): grid (ceil(N / 64),
+//   ceil(K / ks)). The rule makes the grid at least two waves of 132 SMs at
+//   every Qwen3-0.6B and RWKV6-7B projection shape.
+// - Each thread owns one cell per 32-row step: 4 k rows x C columns (C = 16,
+//   8, 4 for MR <= 4, 8, 16, so that its MR x C int32 sums stay in
+//   registers). An int8 cell is 4 byte rows; a nib4 cell is the 2 packed
+//   byte rows that hold the same 4 k rows. Cells stream through a cp.async
+//   ring in shared memory that only the copying thread reads back, so no
+//   barrier guards it: 8 stages of int8 cells or 16 of nib4 cells, the same
+//   16 KB a block (14-15 KB in flight). The x slab comes along in the first
+//   copy group.
+// - int8: a 4 x 4 byte block (four k of four columns) turns into four words
+//   of four k of one column with 8 __byte_perm, in registers.
+// - nib4: two packed words (one per packed row, four columns each) turn
+//   into four such words with 6 __byte_perm and 4 masks (nib4_cols), also
+//   in registers. The codes stay offset-binary (0..15, non-negative as
+//   signed bytes), and the offset comes off exactly at the end: the block
+//   sums each x row of its slab once, while the ring's first copies are in
+//   flight (8 or more lanes a row, dp4a against 0x01010101 over the slab in
+//   shared memory, then one shuffle chain), and subtracts 8 * sum_k x[m, k]
+//   from every column's sum. (Summing in the loop instead,
+//   one dp4a a row and step, was measurably slower at the RWKV6-7B shapes.)
+// - dp4a takes each column word against the word of four k of each x row.
+//   Rows past K hold zero x, so they add nothing whatever the zero-filled
+//   weight bytes decode to.
 // - The block's eight row groups meet in shared memory; then, with one
 //   split, the block writes the epilogue. With several, each block adds its
 //   int32 sums into a workspace with atomicAdd, fences, and takes a ticket
@@ -48,29 +66,28 @@
 //   atomicExch(.., 0) -- which also re-zeroes them -- writes the epilogue
 //   and resets the ticket. Same launch: no second kernel, no memset, no host
 //   sync. The workspace and tickets are zeroed once per device and stream
-//   (ops._tickets, shared with the attention kernels' tickets) and every
-//   launch leaves them zero.
+//   (ops._tickets, shared with the attention and wkv kernels' tickets) and
+//   every launch leaves them zero.
 //
-// qmm_int8_mma (M > 16): int8 tensor cores, mma.sync m16n8k32 s8.s8.s32.
-// - Block tile 64 x 64 (four warps of 32 x 32), K in 64-byte steps through a
-//   3-stage cp.async ring of the x tile (K-contiguous rows) and the raw w
-//   tile (N-contiguous rows), 16-byte copies.
-// - The B fragment wants four k of one column per register. A thread reads
-//   one word (four columns) from each of four k rows and transposes the
-//   4 x 4 bytes with __byte_perm; the four words feed four n8 tiles, the
-//   mma columns of tile j being the warp's columns 4g + j. The A fragment
-//   is four 32-bit reads of x rows padded to 80 bytes (no bank conflict);
-//   the B reads keep a 2-way conflict, since rows must stay 16-byte aligned
-//   for cp.async.
-// - Int32 sums are exact, so the route equals the plain version bit for bit.
+// Tensor cores (M > 16): mma.sync m16n8k32 s8.s8.s32.
+// - Block tile 64 x 64 (four warps of 32 x 32), through a 3-stage cp.async
+//   ring of the x tile (K-contiguous rows) and the raw weight tile (64 byte
+//   rows of 64 columns, N-contiguous), 16-byte copies. A step is 64 k for
+//   int8 and 128 k for nib4 (its 64 packed rows), so both formats move the
+//   same weight bytes a step and nib4 takes half the steps.
+// - The B fragment wants four k of one column per register. int8: a thread
+//   reads one word (four columns) from each of four k rows and transposes
+//   the 4 x 4 bytes with __byte_perm. nib4: it reads one word from each of
+//   the two packed rows of those four k and unpacks them with nib4_cols
+//   (offset removed in the epilogue: each thread sums its A-fragment words
+//   with dp4a, and four lanes add their sums). The four words feed four n8
+//   tiles, the mma columns of tile j being the warp's columns 4g + j. The A
+//   fragment is four 32-bit reads of x rows padded by 16 bytes (no bank
+//   conflict).
 //
 // Operands the vector copies cannot take (a pointer off its alignment, N or
 // K off the copy width) go through byte loads on the same code path, slow
 // but exact.
-//
-// qmm_w4 (int4 weights) keeps the first port's design: one block of 256
-// threads per 16 x 64 output tile walks K in 128-deep steps, unpacking the
-// nib4 bytes into a transposed shared tile and accumulating with dp4a.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,24 +133,42 @@ __device__ __forceinline__ void transpose4x4(int r0, int r1, int r2, int r3,
   c[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));
 }
 
+// Two nib4 words p0, p1 (packed rows r and r + 1; byte j = column j) into
+// four words c0..c3, each the k rows 2r, 2r + 1, 2r + 2, 2r + 3 of column j
+// as offset-binary codes 0..15 (byte i = k row 2r + i).
+__device__ __forceinline__ void nib4_cols(int p0, int p1, int* c) {
+  constexpr unsigned LO = 0x0F0F0F0Fu;
+  const unsigned a = __byte_perm(p0, p1, 0x5140);  // p0c0 p1c0 p0c1 p1c1
+  const unsigned b = __byte_perm(p0, p1, 0x7362);  // p0c2 p1c2 p0c3 p1c3
+  const unsigned alo = a & LO, ahi = (a >> 4) & LO;
+  const unsigned blo = b & LO, bhi = (b >> 4) & LO;
+  c[0] = static_cast<int>(__byte_perm(alo, ahi, 0x5140));  // lo hi lo hi
+  c[1] = static_cast<int>(__byte_perm(alo, ahi, 0x7362));
+  c[2] = static_cast<int>(__byte_perm(blo, bhi, 0x5140));
+  c[3] = static_cast<int>(__byte_perm(blo, bhi, 0x7362));
+}
+
 __device__ __forceinline__ float epilogue(int acc, float scale) {
   return __fmul_rn(__int2float_rn(acc), scale);
 }
 
+constexpr int ONES = 0x01010101;  // dp4a against it sums four x bytes
+
 // ---------------------------------------------------------------------------
-// qmm_int8_splitk: M <= 16
+// split-K: M <= 16
 // ---------------------------------------------------------------------------
 constexpr int SK_BN = 64;      // output columns per block
 constexpr int SK_STEP = 32;    // k rows per block step (eight groups of 4)
-constexpr int SK_STAGES = 8;   // cp.async ring depth, in steps
 
-template <int MR>
+template <int MR, bool W4>
 struct SplitK {
-  static constexpr int C = MR <= 4 ? 16 : (MR <= 8 ? 8 : 4);  // bytes/row
+  static constexpr int C = MR <= 4 ? 16 : (MR <= 8 ? 8 : 4);  // columns
   static constexpr int TN = SK_BN / C;           // threads along N
   static constexpr int THREADS = TN * (SK_STEP / 4);
+  static constexpr int ROWS = W4 ? 2 : 4;        // weight byte rows a cell
+  static constexpr int STAGES = W4 ? 16 : 8;     // ring depth, in steps
   static constexpr int KS_MAX = MR <= 4 ? 4096 : 16384 / MR;  // slab rows
-  static constexpr int RING = THREADS * SK_STAGES * 4 * C;    // 16 KB
+  static constexpr int RING = THREADS * STAGES * ROWS * C;    // 16 KB
   static constexpr int RED = (SK_STEP / 4) * MR * SK_BN * 4;
   static constexpr int BUF = RING > RED ? RING : RED;
   static constexpr int SMEM = BUF + MR * KS_MAX;
@@ -152,17 +187,17 @@ __device__ __forceinline__ void load_words(const int8_t* p, int* r) {
   }
 }
 
-template <int MR>
-__global__ void __launch_bounds__(SplitK<MR>::THREADS)
-qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ sx, const float* __restrict__ sw,
-                  float* __restrict__ out, int* __restrict__ tickets,
-                  int* __restrict__ ws, int M, int N, int K, int ks,
-                  int w_vec, int x_vec) {
-  using P = SplitK<MR>;
+template <int MR, bool W4>
+__device__ __forceinline__ void splitk_body(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ sx, const float* __restrict__ sw,
+    float* __restrict__ out, int* __restrict__ tickets, int* __restrict__ ws,
+    int M, int N, int K, int ks, int w_vec, int x_vec) {
+  using P = SplitK<MR, W4>;
   constexpr int C = P::C, TN = P::TN, THREADS = P::THREADS, CW = C / 4;
+  constexpr int ROWS = P::ROWS, STAGES = P::STAGES;
   extern __shared__ __align__(16) int8_t smem[];
-  int8_t* ring = smem;                 // [stage][row 0..3][thread] x C bytes
+  int8_t* ring = smem;                 // [stage][row][thread] x C bytes
   int8_t* xs = smem + P::BUF;          // [MR][KS_MAX] bytes, the x slab
   __shared__ int last_s;
 
@@ -176,20 +211,21 @@ qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int steps = (k_end - k_begin + SK_STEP - 1) / SK_STEP;
 
   auto issue = [&](int s) {            // this thread's cell of step s
-    int8_t* dst = ring + (size_t)((s % SK_STAGES) * 4 * THREADS + tid) * C;
-    const int k = k_begin + s * SK_STEP + tk * 4;
+    int8_t* dst = ring + (size_t)((s % STAGES) * ROWS * THREADS + tid) * C;
+    const int k = k_begin + s * SK_STEP + tk * 4;   // the cell's first k row
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < ROWS; ++i) {
       int8_t* d = dst + (size_t)i * THREADS * C;
-      const bool row_ok = k + i < k_end;
+      // byte row i of the cell: k row k + i, or packed row k / 2 + i
+      const bool row_ok = (W4 ? k + 2 * i : k + i) < k_end;
+      const size_t row = W4 ? (size_t)(k / 2 + i) : (size_t)(k + i);
       if (w_vec) {
         const bool ok = row_ok && n < N;
-        cp_async_zfill<C>(d, ok ? w + (size_t)(k + i) * N + n : w,
-                          ok ? C : 0);
+        cp_async_zfill<C>(d, ok ? w + row * N + n : w, ok ? C : 0);
       } else {
 #pragma unroll
         for (int j = 0; j < C; ++j)
-          d[j] = (row_ok && n + j < N) ? w[(size_t)(k + i) * N + n + j] : 0;
+          d[j] = (row_ok && n + j < N) ? w[row * N + n + j] : 0;
       }
     }
   };
@@ -217,12 +253,28 @@ qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
   cp_async_commit();
 #pragma unroll
-  for (int s = 1; s < SK_STAGES - 1; ++s) {
+  for (int s = 1; s < STAGES - 1; ++s) {
     if (s < steps) issue(s);
     cp_async_commit();
   }
-  cp_async_wait<SK_STAGES - 2>();      // the x slab has landed for everyone
+  cp_async_wait<STAGES - 2>();         // the x slab has landed for everyone
   __syncthreads();
+
+  const int* xw = reinterpret_cast<const int*>(xs);
+  // nib4: sum_k x[m, k] over the slab, once, for the offset (while the
+  // ring's first copies are in flight): G lanes a row, one shuffle chain
+  __shared__ int xsum_s[MR];
+  if constexpr (W4) {
+    constexpr int G = MR == 1 ? 32 : (MR == 2 ? 16 : 8);
+    const int m = tid / G, words = steps * SK_STEP / 4;
+    int part = 0;
+    if (m < MR)
+      for (int w = tid % G; w < words; w += G)
+        part = __dp4a(xw[m * (P::KS_MAX / 4) + w], ONES, part);
+#pragma unroll
+    for (int d = G / 2; d > 0; d /= 2) part += __shfl_xor_sync(0xffffffffu, part, d);
+    if (m < MR && tid % G == 0) xsum_s[m] = part;
+  }
 
   int acc[MR][C];
 #pragma unroll
@@ -230,15 +282,15 @@ qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[m][c] = 0;
 
-  const int* xw = reinterpret_cast<const int*>(xs);
   for (int s = 0; s < steps; ++s) {
-    if (s + SK_STAGES - 1 < steps) issue(s + SK_STAGES - 1);
+    if (s + STAGES - 1 < steps) issue(s + STAGES - 1);
     cp_async_commit();
-    cp_async_wait<SK_STAGES - 1>();    // this thread's cell of step s
-    const int8_t* src = ring + (size_t)((s % SK_STAGES) * 4 * THREADS + tid) * C;
-    int r[4][CW];
+    cp_async_wait<STAGES - 1>();       // this thread's cell of step s
+    const int8_t* src = ring + (size_t)((s % STAGES) * ROWS * THREADS + tid) * C;
+    int r[ROWS][CW];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) load_words<C>(src + (size_t)i * THREADS * C, r[i]);
+    for (int i = 0; i < ROWS; ++i)
+      load_words<C>(src + (size_t)i * THREADS * C, r[i]);
     int xv[MR];
     const int kw = (s * SK_STEP + tk * 4) / 4;
 #pragma unroll
@@ -246,7 +298,10 @@ qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int cw = 0; cw < CW; ++cw) {
       int col[4];
-      transpose4x4(r[0][cw], r[1][cw], r[2][cw], r[3][cw], col);
+      if constexpr (W4)
+        nib4_cols(r[0][cw], r[1][cw], col);
+      else
+        transpose4x4(r[0][cw], r[1][cw], r[2][cw], r[3][cw], col);
 #pragma unroll
       for (int m = 0; m < MR; ++m)
 #pragma unroll
@@ -273,6 +328,7 @@ qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int t = 0; t < SK_STEP / 4; ++t) sum += red[t * MR * SK_BN + idx];
     const int m = idx / SK_BN, nn = n0 + idx % SK_BN;
+    if constexpr (W4) sum -= 8 * xsum_s[m];
     if (m < M && nn < N) {
       if (n_split == 1)
         out[(size_t)m * N + nn] = epilogue(sum, scale);
@@ -298,18 +354,45 @@ qmm_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
+#define SPLITK_PARAMS                                                        \
+  const int8_t *__restrict__ x, const int8_t *__restrict__ w,                \
+      const float *__restrict__ sx, const float *__restrict__ sw,            \
+      float *__restrict__ out, int *__restrict__ tickets,                    \
+      int *__restrict__ ws, int M, int N, int K, int ks, int w_vec, int x_vec
+#define SPLITK_ARGS x, w, sx, sw, out, tickets, ws, M, N, K, ks, w_vec, x_vec
+
 template <int MR>
+__global__ void __launch_bounds__(SplitK<MR, false>::THREADS)
+qmm_splitk_kernel(SPLITK_PARAMS) {
+  splitk_body<MR, false>(SPLITK_ARGS);
+}
+
+template <int MR>
+__global__ void __launch_bounds__(SplitK<MR, true>::THREADS)
+qmm_w4_splitk_kernel(SPLITK_PARAMS) {
+  splitk_body<MR, true>(SPLITK_ARGS);
+}
+
+template <int MR, bool W4>
+constexpr auto splitk_kernel() {
+  if constexpr (W4)
+    return qmm_w4_splitk_kernel<MR>;
+  else
+    return qmm_splitk_kernel<MR>;
+}
+
+template <int MR, bool W4>
 int launch_splitk(const int8_t* x, const int8_t* w, const float* sx,
                   const float* sw, float* out, int* tickets, int* ws, int M,
                   int N, int K, int ks, cudaStream_t stream) {
-  using P = SplitK<MR>;
+  using P = SplitK<MR, W4>;
   if (ks <= 0 || ks % SK_STEP || ks > P::KS_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = splitk_kernel<MR, W4>();
   static bool attr_set = false;        // per instance, per process
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_splitk_kernel<MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        P::SMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
@@ -317,19 +400,49 @@ int launch_splitk(const int8_t* x, const int8_t* w, const float* sx,
                     (N % P::C == 0);
   const int x_vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (K % 16 == 0);
   dim3 grid((N + SK_BN - 1) / SK_BN, (K + ks - 1) / ks);
-  qmm_splitk_kernel<MR><<<grid, P::THREADS, P::SMEM, stream>>>(
-      x, w, sx, sw, out, tickets, ws, M, N, K, ks, w_vec, x_vec);
+  kern<<<grid, P::THREADS, P::SMEM, stream>>>(x, w, sx, sw, out, tickets, ws,
+                                              M, N, K, ks, w_vec, x_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool W4>
+int splitk_entry(const void* x, const void* w, const void* sx, const void* sw,
+                 void* out, void* tickets, void* ws, int M, int N, int K,
+                 int ks, void* stream) {
+  auto xp = static_cast<const int8_t*>(x);
+  auto wp = static_cast<const int8_t*>(w);
+  auto sxp = static_cast<const float*>(sx);
+  auto swp = static_cast<const float*>(sw);
+  auto op = static_cast<float*>(out);
+  auto tp = static_cast<int*>(tickets);
+  auto wsp = static_cast<int*>(ws);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || K < 1 || (W4 && K % 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (M <= 4 ? M : (M <= 8 ? 8 : (M <= 16 ? 16 : 0))) {
+#define SK_LAUNCH(R) \
+    case R: return launch_splitk<R, W4>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
+    SK_LAUNCH(1) SK_LAUNCH(2) SK_LAUNCH(3) SK_LAUNCH(4) SK_LAUNCH(8)
+    SK_LAUNCH(16)
+#undef SK_LAUNCH
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// qmm_int8_mma: M > 16
+// tensor cores: M > 16
 // ---------------------------------------------------------------------------
-constexpr int MM_BM = 64, MM_BN = 64, MM_BK = 64;
+constexpr int MM_BM = 64, MM_BN = 64;
+constexpr int MM_WROWS = 64;           // weight byte rows per step
 constexpr int MM_THREADS = 128;
 constexpr int MM_STAGES = 3;
-constexpr int MM_PITCH = MM_BK + 16;   // x rows: 20 words, no bank conflict
-constexpr int MM_WPITCH = MM_BN + 16;  // w rows
+constexpr int MM_WPITCH = MM_BN + 16;  // weight rows
+
+template <bool W4>
+struct Mma {
+  static constexpr int BK = W4 ? 2 * MM_WROWS : MM_WROWS;  // k per step
+  static constexpr int PITCH = BK + 16;  // x rows: 20 or 36 words, no conflict
+};
 
 __device__ __forceinline__ void mma_s8(int* d, const int* a, const int* b) {
   asm volatile(
@@ -339,12 +452,14 @@ __device__ __forceinline__ void mma_s8(int* d, const int* a, const int* b) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__global__ void __launch_bounds__(MM_THREADS)
-qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ sx, const float* __restrict__ sw,
-               float* __restrict__ out, int M, int N, int K, int vec) {
-  __shared__ __align__(16) int8_t xs[MM_STAGES][MM_BM][MM_PITCH];
-  __shared__ __align__(16) int8_t wsm[MM_STAGES][MM_BK][MM_WPITCH];
+template <bool W4>
+__device__ __forceinline__ void mma_body(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ sx, const float* __restrict__ sw,
+    float* __restrict__ out, int M, int N, int K, int vec) {
+  constexpr int BK = Mma<W4>::BK, PITCH = Mma<W4>::PITCH;
+  __shared__ __align__(16) int8_t xs[MM_STAGES][MM_BM][PITCH];
+  __shared__ __align__(16) int8_t wsm[MM_STAGES][MM_WROWS][MM_WPITCH];
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -353,14 +468,15 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int wn = (warp % 2) * 32;
   const int m0 = blockIdx.y * MM_BM;
   const int n0 = blockIdx.x * MM_BN;
-  const int n_steps = (K + MM_BK - 1) / MM_BK;
+  const int n_steps = (K + BK - 1) / BK;
+  const int w_rows = W4 ? K / 2 : K;   // weight byte rows
 
   auto issue = [&](int s) {
     const int st = s % MM_STAGES;
-    const int k0 = s * MM_BK;
-    // 64 rows x 64 bytes of x and of w: four 16-byte chunks per row
-    for (int idx = tid; idx < MM_BM * (MM_BK / 16); idx += MM_THREADS) {
-      const int r = idx / (MM_BK / 16), c = (idx % (MM_BK / 16)) * 16;
+    const int k0 = s * BK;
+    // 64 rows x BK bytes of x, 64 byte rows x 64 bytes of w: 16-byte chunks
+    for (int idx = tid; idx < MM_BM * (BK / 16); idx += MM_THREADS) {
+      const int r = idx / (BK / 16), c = (idx % (BK / 16)) * 16;
       const int m = m0 + r, k = k0 + c;
       int8_t* d = &xs[st][r][c];
       if (vec) {
@@ -371,21 +487,22 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           d[j] = (m < M && k + j < K) ? x[(size_t)m * K + k + j] : 0;
       }
     }
-    for (int idx = tid; idx < MM_BK * (MM_BN / 16); idx += MM_THREADS) {
+    for (int idx = tid; idx < MM_WROWS * (MM_BN / 16); idx += MM_THREADS) {
       const int r = idx / (MM_BN / 16), c = (idx % (MM_BN / 16)) * 16;
-      const int k = k0 + r, nn = n0 + c;
+      const int kr = s * MM_WROWS + r, nn = n0 + c;
       int8_t* d = &wsm[st][r][c];
       if (vec) {
-        const bool ok = k < K && nn < N;
-        cp_async_zfill<16>(d, ok ? w + (size_t)k * N + nn : w, ok ? 16 : 0);
+        const bool ok = kr < w_rows && nn < N;
+        cp_async_zfill<16>(d, ok ? w + (size_t)kr * N + nn : w, ok ? 16 : 0);
       } else {
         for (int j = 0; j < 16; ++j)
-          d[j] = (k < K && nn + j < N) ? w[(size_t)k * N + nn + j] : 0;
+          d[j] = (kr < w_rows && nn + j < N) ? w[(size_t)kr * N + nn + j] : 0;
       }
     }
   };
 
   int acc[2][4][4];
+  int rs[2][2] = {{0, 0}, {0, 0}};     // nib4: x row sums, rows g and g + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -405,7 +522,7 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     cp_async_commit();
     const int st = s % MM_STAGES;
 #pragma unroll
-    for (int kk = 0; kk < MM_BK; kk += 32) {
+    for (int kk = 0; kk < BK; kk += 32) {
       int a[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -414,17 +531,29 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         a[i][1] = *reinterpret_cast<const int*>(&xs[st][r + 8][kk + tig * 4]);
         a[i][2] = *reinterpret_cast<const int*>(&xs[st][r][kk + 16 + tig * 4]);
         a[i][3] = *reinterpret_cast<const int*>(&xs[st][r + 8][kk + 16 + tig * 4]);
+        if constexpr (W4) {
+          rs[i][0] = __dp4a(a[i][2], ONES, __dp4a(a[i][0], ONES, rs[i][0]));
+          rs[i][1] = __dp4a(a[i][3], ONES, __dp4a(a[i][1], ONES, rs[i][1]));
+        }
       }
       // b[j] = {k tig*4.., k 16 + tig*4..} of column wn + 4g + j
       int b[4][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        int rw[4], col[4];
+        int col[4];
+        const int k4 = kk + h * 16 + tig * 4;
+        if constexpr (W4) {
+          const int pr = k4 / 2;       // the packed rows of k4 .. k4 + 3
+          nib4_cols(*reinterpret_cast<const int*>(&wsm[st][pr][wn + 4 * g]),
+                    *reinterpret_cast<const int*>(&wsm[st][pr + 1][wn + 4 * g]),
+                    col);
+        } else {
+          int rw[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          rw[i] = *reinterpret_cast<const int*>(
-              &wsm[st][kk + h * 16 + tig * 4 + i][wn + 4 * g]);
-        transpose4x4(rw[0], rw[1], rw[2], rw[3], col);
+          for (int i = 0; i < 4; ++i)
+            rw[i] = *reinterpret_cast<const int*>(&wsm[st][k4 + i][wn + 4 * g]);
+          transpose4x4(rw[0], rw[1], rw[2], rw[3], col);
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) b[j][h] = col[j];
       }
@@ -436,6 +565,17 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
   cp_async_wait<0>();
 
+  if constexpr (W4) {                  // the four lanes of a row add theirs
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        int v = rs[i][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        rs[i][half] = v;
+      }
+  }
   // d0, d1: row g, mma columns 2 tig, 2 tig + 1 -> warp columns 8 tig + j
   // and 8 tig + 4 + j of n8 tile j; d2, d3 the same at row g + 8
   const float scale = __fmul_rn(sx[0], sw[0]);
@@ -447,12 +587,14 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int half = 0; half < 2; ++half) {
       const int m = m0 + wm + i * 16 + g + half * 8;
       if (m >= M) continue;
+      const int off = W4 ? 8 * rs[i][half] : 0;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int nn = n0 + wn + 8 * tig + 4 * q;
         float v[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = epilogue(acc[i][j][half * 2 + q], scale);
+        for (int j = 0; j < 4; ++j)
+          v[j] = epilogue(acc[i][j][half * 2 + q] - off, scale);
         float* o = out + (size_t)m * N + nn;
         if (vec_out && nn + 4 <= N) {
           *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -465,90 +607,34 @@ qmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
-// ---------------------------------------------------------------------------
-// qmm_w4: nib4-packed int4 weights (the first port's kernel, unchanged)
-// ---------------------------------------------------------------------------
-constexpr int BM = 16;
-constexpr int BN = 64;
-constexpr int BK = 128;
-constexpr int THREADS = 256;
-constexpr int WT_PITCH = BK + 4;  // 33 words: column reads hit distinct banks
+#define MMA_PARAMS                                                    \
+  const int8_t *__restrict__ x, const int8_t *__restrict__ w,         \
+      const float *__restrict__ sx, const float *__restrict__ sw,     \
+      float *__restrict__ out, int M, int N, int K, int vec
 
-__global__ void __launch_bounds__(THREADS)
-qmm_w4_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-              const float* __restrict__ sx, const float* __restrict__ sw,
-              float* __restrict__ out, int M, int N, int K, int x_vec,
-              int w_vec) {
-  __shared__ __align__(16) int8_t xs[BM][BK];
-  __shared__ __align__(16) int8_t wt[BN][WT_PITCH];
+__global__ void __launch_bounds__(MM_THREADS) qmm_mma_kernel(MMA_PARAMS) {
+  mma_body<false>(x, w, sx, sw, out, M, N, K, vec);
+}
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int tx = tid % BN;        // output column within the tile
-  const int ty = tid / BN;        // first of this thread's four rows
-  int acc[BM * BN / THREADS] = {0, 0, 0, 0};
+__global__ void __launch_bounds__(MM_THREADS) qmm_w4_mma_kernel(MMA_PARAMS) {
+  mma_body<true>(x, w, sx, sw, out, M, N, K, vec);
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // ---- x tile: BM rows x BK bytes, 8 bytes per thread
-    {
-      const int r = tid / (BK / 8);
-      const int c = (tid % (BK / 8)) * 8;
-      const int m = m0 + r;
-      const int k = k0 + c;
-      int8_t* dst = &xs[r][c];
-      if (m < M && x_vec && k + 8 <= K) {
-        *reinterpret_cast<int2*>(dst) =
-            *reinterpret_cast<const int2*>(x + (size_t)m * K + k);
-      } else {
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (m < M && k + j < K) ? x[(size_t)m * K + k + j] : 0;
-      }
-    }
-    // ---- w tile: nib4: packed row k2 holds k = 2*k2 (low nibble) and
-    // 2*k2 + 1 (high nibble), offset-binary q + 8; rows past K read as 0x88
-    // (two zeros); stored transposed in wt[n][k]
-    {
-      const int r2 = tid / (BN / 16);
-      const int c = (tid % (BN / 16)) * 16;
-      const int k2 = k0 / 2 + r2;
-      const int n = n0 + c;
-      const int K2 = K / 2;
-      __align__(16) uint8_t b[16];
-      if (k2 < K2 && w_vec && n + 16 <= N) {
-        *reinterpret_cast<int4*>(b) =
-            *reinterpret_cast<const int4*>(w + (size_t)k2 * N + n);
-      } else {
-        for (int j = 0; j < 16; ++j)
-          b[j] = (k2 < K2 && n + j < N) ? w[(size_t)k2 * N + n + j] : 0x88;
-      }
-      for (int j = 0; j < 16; ++j) {
-        wt[c + j][2 * r2] = static_cast<int8_t>((b[j] & 0xF) - 8);
-        wt[c + j][2 * r2 + 1] = static_cast<int8_t>((b[j] >> 4) - 8);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int k4 = 0; k4 < BK; k4 += 4) {
-      const int wv = *reinterpret_cast<const int*>(&wt[tx][k4]);
-#pragma unroll
-      for (int i = 0; i < BM * BN / THREADS; ++i) {
-        const int xv = *reinterpret_cast<const int*>(&xs[ty + i * (THREADS / BN)][k4]);
-        acc[i] = __dp4a(xv, wv, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int n = n0 + tx;
-  if (n >= N) return;
-  const float scale = __fmul_rn(sx[0], sw[0]);
-#pragma unroll
-  for (int i = 0; i < BM * BN / THREADS; ++i) {
-    const int m = m0 + ty + i * (THREADS / BN);
-    if (m < M) out[(size_t)m * N + n] = __fmul_rn(__int2float_rn(acc[i]), scale);
-  }
+template <bool W4>
+int mma_entry(const void* x, const void* w, const void* sx, const void* sw,
+              void* out, int M, int N, int K, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (W4 && K % 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (K % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(w) % 16 == 0) && (N % 16 == 0);
+  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = W4 ? qmm_w4_mma_kernel : qmm_mma_kernel;
+  kern<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<float*>(out), M, N, K, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -561,60 +647,37 @@ extern "C" int qmm_int8_splitk(const void* x, const void* w, const void* sx,
                                const void* sw, void* out, void* tickets,
                                void* ws, int M, int N, int K, int ks,
                                void* stream) {
-  auto xp = static_cast<const int8_t*>(x);
-  auto wp = static_cast<const int8_t*>(w);
-  auto sxp = static_cast<const float*>(sx);
-  auto swp = static_cast<const float*>(sw);
-  auto op = static_cast<float*>(out);
-  auto tp = static_cast<int*>(tickets);
-  auto wsp = static_cast<int*>(ws);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (M <= 4 ? M : (M <= 8 ? 8 : (M <= 16 ? 16 : 0))) {
-    case 1: return launch_splitk<1>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
-    case 2: return launch_splitk<2>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
-    case 3: return launch_splitk<3>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
-    case 4: return launch_splitk<4>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
-    case 8: return launch_splitk<8>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
-    case 16: return launch_splitk<16>(xp, wp, sxp, swp, op, tp, wsp, M, N, K, ks, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return splitk_entry<false>(x, w, sx, sw, out, tickets, ws, M, N, K, ks,
+                             stream);
 }
 
 // The same function through int8 tensor cores, for M > 16.
 extern "C" int qmm_int8_mma(const void* x, const void* w, const void* sx,
                             const void* sw, void* out, int M, int N, int K,
                             void* stream) {
-  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (K % 16 == 0) &&
-                  (reinterpret_cast<uintptr_t>(w) % 16 == 0) && (N % 16 == 0);
-  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  qmm_mma_kernel<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<float*>(out), M, N, K, vec);
-  return static_cast<int>(cudaGetLastError());
+  return mma_entry<false>(x, w, sx, sw, out, M, N, K, stream);
 }
 
-// x (M, K) int8, w (K/2, N) uint8 nib4 bytes (K even) -> out (M, N) f32
-extern "C" int qmm_w4(const void* x, const void* w, const void* sx,
-                      const void* sw, void* out, int M, int N, int K,
-                      void* stream) {
-  auto xp = static_cast<const int8_t*>(x);
-  auto wp = static_cast<const uint8_t*>(w);
-  const int x_vec = (reinterpret_cast<uintptr_t>(xp) % 8 == 0) && (K % 8 == 0);
-  const int w_vec = (reinterpret_cast<uintptr_t>(wp) % 16 == 0) && (N % 16 == 0);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm_w4_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      xp, wp, static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<float*>(out), M, N, K, x_vec, w_vec);
-  return static_cast<int>(cudaGetLastError());
+// The two routes with w (K/2, N) uint8 nib4 bytes (K even), same arguments.
+extern "C" int qmm_w4_splitk(const void* x, const void* w, const void* sx,
+                             const void* sw, void* out, void* tickets,
+                             void* ws, int M, int N, int K, int ks,
+                             void* stream) {
+  return splitk_entry<true>(x, w, sx, sw, out, tickets, ws, M, N, K, ks,
+                            stream);
+}
+
+extern "C" int qmm_w4_mma(const void* x, const void* w, const void* sx,
+                          const void* sw, void* out, int M, int N, int K,
+                          void* stream) {
+  return mma_entry<true>(x, w, sx, sw, out, M, N, K, stream);
 }
 
 // Registers, static + dynamic shared memory and resident blocks per SM of
-// each instance, from the runtime: route 0 = split-K (mr = instance rows),
-// 1 = mma, 2 = w4. Writes four ints to `info`: registers, shared bytes, blocks per SM,
-// local (spill) bytes per thread.
+// each instance, from the runtime: route 0 = int8 split-K (mr = instance
+// rows), 1 = int8 mma, 2 = nib4 split-K (mr), 3 = nib4 mma. Writes four ints
+// to `info`: registers, shared bytes, blocks per SM, local (spill) bytes per
+// thread.
 extern "C" int qmm_occupancy(int route, int mr, void* info) {
   int* o = static_cast<int*>(info);
   const void* fn = nullptr;
@@ -623,18 +686,21 @@ extern "C" int qmm_occupancy(int route, int mr, void* info) {
 #define SK_CASE(R)                                                    \
   case R:                                                             \
     fn = reinterpret_cast<const void*>(qmm_splitk_kernel<R>);         \
-    threads = SplitK<R>::THREADS;                                     \
-    dyn = SplitK<R>::SMEM;                                            \
+    threads = SplitK<R, false>::THREADS;                              \
+    dyn = SplitK<R, false>::SMEM;                                     \
+    break;                                                            \
+  case 200 + R:                                                       \
+    fn = reinterpret_cast<const void*>(qmm_w4_splitk_kernel<R>);      \
+    threads = SplitK<R, true>::THREADS;                               \
+    dyn = SplitK<R, true>::SMEM;                                      \
     break;
     SK_CASE(1) SK_CASE(2) SK_CASE(3) SK_CASE(4) SK_CASE(8) SK_CASE(16)
 #undef SK_CASE
     default:
-      if (route == 1) {
-        fn = reinterpret_cast<const void*>(qmm_mma_kernel);
+      if (route == 1 || route == 3) {
+        fn = reinterpret_cast<const void*>(route == 1 ? qmm_mma_kernel
+                                                      : qmm_w4_mma_kernel);
         threads = MM_THREADS;
-      } else if (route == 2) {
-        fn = reinterpret_cast<const void*>(qmm_w4_kernel);
-        threads = THREADS;
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
       }

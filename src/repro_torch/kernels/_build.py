@@ -24,8 +24,10 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0 spreads a source's device optimisation over every core,
+# so the matmul library's 16 kernel instances do not serialise the build
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 # kernel library -> {C symbol: ctypes argument types}; every symbol returns
 # the launch's cudaError_t as an int
@@ -35,7 +37,8 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     "quant_matmul": {
         "qmm_int8_splitk": [_P] * 7 + [_I] * 4 + [_P],
         "qmm_int8_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "qmm_w4": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "qmm_w4_splitk": [_P] * 7 + [_I] * 4 + [_P],
+        "qmm_w4_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "qmm_occupancy": [_I, _I, _P],
     },
     "decode_attn_quant": {
@@ -53,7 +56,8 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
         "flash_fwd_occupancy": [_I, _I, _P],
     },
     "wkv": {
-        "wkv": [_P] * 8 + [_I] * 5 + [_P],
+        "wkv": [_P] * 10 + [_I] * 5 + [_P],
+        "wkv_occupancy": [_I, _I, _P],
     },
 }
 

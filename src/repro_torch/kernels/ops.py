@@ -29,9 +29,10 @@ launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
                             "fake_quant_bwd": 0, "flash_fwd": 0, "wkv": 0}
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
-# csrc/quant_matmul.cu: the split-K route's row instances (M <= 16; larger M
-# takes the tensor-core route), output columns per block, k rows per block
-# step, and the blocks a launch aims for: two waves of the H100's 132 SMs
+# csrc/quant_matmul.cu (int8 and nib4 weights): the split-K route's row
+# instances (M <= 16; larger M takes the tensor-core route), output columns
+# per block, k rows per block step, and the blocks a launch aims for: two
+# waves of the H100's 132 SMs
 QMM_ROWS = (1, 2, 3, 4, 8, 16)
 QMM_TILE_N, QMM_STEP_K = 64, 32
 QMM_TARGET_BLOCKS = 2 * 132
@@ -47,9 +48,13 @@ TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
 PLAIN_KERNELS = TRAIN_KERNELS + ("wkv",)
 _PLAIN: List[FrozenSet[str]] = [frozenset()]
 # int32 scratch per (device, stream) for the kernels that combine splits in
-# one launch -- the attention kernels' split tickets, the split-K matmul's
-# tickets and partial sums: zeroed once, and every launch leaves it zeroed
+# one launch -- the attention kernels' split tickets, the split-K matmuls'
+# tickets and partial sums, wkv's per-head tickets: zeroed once, and every
+# launch leaves it zeroed
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+# float32 scratch per (device, stream) for the wkv kernel's chunk states:
+# two hd x hd slots a head, which every launch writes before it reads
+_WKV_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -119,12 +124,15 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def qmm_split_k(M: int, K: int, N: int) -> int:
-    """K rows each block of the split-K matmul route takes (M <= 16): a
-    multiple of ``QMM_STEP_K``, as many steps per split as leave at least
-    ``ceil(QMM_TARGET_BLOCKS / column tiles)`` splits (every step its own
-    split when K has fewer), capped by the x slab the row instance holds.
-    Integer sums are exact in any order, so the split never changes a
-    bit."""
+    """K rows each block of the split-K matmul route takes (M <= 16), for
+    int8 and nib4 weights alike: a multiple of ``QMM_STEP_K``, as many
+    steps per split as leave at least ``ceil(QMM_TARGET_BLOCKS / column
+    tiles)`` splits (every step its own split when K has fewer), capped by
+    the x slab the row instance holds. A nib4 step of 32 k rows is 16
+    packed byte rows, so a nib4 block streams half the bytes of an int8
+    one over the same k rows; its ring is twice as deep in steps, which
+    keeps the bytes in flight. Integer sums are exact in any order, so the
+    split never changes a bit."""
     if not 1 <= M <= QMM_ROWS[-1]:
         raise ValueError(f"qmm_split_k: the split-K route takes 1 <= M <= "
                          f"{QMM_ROWS[-1]}, got M={M}")
@@ -145,19 +153,18 @@ def _qmm(name: str, x_q, w, s_x, s_w, N: int) -> torch.Tensor:
         raise ValueError(f"{name}: empty operand (M={M}, N={N}, K={K})")
     out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
     lib = _build.load("quant_matmul")
+    fmt = "w4" if name == "quant_matmul_w4" else "int8"
     ptrs = (x_q.data_ptr(), w.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
             out.data_ptr())
     stream = _stream()
-    if name == "quant_matmul_w4":
-        rc = lib.qmm_w4(*ptrs, M, N, K, stream)
-    elif M > QMM_ROWS[-1]:
-        rc = lib.qmm_int8_mma(*ptrs, M, N, K, stream)
+    if M > QMM_ROWS[-1]:
+        rc = getattr(lib, f"qmm_{fmt}_mma")(*ptrs, M, N, K, stream)
     else:
         n_tiles = -(-N // QMM_TILE_N)
         ws = _tickets(x_q.device, n_tiles + M * N, stream.value)
-        rc = lib.qmm_int8_splitk(*ptrs, ws.data_ptr(),
-                                 ws.data_ptr() + 4 * n_tiles, M, N, K,
-                                 qmm_split_k(M, K, N), stream)
+        rc = getattr(lib, f"qmm_{fmt}_splitk")(
+            *ptrs, ws.data_ptr(), ws.data_ptr() + 4 * n_tiles, M, N, K,
+            qmm_split_k(M, K, N), stream)
     _raise_on(rc, name)
     launches[name] += 1
     return out
@@ -179,7 +186,9 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, s_x: torch.Tensor,
 def quant_matmul_w4(x_q: torch.Tensor, w_p: torch.Tensor, s_x: torch.Tensor,
                     s_w: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x nib4-packed (K/2, N) uint8 int4 codes -> (M, N) f32.
-    K must be even; the nibbles unpack in the kernel's load path."""
+    K must be even; the nibbles unpack in registers. One launch, routed by
+    M as :func:`quant_matmul`: the split-K route with ``qmm_split_k``'s
+    rows for M <= 16, tensor cores above."""
     if not _on_cuda(x_q, w_p, s_x, s_w):
         return ref.quant_matmul_w4_ref(x_q, w_p, s_x, s_w)
     K = x_q.shape[1]
@@ -213,16 +222,23 @@ def attn_split_rows(B: int, KV: int, Sc: int) -> int:
     return ATTN_TILE * -(-n_tiles // min(n_tiles, want))
 
 
-def _tickets(dev: torch.device, n: int, stream: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 (split tickets, and the split-K matmul's
-    partial sums) for launches on ``stream`` of device ``dev``, allocated
-    (zeroed) only when the cached ones are too few."""
+def _cached(cache: Dict[Tuple[int, int], torch.Tensor], dev: torch.device,
+            n: int, stream: int, dtype: torch.dtype) -> torch.Tensor:
+    """At least ``n`` zeroed elements of ``cache``'s scratch for launches on
+    ``stream`` of device ``dev``, allocated (zeroed) only when the cached
+    ones are too few."""
     key = (dev.index, stream)
-    t = _TICKETS.get(key)
+    t = cache.get(key)
     if t is None or t.numel() < n:
-        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
-        _TICKETS[key] = t
+        t = torch.zeros((max(n, 1024),), dtype=dtype, device=dev)
+        cache[key] = t
     return t
+
+
+def _tickets(dev: torch.device, n: int, stream: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 (split tickets, and the split-K matmuls'
+    partial sums); every launch leaves them zeroed."""
+    return _cached(_TICKETS, dev, n, stream, torch.int32)
 
 
 def _quant_attn(name: str, q: torch.Tensor, kc: torch.Tensor,
@@ -500,8 +516,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk == 0``, u (H, hd), state0 (B, H, hd, hd) or None (zero state).
     Returns (y (B, S, H, hd), final state (B, H, hd, hd)), the reference's
     ``wkv_chunked``; from zero state y is ``wkv_pallas``'s. The kernel takes
-    float32 contiguous operands, chunk in ``WKV_CHUNKS`` and hd in
-    ``WKV_HEAD_DIMS``."""
+    float32 contiguous 16-byte aligned operands, chunk in ``WKV_CHUNKS`` and
+    hd in ``WKV_HEAD_DIMS``; one launch, a block per (batch, head, chunk),
+    each chunk's state handed to the next chunk's block through the cached
+    scratch (``ref.wkv_chunkpar_ref`` is its decomposition)."""
     B, S, H, hd = r.shape
     ts = (r, k, v, log_w, u) + (() if state0 is None else (state0,))
     if not _kernel_route("wkv", *ts):
@@ -520,12 +538,22 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(u, "u", torch.float32, (H, hd))
     if state0 is not None:
         _check(state0, "state0", torch.float32, (B, H, hd, hd))
+    for t, name in ((r, "r"), (k, "k"), (v, "v"), (log_w, "log_w"),
+                    (state0, "state0")):
+        if t is not None:
+            _check_aligned(t, name)
+    dev = r.device
     y = torch.empty_like(r)
-    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    stream = _stream()
+    states = _cached(_WKV_STATES, dev, B * H * 2 * hd * hd, stream.value,
+                     torch.float32)
+    tickets = _tickets(dev, B * H + 2, stream.value)
     rc = _build.load("wkv").wkv(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
         u.data_ptr(), None if state0 is None else state0.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, S, H, hd, chunk, _stream())
+        y.data_ptr(), state.data_ptr(), states.data_ptr(),
+        tickets.data_ptr(), B, S, H, hd, chunk, stream)
     _raise_on(rc, "wkv")
     launches["wkv"] += 1
     return y, state

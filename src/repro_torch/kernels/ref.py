@@ -7,6 +7,7 @@ card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -271,3 +272,71 @@ def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys, dim=0).permute(1, 0, 3, 2, 4).reshape(B, S, H, hd)
     return y.to(r.dtype), S0
+
+
+def wkv_chunkpar_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_w: torch.Tensor, u: torch.Tensor,
+                     state0: Optional[torch.Tensor] = None, chunk: int = 32,
+                     sub: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wkv_chunked_ref` by ``csrc/wkv.cu``'s decomposition, for the
+    CPU tests only (the kernel's plain version on the card stays
+    :func:`wkv_chunked_ref`). In log2 units, Λ = cumsum(lw log2 e) per
+    chunk and Λx_t = Λ_{t-1} (0 at t = 0):
+
+    (a) every chunk on its own. Pair weights ``A[t, s]`` for t > s: within
+        a sub-chunk of ``sub`` rows ``sum_i r k 2^{min(Λx_t - Λ_s, 0)}``;
+        across sub-chunks the exponent factors about the row b before t's
+        sub-chunk, ``sum_i (r_t 2^{min(Λx_t - Λ_b, 0)}) (k_s 2^{min(Λ_b -
+        Λ_s, 0)})``; ``sum_i r u k`` at t = s. Then ``y_local = A v``,
+        ``dS = (k 2^{Λ_T - Λ})^T v``, ``e = 2^{Λ_T}``, ``q = r 2^{Λx}``;
+    (b) the carry in chunk order from ``state0`` (zero when None), which
+        enters chunk 0 only: ``S_c = diag(e_c) S_{c-1} + dS_c`` and ``y_c =
+        y_local + q_c S_{c-1}``.
+
+    Shapes and types as :func:`wkv_chunked_ref`."""
+    B, S, H, hd = r.shape
+    if S % chunk or chunk % sub:
+        raise ValueError(f"wkv: S={S} is not a multiple of chunk={chunk}, "
+                         f"or chunk of sub={sub}")
+    dt = _wide(r, k, v, log_w, u)
+    n, T = S // chunk, chunk
+
+    def split(a):                                    # (B, H, n, T, hd)
+        return a.to(dt).reshape(B, n, T, H, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lwc = map(split, (r, k, v, log_w))
+    lam = torch.cumsum(lwc * math.log2(math.e), dim=3)
+    lamx = torch.cat([torch.zeros_like(lam[..., :1, :]), lam[..., :-1, :]],
+                     dim=3)
+    # (a) chunk-local, every chunk at once: pairs within a sub-chunk
+    t_idx = torch.arange(T, device=r.device)
+    same = (t_idx[:, None] // sub == t_idx[None, :] // sub) \
+        & (t_idx[:, None] > t_idx[None, :])
+    dec = torch.exp2(torch.clamp(lamx[..., :, None, :] - lam[..., None, :, :],
+                                 max=0.0)) * same.to(dt)[..., None]
+    A = torch.einsum("bhcti,bhctsi,bhcsi->bhcts", rc, dec, kc)
+    # ... across sub-chunks, factored about b = sub * tau - 1
+    for tau in range(1, T // sub):
+        rows, b = slice(sub * tau, sub * (tau + 1)), sub * tau - 1
+        r_hat = rc[..., rows, :] * torch.exp2(torch.clamp(
+            lamx[..., rows, :] - lam[..., b:b + 1, :], max=0.0))
+        k_hat = kc[..., :sub * tau, :] * torch.exp2(torch.clamp(
+            lam[..., b:b + 1, :] - lam[..., :sub * tau, :], max=0.0))
+        A[..., rows, :sub * tau] = r_hat @ k_hat.transpose(-1, -2)
+    bonus = torch.einsum("bhcti,hi,bhcti->bhct", rc, u.to(dt), kc)
+    A = A + torch.diag_embed(bonus)
+    y_local = A @ vc
+    lam_T = lam[..., -1:, :]
+    dS = torch.einsum("bhcti,bhctj->bhcij", kc * torch.exp2(lam_T - lam), vc)
+    e = torch.exp2(lam_T[..., 0, :])                 # (B, H, n, hd)
+    q = rc * torch.exp2(lamx)
+    # (b) the carry
+    St = torch.zeros((B, H, hd, hd), dtype=dt, device=r.device) \
+        if state0 is None else state0.to(dt)
+    ys = []
+    for c in range(n):
+        ys.append(y_local[:, :, c] if c == 0 and state0 is None
+                  else y_local[:, :, c] + q[:, :, c] @ St)
+        St = e[:, :, c, :, None] * St + dS[:, :, c]
+    y = torch.stack(ys, dim=2).permute(0, 2, 3, 1, 4).reshape(B, S, H, hd)
+    return y.to(r.dtype), St

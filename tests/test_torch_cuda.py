@@ -115,13 +115,28 @@ def _device_kernels(fn):
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-@pytest.mark.parametrize("what", ["qmm_split", "qmm_mma", "flash"])
+@pytest.mark.parametrize("what", ["qmm_split", "qmm_mma", "w4_split",
+                                  "w4_mma", "flash", "wkv"])
 def test_one_device_kernel_per_call(dev, what):
     """Each wrapper call is one launch on the counter and one kernel on the
-    device (the split-K combine runs inside it; no memset, no second
-    kernel), once the workspace exists."""
+    device (the split-K combine and the wkv carry run inside it; no memset,
+    no second kernel), once the workspace exists."""
     rng = np.random.default_rng(9)
-    if what == "flash":
+    if what == "wkv":
+        r, k, v, lw, u, s0 = _wkv_operands(dev, 1, 256, 64, 64, 9)
+        name = "wkv"
+        call = lambda: ops.wkv(r, k, v, lw, u, s0)  # noqa: E731
+        kernel = "wkv_chunk_kernel"
+    elif what.startswith("w4"):
+        M = 4 if what == "w4_split" else 128
+        x = _codes(rng, (M, 4096), -128, 127, dev)
+        w = torch.from_numpy(rng.integers(0, 256, size=(2048, 14336))
+                             .astype(np.uint8)).to(dev)
+        s = torch.tensor(0.01, device=dev)
+        name = "quant_matmul_w4"
+        call = lambda: ops.quant_matmul_w4(x, w, s, s)  # noqa: E731
+        kernel = "qmm_w4_splitk_kernel" if M == 4 else "qmm_w4_mma_kernel"
+    elif what == "flash":
         B, S, KV, G, hd = 1, 256, 2, 2, 128
         q = torch.from_numpy(rng.standard_normal((B, S, KV, G, hd))
                              .astype(np.float32)).to(dev)
@@ -145,9 +160,13 @@ def test_one_device_kernel_per_call(dev, what):
     assert len(names) == 1 and kernel in names[0], names
 
 
-@pytest.mark.parametrize("M", [1, 4, 128])
-@pytest.mark.parametrize("KN", QWEN3_KN + [(202, 40)])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 16, 17, 128])
+@pytest.mark.parametrize("KN", QWEN3_KN + RWKV6_KN + [(202, 40)])
 def test_quant_matmul_w4_bitwise(dev, M, KN):
+    """Both nib4 routes (split-K for M <= 16 at every row instance and its
+    neighbours, tensor cores above) bit for bit the plain version, at the
+    Qwen3-0.6B and RWKV6-7B shapes and at K = 202 (not a multiple of a
+    step: rows past K add nothing)."""
     K, N = KN
     rng = np.random.default_rng(K + 3 * N + M)
     x = _codes(rng, (M, K), -128, 127, dev)
@@ -161,6 +180,53 @@ def test_quant_matmul_w4_bitwise(dev, M, KN):
     assert ops.launches["quant_matmul_w4"] == n0 + 1
     want = ref.quant_matmul_w4_ref(x, w_p, s_x, s_w)
     assert torch.equal(out, want), float((out - want).abs().max())
+
+
+def test_split_scratch_zero_after_interleaved_calls(dev):
+    """int8 and nib4 matmuls on both routes, one-token attention and wkv
+    share one scratch of tickets and partial sums on a stream: interleaved
+    calls keep their bits and leave it all zero."""
+    rng = np.random.default_rng(17)
+    s = torch.tensor(0.013, device=dev)
+    x = _codes(rng, (4, 4096), -128, 127, dev)
+    x128 = _codes(rng, (128, 1024), -128, 127, dev)
+    w8 = _codes(rng, (4096, 1024), -128, 127, dev)
+    w8b = _codes(rng, (1024, 3072), -128, 127, dev)
+    w4 = torch.from_numpy(rng.integers(0, 256, size=(2048, 14336))
+                          .astype(np.uint8)).to(dev)
+    w4b = torch.from_numpy(rng.integers(0, 256, size=(512, 3072))
+                           .astype(np.uint8)).to(dev)
+    q_pos = np.full((4,), 300, np.int32)
+    ring = _ring(rng, 4, 320, 8, 128, dev, q_pos)
+    qp = torch.from_numpy(q_pos).to(dev)
+    q = torch.from_numpy(rng.standard_normal((4, 1, 16, 128))
+                         .astype(np.float32)).to(dev)
+    wk = _wkv_operands(dev, 1, 256, 8, 64, 17)
+    calls = [
+        (lambda: ops.quant_matmul(x, w8, s, s),
+         lambda: ref.quant_matmul_ref(x, w8, s, s)),
+        (lambda: ops.quant_matmul_w4(x, w4, s, s),
+         lambda: ref.quant_matmul_w4_ref(x, w4, s, s)),
+        (lambda: ops.decode_attn_quant(q, *ring, qp), None),
+        (lambda: ops.quant_matmul_w4(x128, w4b, s, s),
+         lambda: ref.quant_matmul_w4_ref(x128, w4b, s, s)),
+        (lambda: ops.wkv(*wk[:5], wk[5])[0], None),
+        (lambda: ops.quant_matmul(x128, w8b, s, s),
+         lambda: ref.quant_matmul_ref(x128, w8b, s, s)),
+        (lambda: ops.quant_matmul_w4(x[:1], w4, s, s),
+         lambda: ref.quant_matmul_w4_ref(x[:1], w4, s, s)),
+    ]
+    first = [kernel() for kernel, _ in calls]
+    for _ in range(2):
+        again = [kernel() for kernel, _ in calls]
+        torch.cuda.synchronize()
+        for (_, plain), a, b in zip(calls, first, again):
+            if plain is not None:
+                assert torch.equal(a, plain())
+                assert torch.equal(b, a)
+            else:                         # float sums: the same launch again
+                assert torch.allclose(b, a, rtol=1e-6, atol=1e-6)
+    assert ops._TICKETS and _split_scratch_clean()
 
 
 def _ring(rng, B, Sc, KV, hd, dev, q_pos):
@@ -878,17 +944,19 @@ def test_plain_on_cuda_runs_the_named_plain_versions(dev):
 WKV_CASES = [(1, 32, 1, 16, 16), (2, 64, 4, 32, 32), (4, 96, 8, 64, 32),
              (3, 2048, 2, 64, 32), (1, 256, 64, 64, 32), (2, 160, 16, 64, 16),
              (1, 48, 3, 16, 16), (4, 32, 64, 64, 32), (2, 96, 4, 16, 16),
-             (1, 64, 2, 32, 16)]
+             (1, 64, 2, 32, 16), (4, 2048, 4, 64, 32), (4, 2048, 8, 8, 16),
+             (1, 2048, 64, 64, 32)]
 
 
-def _wkv_operands(dev, B, S, H, hd, seed, strong=False):
+def _wkv_operands(dev, B, S, H, hd, seed, decay=None):
+    """Seeded operands; log-decays in -[0.01, 2], or all ``decay``."""
     rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
     r, k, v = (t(rng.standard_normal((B, S, H, hd))) for _ in range(3))
-    lw = t(np.full((B, S, H, hd), -8.0) if strong
+    lw = t(np.full((B, S, H, hd), decay) if decay is not None
            else -rng.uniform(0.01, 2.0, (B, S, H, hd)))
     u = t(rng.standard_normal((H, hd)) * 0.5)
     s0 = t(rng.standard_normal((B, H, hd, hd)) * 0.3)
@@ -897,14 +965,15 @@ def _wkv_operands(dev, B, S, H, hd, seed, strong=False):
 
 @pytest.mark.parametrize("case", WKV_CASES)
 @pytest.mark.parametrize("given_state", [False, True])
-@pytest.mark.parametrize("strong", [False, True])
-def test_wkv_kernel_against_plain(dev, case, given_state, strong):
+@pytest.mark.parametrize("decay", [None, -8.0, -40.0])
+def test_wkv_kernel_against_plain(dev, case, given_state, decay):
     """y and the final state against the chunked plain version to 2e-4
     (atol and rtol, the reference's wkv_pallas contract: the cumulative
-    sums run in another order), from zero or a given state, and with the
-    strongest decay (log w = -8) finite."""
+    sums run in another order), from zero or a given state, with
+    log-decays in -[0.01, 2], at log w = -8 and at log w = -40 (where
+    e^{-L} alone would overflow within three rows), finite throughout."""
     B, S, H, hd, T = case
-    r, k, v, lw, u, s0 = _wkv_operands(dev, B, S, H, hd, sum(case), strong)
+    r, k, v, lw, u, s0 = _wkv_operands(dev, B, S, H, hd, sum(case), decay)
     st = s0 if given_state else None
     n0 = ops.launches["wkv"]
     y, state = ops.wkv(r, k, v, lw, u, st, chunk=T)
@@ -936,6 +1005,9 @@ def test_wkv_wrapper_rejects_bad_operands(dev):
         ops.wkv(r, k, v, lw, u, s0[:, :1].contiguous())
     with pytest.raises(ValueError, match="mixed devices"):
         ops.wkv(r, k, v, lw, u.cpu())
+    off = torch.zeros(r.numel() + 1, device=dev)[1:].view(r.shape)
+    with pytest.raises(ValueError, match="aligned"):    # float4 loads
+        ops.wkv(off, k, v, lw, u)
     with pytest.raises(NotImplementedError, match="backward"):
         ops.wkv(r.requires_grad_(), k, v, lw, u)
     r.requires_grad_(False)

@@ -2,8 +2,9 @@
 CPU.
 
 ``ops.qmm_split_k`` picks the K rows each block of
-``csrc/quant_matmul.cu``'s split-K route takes (M <= 16); the wrapper
-passes it, with the cached workspace, to one launch. The kernels run only
+``csrc/quant_matmul.cu``'s split-K route takes (M <= 16), for int8 and
+nib4 weights alike; the wrappers pass it, with the cached workspace, to
+one launch. The kernels run only
 on the card (``test_torch_cuda.py``); here a stand-in library records what
 the wrappers would launch, so the rule and the plumbing -- one launch a
 call, the route by M, a workspace that is zeroed once -- are held without
@@ -151,17 +152,57 @@ def test_workspace_grows_only_when_too_small(lib):
     assert t2 is t1
 
 
-def test_w4_wrapper_launches_its_own_kernel(lib):
-    """``quant_matmul_w4`` keeps its one kernel and signature at every M."""
-    rng = np.random.default_rng(1)
-    for M in (1, 4, 128):
-        x, w, s_x, s_w = _operands(rng, M, 256, 96, w4=True)
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 128])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (4096, 14336), (202, 40)])
+def test_w4_wrapper_launches_once_with_the_split_and_route(lib, M, K, N):
+    """``quant_matmul_w4``: one launch a call on the counter and in the
+    library, routed by M as ``quant_matmul``: the nib4 split-K entry point
+    with ``qmm_split_k``'s rows and the shared split scratch (tickets, then
+    partial sums) for M <= 16, the nib4 tensor-core entry point above. The
+    scratch is allocated zeroed once and never re-zeroed by a call."""
+    rng = np.random.default_rng(M + K + N)
+    x, w, s_x, s_w = _operands(rng, M, K, N, w4=True)
+    for rep in range(2):
         lib.calls.clear()
+        n0 = ops.launches["quant_matmul_w4"]
         out = ops.quant_matmul_w4(x, w, s_x, s_w)
+        assert out.shape == (M, N) and out.dtype == torch.float32
+        assert ops.launches["quant_matmul_w4"] == n0 + 1
         (name, a), = lib.calls
-        assert name == "qmm_w4" and a[5:8] == (M, 96, 256)
-        assert a[4] == out.data_ptr()
-    assert not ops._TICKETS
+        assert a[:5] == (x.data_ptr(), w.data_ptr(), s_x.data_ptr(),
+                         s_w.data_ptr(), out.data_ptr())
+        assert len(a) == len(_build.SYMBOLS["quant_matmul"][name])
+        if M > 16:
+            assert name == "qmm_w4_mma" and a[5:8] == (M, N, K)
+            assert not ops._TICKETS
+            continue
+        assert name == "qmm_w4_splitk"
+        assert a[7:11] == (M, N, K, ops.qmm_split_k(M, K, N))
+        (t,) = ops._TICKETS.values()
+        n_tiles = -(-N // ops.QMM_TILE_N)
+        assert a[5] == t.data_ptr() and a[6] == t.data_ptr() + 4 * n_tiles
+        assert t.numel() >= n_tiles + M * N and int(t.abs().sum()) == 0
+        if rep == 0:
+            first = t
+        else:
+            assert t is first                 # the same buffer, not re-zeroed
+
+
+@pytest.mark.parametrize("K,N", QWEN3_KN + RWKV6_KN)
+def test_w4_split_fills_two_waves_at_decode(lib, K, N):
+    """The nib4 route's split, as its wrapper launches it at M = 4: the same
+    rule as int8 (a 32-row step is 16 packed rows), at least two waves of
+    the H100's 132 SMs at every Qwen3-0.6B and RWKV6-7B projection, K
+    tiled exactly."""
+    x = torch.zeros((4, K), dtype=torch.int8)
+    w = torch.zeros((K // 2, N), dtype=torch.uint8)
+    ops.quant_matmul_w4(x, w, torch.tensor(0.5), torch.tensor(0.5))
+    (name, a), = lib.calls
+    assert name == "qmm_w4_splitk"
+    ks = a[10]
+    assert ks % ops.QMM_STEP_K == 0 and (_n_split(K, ks) - 1) * ks < K
+    blocks = -(-N // ops.QMM_TILE_N) * _n_split(K, ks)
+    assert blocks >= 2 * H100_SMS, (K, N, ks, blocks)
 
 
 @pytest.mark.parametrize("M", [1, 4, 16, 17, 128])

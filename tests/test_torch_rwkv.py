@@ -186,6 +186,43 @@ def test_wkv_chunked_from_a_given_state_matches_jax(chunk):
                                    atol=1e-5 * np.abs(j).max())
 
 
+@pytest.mark.parametrize("n_chunks", [1, 2, 8])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_wkv_chunk_parallel_mirror_matches(chunk, hd, n_chunks):
+    """``ref.wkv_chunkpar_ref``, the CUDA kernel's decomposition (chunks on
+    their own with the pair exponent factored across sub-chunks, then the
+    carry over chunk states), against the chunked plain version and JAX to
+    the 2e-4 contract, y and the final state: from zero state (JAX
+    ``wkv_pallas`` in interpret mode) and from a given one (JAX
+    ``wkv_chunked``), at log-decays in -[0.01, 2], at log w = -8 and at
+    log w = -40 (where e^{-L} alone would overflow within 3 rows)."""
+    B, H = 1, 2
+    S = chunk * n_chunks
+    r, k, v, lw, u = _wkv_inputs(chunk + hd + n_chunks, B, S, H, hd)
+    s0 = _f32(np.random.default_rng(hd), B, H, hd, hd) * 0.3
+    for lw_ in (lw, np.full_like(lw, -8.0), np.full_like(lw, -40.0)):
+        for st in (None, s0):
+            args = (r, k, v, lw_, u)
+            t_args = [torch.from_numpy(a) for a in args]
+            t_s0 = None if st is None else torch.from_numpy(st)
+            y, state = ref.wkv_chunkpar_ref(*t_args, t_s0, chunk=chunk)
+            yp, sp = ref.wkv_chunked_ref(*t_args, t_s0, chunk=chunk)
+            assert torch.isfinite(y).all() and torch.isfinite(state).all()
+            torch.testing.assert_close(y, yp, **WKV_TOL)
+            torch.testing.assert_close(state, sp, **WKV_TOL)
+            j_args = [jnp.asarray(a) for a in args]
+            if st is None:
+                want = np.asarray(jops.wkv(*j_args, chunk=chunk))
+            else:
+                want, jst = jrec.wkv_chunked(*j_args, jnp.asarray(st),
+                                             chunk=chunk)
+                np.testing.assert_allclose(state.numpy(), np.asarray(jst),
+                                           **WKV_TOL)
+                want = np.asarray(want)
+            np.testing.assert_allclose(y.numpy(), want, **WKV_TOL)
+
+
 def test_wkv_rejects_a_ragged_length():
     args = _wkv_inputs(0, 1, 40, 1, 8)
     with pytest.raises(ValueError, match="multiple of chunk"):
