@@ -103,6 +103,30 @@ In order:
    its plain version in the kernel phases, from zero and from a random
    state, and with the strongest decay (log w = -8).
 
+9. serve CLI phase: ``repro_torch.launch.serve.main`` at Qwen3-0.6B full
+   width (its own ``--stagger`` requests: 256-token prompts less 0-9, 32
+   new tokens less 0-4, 4 slots, a 320-row cache), the prefill chunk from
+   the roofline model on the H100 envelope. First the ring with
+   ``--compare`` over 8 requests and ``--trace-out``, ``--metrics-out``
+   and ``--metrics-stream``. Gates: the kernels launched; the chunk in
+   [16, 512]; the written Chrome trace valid and reconciled with the
+   stats; the calibration rows finite and positive; tokens identical to
+   the fixed schedule's; the decode steps of both schedules those the
+   reference engine takes (the staggered lengths put the longest requests
+   last, so continuous batching takes 2 more than fixed); at least 2
+   metrics snapshots; the Prometheus dump parses back to the registry's
+   values; the host time spent in the trace, the KV-scale sampler, the
+   monitor and the route counters printed per decode step. Then the same
+   run with ``--no-trace`` twice and traced once more (on, off, off, on:
+   the decode-step p50s printed, the tokens unchanged); then budgeted on
+   the device table the first run measured (``--chip-table``): the tokens
+   unchanged, both chunks printed. Last, the 8 requests over pooled pages
+   sharing 128 prompt tokens, speculating (``--speculate 4 --draft-bits
+   2`` on a policy file the CLI wrote): the trace reconciles (prefix
+   hits, one ``spec_verify`` per round), ``spec.accept_len`` holds one
+   observation per live slot and round, 28 verify launches per round and
+   no sync inside a round.
+
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
 per-case numbers also go to ``chiprun_out/chip_smoke.json``.
@@ -137,6 +161,10 @@ PREFILL_M = 128             # the matmuls' prefill rows (M > 16: tensor cores)
 MAIN_SC = 320               # the summary row of decode attention: the serve ring
 PROMPTS = [256, 128, 224, 160, 192, 144, 240, 176]
 GEN, SLOTS, CACHE_LEN, PREFILL_CHUNK = 32, 4, 320, 256
+# decode steps (continuous, fixed) of the reference engine over the serve
+# CLI's staggered requests at its auto prefill chunk: the port's must equal
+# them (tests/test_torch_serve_cli.py holds the two engines together)
+REF_CLI_STEPS = {194: (64, 62)}
 
 SOURCES = {
     "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -1768,6 +1796,245 @@ def self_draft_check(torch, ops, dev, reqs):
                 rejected_decisive=decisive)
 
 
+@contextlib.contextmanager
+def obs_cost_probe():
+    """Host seconds spent in the trace recorder, the KV-scale sampler, the
+    monitor and the publishing of the dispatch route counters while the
+    block runs (each function wrapped in a clock)."""
+    from repro_torch.obs import health, monitor, trace
+    from repro_torch.runtime import dispatch
+    spent = {"trace": 0.0, "kv_drift": 0.0, "monitor": 0.0, "routes": 0.0}
+    saved = []
+    for cls, name, key in ((trace.TraceRecorder, "instant", "trace"),
+                           (trace.TraceRecorder, "span", "trace"),
+                           (health.KVScaleDrift, "update", "kv_drift"),
+                           (health.KVScaleDrift, "publish", "kv_drift"),
+                           (monitor.Monitor, "check", "monitor"),
+                           (dispatch, "publish_routes", "routes")):
+        fn = getattr(cls, name)
+        saved.append((cls, name, fn))
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spent[_key] += time.perf_counter() - t0
+        setattr(cls, name, timed)
+    try:
+        yield spent
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def _serve_cli(serve, argv):
+    """``repro_torch.launch.serve.main(argv)``; its refusals are gates."""
+    try:
+        return serve.main(argv)
+    except SystemExit as e:
+        raise GateError(f"serve {' '.join(argv)}: {e}") from e
+
+
+def _prom_mismatches(export, text, registry):
+    """Parse a Prometheus dump back; returns (samples, [registry series
+    whose value, or histogram count and sum, it does not carry])."""
+    samples = export.samples_as_dict(export.parse_prometheus_text(text))
+    bad = []
+    for name, v in registry.snapshot().items():
+        key = export.prom_name(name)
+        if isinstance(v, dict):                     # histogram
+            pairs = [(samples.get(key + "_count"), v["count"]),
+                     (samples.get(key + "_sum"), v["sum"])]
+        else:                                       # gauge, or counter
+            pairs = [(samples.get(key, samples.get(key + "_total")), v)]
+        if any(got is None or not math.isclose(got, want, rel_tol=1e-12)
+               for got, want in pairs):
+            bad.append(name)
+    return samples, bad
+
+
+def serve_cli_phase(torch, ops, dev, card):
+    """The serve CLI (``launch.serve.main``) at Qwen3-0.6B full width over
+    its own staggered requests (module docstring, phase 9): the ring with
+    ``--compare`` and every artifact, again under the device table that run
+    measured, again with the trace off, then paged and speculative."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import export, trace
+
+    out = ROOT / "chiprun_out" / "serve_cli"
+    out.mkdir(parents=True, exist_ok=True)
+    shape = ["--arch", "qwen3-0.6b", "--slots", str(SLOTS), "--prompt-len",
+             str(max(PROMPTS)), "--gen", str(GEN), "--cache-len",
+             str(CACHE_LEN), "--stagger"]
+    base = shape + ["--requests", str(len(PROMPTS))]
+    res = {}
+
+    # 1. ring, --compare, every artifact, the auto prefill chunk
+    ops.reset_launches()                         # counts: this run only
+    with obs_cost_probe() as spent:
+        ring = _serve_cli(serve, base + [
+            "--compare", "--trace-out", str(out / "trace.json"),
+            "--metrics-out", str(out / "metrics.json"),
+            "--metrics-stream", str(out / "stream.jsonl")])
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+    eng, st = ring["eng"], ring["eng"].stats
+    # the observability's own host time, over both runs of --compare
+    steps = st.decode_steps + ring["fixed"].stats.decode_steps
+    obs_us = {k: v / steps * 1e6 for k, v in spent.items()}
+    gate(all(launches[k] > 0 for k in RING_KERNELS)
+         and launches["decode_attn_quant_paged"] == 0,
+         f"[cli] the ring run launched {launches}")
+    gate(16 <= eng.prefill_chunk <= 512 and eng.ecfg.prefill_chunk == 0,
+         f"[cli] auto prefill chunk {eng.prefill_chunk}")
+    rec = trace.TraceRecorder.from_chrome(str(out / "trace.json"))
+    problems = trace.validate_chrome(json.loads(
+        (out / "trace.json").read_text())) + trace.reconcile(rec,
+                                                             st.as_dict())
+    gate(not problems, f"[cli] the written trace: {problems}")
+    cal = ring["calibration"]
+    gate(cal["finite"] and all(r["measured_s"] > 0 and r["modeled_s"] > 0
+                               for r in cal["rows"]),
+         f"[cli] calibration rows {cal['rows']}")
+    # with these 8 requests the staggered lengths put the longest last and
+    # continuous batching takes more decode steps than fixed, in the
+    # reference engine too: the gate holds the counts to the reference's
+    gate((st.decode_steps, ring["fixed"].stats.decode_steps)
+         == REF_CLI_STEPS.get(eng.prefill_chunk),
+         f"[cli] {st.decode_steps} continuous and "
+         f"{ring['fixed'].stats.decode_steps} fixed decode steps at chunk "
+         f"{eng.prefill_chunk}; the reference engine takes {REF_CLI_STEPS}")
+    snaps = export.read_jsonl_snapshots(str(out / "stream.jsonl"))
+    gate(len(snaps) >= 2, f"[cli] {len(snaps)} metrics snapshots")
+    samples, bad = _prom_mismatches(
+        export, (out / "stream.jsonl.prom").read_text(), eng.metrics)
+    gate(not bad, f"[cli] the Prometheus dump differs from the registry "
+         f"on {bad[:4]}")
+    d = st.as_dict()
+    print(f"[cli] ring: auto prefill chunk {eng.prefill_chunk}; decode step "
+          f"p50 {d['decode_step_p50_ms']:.2f} ms (trace on), "
+          f"{st.decode_steps} steps vs {ring['fixed'].stats.decode_steps} "
+          f"fixed ({ring['saved']} saved); {len(rec.events)} trace events; "
+          f"{len(snaps)} snapshots; {len(samples)} Prometheus series; "
+          f"launches {launches}", flush=True)
+    table = dict(cal["device_table"], card=card)
+    (out / "device_table.json").write_text(json.dumps(
+        {"device_table": table}, indent=1))
+    print(f"[cli] measured device table ({card}): hbm_bytes_s="
+          f"{table['hbm_bytes_s']:.4e} peak_flops={table['peak_flops']:.4e}",
+          flush=True)
+    tokens = {r: c.tokens for r, c in ring["completions"].items()}
+    res["ring"] = dict(
+        prefill_chunk=eng.prefill_chunk, launches=launches,
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps,
+        fixed_decode_steps=ring["fixed"].stats.decode_steps,
+        saved=ring["saved"], trace_events=len(rec.events),
+        snapshots=len(snaps), alerts=eng.monitor.as_dicts(),
+        calibration=cal["rows"], device_table=table,
+        obs_host_us_per_step=obs_us)
+    print(f"[cli] host time of the observability per decode step: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in obs_us.items()),
+          flush=True)
+    del ring, eng
+    torch.cuda.empty_cache()
+
+    # 2. the trace's cost: the same run untraced twice, then traced again
+    # (on, off, off, on: the host's spread drifts within a call)
+    p50 = {"on": [res["ring"]["decode_step_p50_ms"]], "off": []}
+    for mode in ("off", "off", "on"):
+        run = _serve_cli(serve, base + ["--compare"] + (
+            ["--no-trace"] if mode == "off" else []))
+        gate((run["eng"].trace is None) == (mode == "off") and {
+            r: c.tokens for r, c in run["completions"].items()} == tokens,
+            f"[cli] the run with the trace {mode} gave other tokens")
+        p50[mode].append(run["eng"].stats.as_dict()["decode_step_p50_ms"])
+        del run
+        torch.cuda.empty_cache()
+    print(f"[cli] decode step p50, trace on / off / off / on: "
+          f"{p50['on'][0]:.2f} / {p50['off'][0]:.2f} / {p50['off'][1]:.2f} / "
+          f"{p50['on'][1]:.2f} ms ({card})", flush=True)
+    res["trace_on_off"] = dict(order=["on", "off", "off", "on"],
+                               decode_step_p50_ms=p50)
+
+    # 3. the same, budgeted on the measured table: only the chunk moves
+    cal_run = _serve_cli(serve, base + [
+        "--compare", "--chip-table", str(out / "device_table.json")])
+    ceng = cal_run["eng"]
+    ctoks = {r: c.tokens for r, c in cal_run["completions"].items()}
+    gate(ctoks == tokens, "[cli] tokens under the measured table differ from "
+         "the default chip's")
+    cd = ceng.stats.as_dict()
+    print(f"[cli] calibrated: prefill chunk {ceng.prefill_chunk} (default "
+          f"{res['ring']['prefill_chunk']}); tokens equal the default "
+          f"chip's; decode step p50 {cd['decode_step_p50_ms']:.2f} ms "
+          f"(trace on)", flush=True)
+    res["calibrated"] = dict(
+        prefill_chunk=ceng.prefill_chunk,
+        default_prefill_chunk=cal_run["fixed"].prefill_chunk,
+        decode_step_p50_ms=cd["decode_step_p50_ms"],
+        decode_steps=ceng.stats.decode_steps)
+    del cal_run, ceng
+    torch.cuda.empty_cache()
+
+    # 4. paged pages with a shared prefix, speculating over the demo
+    # policy written by the CLI (speculation takes a policy file)
+    policy = str(out / "demo_policy.json")
+    gate(_serve_cli(serve, ["--arch", "qwen3-0.6b", "--write-demo-policy",
+                            policy]) is None, "[cli] --write-demo-policy")
+    ops.reset_launches()
+    with spec_probe(torch, ops) as probe:
+        spec = _serve_cli(serve, base + [
+            "--policy", policy,
+            "--kv-layout", "paged", "--speculate", str(SPEC_K),
+            "--draft-bits", str(DRAFT_BITS),
+            "--trace-out", str(out / "spec_trace.jsonl")])
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+    seng, sst = spec["eng"], spec["eng"].stats
+    n_layers = seng.cfg.n_layers
+    serve.check_trace(seng, "[cli] paged speculative")
+    events = trace.TraceRecorder.from_jsonl(
+        str(out / "spec_trace.jsonl")).events
+    n_verify = sum(e.name == "spec_verify" for e in events)
+    hits = [e for e in events if e.name == "prefix_hit"]
+    accept = seng.metrics.get("spec.accept_len")
+    gate(n_verify == sst.spec_rounds == len(probe["verify"]) > 0,
+         f"[cli] {n_verify} spec_verify instants, {sst.spec_rounds} rounds")
+    gate(hits and sum(e.args["tokens"] for e in hits)
+         == sst.prefix_hit_tokens > 0,
+         f"[cli] prefix_hit events {len(hits)}, {sst.prefix_hit_tokens} "
+         "tokens")
+    gate(accept.count == sst.slot_steps and accept.sum ==
+         sst.spec_accepted_tokens,
+         f"[cli] spec.accept_len: {accept.count} observations over "
+         f"{sst.slot_steps} live slot-rounds")
+    gate(launches["verify_attn_quant_paged"] == n_layers * sst.spec_rounds
+         and launches["decode_attn_quant_paged"] > 0
+         and launches["decode_attn_quant"] == 0
+         and launches["verify_attn_quant"] == 0,
+         f"[cli] the paged speculative run launched {launches}")
+    spans = [e for e in events if e.name == "spec_draft"]
+    sd = sst.as_dict()
+    print(f"[cli] paged speculative: {sst.spec_rounds} rounds, accept rate "
+          f"{sst.spec_accept_rate:.4f}, round p50 "
+          f"{sd['decode_step_p50_ms']:.2f} ms (draft part p50 "
+          f"{statistics.median(e.dur for e in spans) * 1e3:.2f} ms, device "
+          f"events), prefill chunk {seng.prefill_chunk}, "
+          f"{len(hits)} prefix hits; launches {launches}", flush=True)
+    res["paged_spec"] = dict(
+        prefill_chunk=seng.prefill_chunk, rounds=sst.spec_rounds,
+        accept_rate=sst.spec_accept_rate,
+        round_p50_ms=sd["decode_step_p50_ms"],
+        draft_p50_ms=statistics.median(e.dur for e in spans) * 1e3,
+        prefix_hit_tokens=sst.prefix_hit_tokens, launches=launches,
+        trace_events=len(events))
+    del spec, seng
+    torch.cuda.empty_cache()
+    return res
+
+
 def rwkv_serve_phase(torch, ops, dev):
     """rwkv6-7b at full width and depth over the ring (module docstring,
     phase 8); the weights are freed before it returns."""
@@ -1983,6 +2250,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_paged_launches, spec_paged_res = spec_serve_phase(
         torch, ops, dev, "paged", paged_run, paged_res["prefix_hit_tokens"])
+    torch.cuda.empty_cache()
+    cli_res = serve_cli_phase(torch, ops, dev, card)
     reqs = ring_run[0]
     del ring_run, paged_run
     torch.cuda.empty_cache()
@@ -2047,7 +2316,7 @@ def main() -> int:
         {"card": card, "cases": rows, "train": train_res,
          "serve": serve_res, "paged_serve": paged_res,
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
-         "rwkv_serve": rwkv_res, "kernels": kernels},
+         "serve_cli": cli_res, "rwkv_serve": rwkv_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

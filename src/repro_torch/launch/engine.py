@@ -45,6 +45,33 @@ Phase timers stop after ``torch.cuda.synchronize()`` on a CUDA device (the
 host reads the sampled tokens anyway), so a phase's time covers its device
 work, not its launch latency.
 
+The prefill budget (``prefill_chunk``: the tokens the scheduler admits per
+iteration, and the paged layout's append chunk) is 0 by default, which
+means auto: ``dist.roofline.suggest_prefill_chunk`` on this engine's own
+decode step (its slots, cache, KV storage and attention route, the
+session's packed weight bits, the speculative round shape) under
+``EngineConfig.chip``. ``bucket_prompts`` pads ring prompts to power-of-two
+lengths (``scheduler.bucket_length``), so prefill sees few shapes; it stays
+off for the paged layout (one append chunk shape already), recurrent
+schedules (pads would run through the state) and windowed caches.
+
+Observability (``obs``): every engine owns a ``MetricsRegistry``
+(``engine.metrics``, shared with its session; after each fenced prefill
+and step the routes the session's dispatch took are published into it)
+and, with ``trace`` on (the default), a ``TraceRecorder``
+(``engine.trace``). ``stats`` renders the registry into an ``EngineStats``
+snapshot. Each request traces its lifecycle (``admit``, ``prefix_hit``,
+the ``prefill`` span, ``first_token``, one ``token`` instant per emitted
+token, ``complete``, ``evict``) and each step a ``decode_step`` span whose
+duration is the same fenced time ``t_decode_s`` adds up. A speculative
+round stays one call with no host synchronisation: CUDA events recorded
+between its draft and verify parts are read after the round's fence, and
+give its ``spec_draft`` / ``spec_verify_phase`` spans measured device
+times (host timestamps on the CPU, where calls run synchronously).
+Pack-time health is published once per epoch; the KV write scales are
+sampled every ``health_every`` steps after the fence, outside the timer;
+threshold alerts (``obs.monitor``) land in the registry and the trace.
+
 For every emitted token the engine also records the top-2 logit margin
 (``margins[rid]``), which tells a comparison of two engines' greedy tokens
 which steps are decisive.
@@ -59,10 +86,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import roofline
 from repro_torch.launch.scheduler import (Completion, Request, Scheduler,
-                                          prefix_chain_keys)
+                                          bucket_length, prefix_chain_keys)
 from repro_torch.models import lm
+from repro_torch.obs import health as obs_health
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import monitor as obs_monitor
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import dispatch
 from repro_torch.runtime import kv_cache as qkv
 
@@ -106,14 +137,21 @@ class EngineConfig:
 
     slots: int = 4  # concurrent sequences
     cache_len: int = 64  # per-slot KV capacity (prompt + generation)
-    prefill_chunk: int = 128  # prefill tokens granted per iteration (> 0)
+    # prefill tokens granted per iteration; 0 = auto, the roofline headroom
+    # of this engine's decode step (roofline.suggest_prefill_chunk)
+    prefill_chunk: int = 0
     policy: str = "continuous"  # continuous | continuous-sjf | fixed
     state_dtype: Any = torch.float32
     max_iters: int = 100_000  # hard stop for the host loop
+    chip: roofline.ChipSpec = roofline.DEFAULT_CHIP  # the auto budget's card
     kv_quant: str = "none"  # "none" | "int8" | "fake" (reference numerics)
     kv_layout: str = "ring"  # "ring" | "paged" (pooled pages + prefix reuse)
     page_size: int = 8  # tokens per KV page (paged layout only)
     n_pages: int = 0  # paged pool size; 0 = (slots + 1) * pages per slot
+    bucket_prompts: bool = False  # pow-2 prompt padding (ring layout)
+    bucket_min: int = 8  # smallest prompt bucket
+    trace: bool = True  # record the per-request lifecycle event trace
+    health_every: int = 4  # KV-scale drift sample stride (decode steps; 0 off)
     eos_id: Optional[int] = None  # optional early-stop token id
     speculate: int = 0  # self-speculative draft length k (0 = off)
 
@@ -139,6 +177,7 @@ class EngineStats:
     admitted: int = 0
     completed: int = 0
     tokens_generated: int = 0
+    alerts_fired: int = 0  # monitor threshold trips this epoch
     spec_rounds: int = 0  # draft + verify rounds (speculate > 0)
     spec_draft_tokens: int = 0  # tokens the low-bit draft proposed
     spec_accepted_tokens: int = 0  # proposals the target confirmed
@@ -151,6 +190,11 @@ class EngineStats:
         return self.tokens_generated / max(self.t_decode_s, 1e-9)
 
     @property
+    def total_tokens_per_s(self) -> float:
+        total = self.tokens_generated + self.prefill_tokens
+        return total / max(self.t_decode_s + self.t_prefill_s, 1e-9)
+
+    @property
     def spec_accept_rate(self) -> float:
         """Fraction of drafted tokens the target verified (greedy match)."""
         return self.spec_accepted_tokens / max(self.spec_draft_tokens, 1)
@@ -159,6 +203,7 @@ class EngineStats:
         d = dataclasses.asdict(self)
         d.update(d.pop("latency"))
         d["decode_tokens_per_s"] = self.decode_tokens_per_s
+        d["total_tokens_per_s"] = self.total_tokens_per_s
         d["spec_accept_rate"] = self.spec_accept_rate
         return d
 
@@ -210,17 +255,43 @@ class _Slot:
     """Host-side bookkeeping for one engine slot."""
 
     __slots__ = ("req", "next_tok", "next_pos", "gen", "done", "admitted_at",
-                 "spec_drafted", "spec_accepted")
+                 "ts_admit", "ts_last_token", "spec_drafted", "spec_accepted")
 
-    def __init__(self, req: Request, first_tok: int, now: int):
+    def __init__(self, req: Request, first_tok: int, now: int,
+                 ts_admit: float = 0.0, ts_last_token: float = 0.0):
         self.req = req
         self.next_tok = first_tok
         self.next_pos = req.prompt_len
         self.gen: List[int] = [first_tok]
         self.done = False
         self.admitted_at = now
+        self.ts_admit = ts_admit  # trace-clock stamp of the admit event
+        self.ts_last_token = ts_last_token  # last emitted token (ITL base)
         self.spec_drafted = 0  # draft proposals made for this slot
         self.spec_accepted = 0  # proposals the target confirmed
+
+
+class _PhaseMarks:
+    """Timestamps inside one device call that must not synchronise: CUDA
+    events on a CUDA device (read after the call's fence), host clock
+    readings on the CPU, whose calls run synchronously."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._marks: list = []
+
+    def mark(self) -> None:
+        if self._cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._marks.append(ev)
+        else:
+            self._marks.append(time.perf_counter())
+
+    def seconds(self, i: int, j: int) -> float:
+        """Time from mark ``i`` to mark ``j`` (after the fence)."""
+        a, b = self._marks[i], self._marks[j]
+        return a.elapsed_time(b) / 1e3 if self._cuda else b - a
 
 
 def _insert(full, row, slot: int) -> None:
@@ -242,8 +313,8 @@ class DecodeEngine:
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
-        if self.ecfg.prefill_chunk <= 0:
-            raise ValueError(f"prefill_chunk must be > 0, got "
+        if self.ecfg.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0 (0 = auto), got "
                              f"{self.ecfg.prefill_chunk}")
         if adapter is None:
             if self.ecfg.kv_quant != "none" and ctx.kv_quant == "none":
@@ -292,17 +363,92 @@ class DecodeEngine:
                 "(runtime.session.SpecSession): a draft_params tree to "
                 "propose tokens and a verify() pass to confirm them")
         if kv_mode == "int8":
-            self.decode_attn_route = \
-                "fused" if self.device.type == "cuda" else "dequant-fp"
+            self.decode_attn_route = dispatch.decode_attn_route(self.device)
         else:
             self.decode_attn_route = "fp"
-        self.prefill_chunk = int(self.ecfg.prefill_chunk)
+        # the roofline budget's shape, kept for obs.calibrate to replay the
+        # measured timings against the model the engine planned with
+        self.kv_bits = 8.0 if kv_mode == "int8" else 8.0 * torch.empty(
+            (), dtype=self.ecfg.state_dtype).element_size()
+        self.kv_attend = ("fused" if self.decode_attn_route.startswith("fused")
+                          else "dequant")
+        self.prefill_chunk = int(
+            self.ecfg.prefill_chunk or roofline.suggest_prefill_chunk(
+                cfg, self.ecfg.slots, cache_tokens=self.ecfg.cache_len,
+                kv_bits=self.kv_bits, kv_attend=self.kv_attend,
+                w_bits_total=getattr(adapter, "w_bits_total", None),
+                # a speculating engine's iteration is a whole round
+                spec_k=self._spec_k,
+                draft_w_bits=float(getattr(adapter, "draft_w_bits", 2.0)),
+                chip=self.ecfg.chip))
+        # padded prompt tokens would run through recurrent state and evict
+        # rows of a windowed cache; the paged layout's append prefill has
+        # one chunk shape already
+        kinds = {s.kind for s in lm.iter_sites(cfg)}
+        self._bucket = (bool(self.ecfg.bucket_prompts) and not self._paged
+                        and not kinds & {"rwkv", "rec"}
+                        and not (cfg.sliding_window or cfg.local_window))
+        self.on_step = None  # per-iteration callback (serve --metrics-stream)
         self.reset()
 
+    # -- observability -------------------------------------------------------
+    def _init_obs(self) -> None:
+        """A fresh metrics registry, trace and monitor for one serving
+        epoch: a ``stats`` snapshot (and the old registry) taken before
+        ``reset()`` stays as it was."""
+        self.metrics = m = obs_metrics.MetricsRegistry()
+        self.trace = obs_trace.TraceRecorder() if self.ecfg.trace else None
+        m.gauge("engine.slots",
+                help="configured concurrent-sequence capacity").set(
+                    self.ecfg.slots)
+        m.gauge("engine.prefill_chunk").set(self.prefill_chunk)
+        if self._spec_k:
+            m.gauge("engine.speculate",
+                    help="self-speculative draft length k").set(self._spec_k)
+        m.counter(f"engine.decode_attn_route.{self.decode_attn_route}").inc()
+        if hasattr(self.adapter, "metrics"):
+            self.adapter.metrics = m
+        # the session's route tallies at the epoch's start: each fenced
+        # prefill and step publishes what they gained since
+        counts = getattr(self.adapter, "route_counts", None)
+        self._routes_seen = ({op: dict(r) for op, r in counts.routes.items()}
+                             if counts is not None else None)
+        if hasattr(self.adapter, "packed_bytes"):
+            m.gauge("engine.packed_bytes",
+                    help="resident packed weight codes").set(
+                        self.adapter.packed_bytes())
+        if hasattr(self.adapter, "scale_bytes"):
+            m.gauge("engine.scale_bytes").set(self.adapter.scale_bytes())
+        pack_health = getattr(self.adapter, "pack_health", None)
+        if pack_health:
+            obs_health.publish_pack_health(m, pack_health)
+        self._kv_drift = obs_health.KVScaleDrift()
+        # the pool watcher reads obtainable pages (free + LRU-evictable), the
+        # number admission defers on
+        self.monitor = obs_monitor.default_monitor(
+            pool_min_free=(self._pages_per_slot - 1) if self._paged else None)
+
+    def _now(self) -> float:
+        """The trace clock (the host clock without a trace)."""
+        return self.trace.now() if self.trace is not None \
+            else time.perf_counter()
+
+    def _set_cache_gauges(self) -> None:
+        """Resident KV-cache inventory gauges (zeros for fp caches)."""
+        inv = qkv.tree_inventory(self.state)
+        m = self.metrics
+        m.gauge("engine.kv_cache_bytes",
+                help="codes + scales + pos, all quantized caches").set(
+                    sum(inv.values()))
+        for part, nbytes in inv.items():
+            m.gauge(f"engine.kv_{part}_bytes").set(nbytes)
+        if self._paged:
+            self._set_pool_gauges()
+
     def reset(self) -> None:
-        """Clear queue, slots, metrics and decode state."""
-        self.metrics = obs_metrics.MetricsRegistry()
-        self.metrics.gauge("engine.slots").set(self.ecfg.slots)
+        """Clear queue, slots and decode state and start a new metrics and
+        trace epoch: a ``stats`` snapshot taken before stays as it was."""
+        self._init_obs()
         self.scheduler = Scheduler(self.ecfg.policy, self.prefill_chunk,
                                    metrics=self.metrics)
         self.slots: List[Optional[_Slot]] = [None] * self.ecfg.slots
@@ -319,10 +465,10 @@ class DecodeEngine:
                 self.layout.pool_pages(self.ecfg.slots, self.ecfg.cache_len),
                 self.ecfg.page_size)
             kw["layout"] = self.layout
-            self._set_pool_gauges()
         self.state = self.adapter.init_state(
             self.ecfg.slots, self.ecfg.cache_len, self.ecfg.state_dtype,
             per_slot=True, device=self.device, **kw)
+        self._set_cache_gauges()
 
     @property
     def stats(self) -> EngineStats:
@@ -349,11 +495,11 @@ class DecodeEngine:
             kv_unique_pages=c("kv_unique_pages"),
             admissions_deferred_pool=int(
                 m.value("scheduler.admissions_deferred_pool")),
-            act_quant_reused=(getattr(self.adapter, "act_quant_reused", 0)
-                              - self._act_reuse_base),
+            act_quant_reused=c("act_quant_reused"),
             decode_attn_route=self.decode_attn_route,
             admitted=c("admitted"), completed=c("completed"),
             tokens_generated=c("tokens_generated"),
+            alerts_fired=int(m.value(obs_monitor.ALERTS_FIRED)),
             spec_rounds=int(m.value("spec.rounds")),
             spec_draft_tokens=int(m.value("spec.draft_tokens")),
             spec_accepted_tokens=int(m.value("spec.accepted_tokens")),
@@ -407,10 +553,33 @@ class DecodeEngine:
 
     def _set_pool_gauges(self) -> None:
         m = self.metrics
-        m.gauge("engine.kv_unique_pages").set(self.pool.unique_pages_in_use)
-        m.gauge("engine.kv_pool_free_pages").set(self.pool.free_count)
-        m.gauge("engine.kv_pool_available_pages").set(
-            self.pool.available_count)
+        m.gauge("engine.kv_unique_pages",
+                help="distinct physical pages currently referenced").set(
+                    self.pool.unique_pages_in_use)
+        m.gauge("engine.kv_pool_free_pages",
+                help="PagePool free-list length").set(self.pool.free_count)
+        m.gauge("engine.kv_pool_available_pages",
+                help="free + LRU-evictable pages (admission headroom)").set(
+                    self.pool.available_count)
+
+    def _set_reuse_gauge(self) -> None:
+        self.metrics.gauge("engine.act_quant_reused").set(
+            getattr(self.adapter, "act_quant_reused", 0)
+            - self._act_reuse_base)
+
+    def _publish_routes(self) -> None:
+        """The session's dispatch routes since the last publish, into the
+        registry (``dispatch.publish_routes``), once per prefill or step."""
+        if self._routes_seen is not None:
+            dispatch.publish_routes(self.metrics, self.adapter.route_counts,
+                                    self._routes_seen)
+
+    def _sample_health(self) -> None:
+        """KV-scale drift every ``health_every`` decode steps, read after
+        the step's fence and outside its timer."""
+        he, m = self.ecfg.health_every, self.metrics
+        if he and int(m.value("engine.decode_steps")) % he == 0:
+            self._kv_drift.publish(m, self._kv_drift.update(self.state))
 
     def _free(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -436,6 +605,7 @@ class DecodeEngine:
         m.counter("engine.completed").inc()
         m.counter("engine.tokens_generated").inc(len(toks))
         self.slots[idx] = None
+        m.gauge("engine.slot_occupancy").set(len(self._occupied()))
         self._each_cache(lambda c: c.evict(idx))
         if self._paged:
             pages = self._slot_pages[idx]
@@ -445,6 +615,14 @@ class DecodeEngine:
                 # prefix pages alive for later requests
                 self._clear_freed(self.pool.release(pages))
             self._set_pool_gauges()
+        if self.trace is not None:
+            ts, track = self.trace.now(), obs_trace.req_track(rid)
+            self.trace.instant("complete", track=track, ts=ts, rid=rid,
+                               tokens=len(slot.gen), iteration=now)
+            self.trace.span("request", slot.ts_admit, ts, track=track,
+                            rid=rid, prompt_len=slot.req.prompt_len,
+                            tokens=len(slot.gen), slot=idx)
+            self.trace.instant("evict", track=track, rid=rid, slot=idx)
 
     def _mark_done(self, idx: int, now: int) -> None:
         """Sequence finished: free immediately (continuous) or hold the slot
@@ -456,17 +634,26 @@ class DecodeEngine:
     def _admit(self, req: Request, idx: int, now: int) -> None:
         if self._paged:
             return self._admit_paged(req, idx, now)
-        tokens = torch.as_tensor(np.asarray(req.tokens, np.int32),
-                                 device=self.device)[None, :]
+        toks = np.asarray(req.tokens, np.int32)
+        plen = req.prompt_len
+        if self._bucket:
+            blen = min(bucket_length(plen, self.ecfg.bucket_min),
+                       self.ecfg.cache_len)
+            if blen > plen:
+                toks = np.pad(toks, (0, blen - plen))
+        tokens = torch.as_tensor(toks, device=self.device)[None, :]
+        ts_admit = self._now()
         t0 = time.perf_counter()
-        logits, row = self.adapter.prefill(self.params, tokens,
-                                           prefill_cap=self.ecfg.cache_len)
+        logits, row = self.adapter.prefill(
+            self.params, tokens, prefill_cap=self.ecfg.cache_len,
+            true_len=plen if self._bucket else None)
         _insert(self.state, self.adapter.state_per_slot(row), idx)
         tok, margin = self._pick(logits)
         self._fence()
-        self._prefill_shapes.add(req.prompt_len)
-        self._admitted(req, idx, now, time.perf_counter() - t0,
-                       req.prompt_len, int(tok[0]), float(margin[0]))
+        dt = time.perf_counter() - t0
+        self._prefill_shapes.add(len(toks))
+        self._admitted(req, idx, now, ts_admit, dt, plen, len(toks),
+                       int(tok[0]), float(margin[0]))
 
     def _admit_paged(self, req: Request, idx: int, now: int) -> None:
         """Paged admission: the longest registered page-aligned prefix
@@ -492,6 +679,7 @@ class DecodeEngine:
             raise
         self._clear_freed(freed)
         table_row = shared + fresh
+        ts_admit = self._now()
         t0 = time.perf_counter()
         row = torch.as_tensor(table_row, dtype=torch.int32, device=self.device)
         self._each_cache(lambda c: c.map_slot(idx, row))
@@ -509,8 +697,8 @@ class DecodeEngine:
                 self.state)
         tok, margin = self._pick(logits)
         self._fence()
-        self._prefill_shapes.add(chunk_len)
         dt = time.perf_counter() - t0
+        self._prefill_shapes.add(chunk_len)
         # register the prompt's own full-page chains: the next prompt that
         # shares them prefills only its suffix
         k_full = plen // ps
@@ -522,13 +710,17 @@ class DecodeEngine:
             m.counter("engine.prefill_flops_saved").inc(
                 hit_tokens * self._flops_per_token)
         self._set_pool_gauges()
-        self._admitted(req, idx, now, dt, plen - hit_tokens, int(tok[0]),
-                       float(margin[0]))
+        self._admitted(req, idx, now, ts_admit, dt, plen - hit_tokens,
+                       plen - hit_tokens, int(tok[0]), float(margin[0]),
+                       hit=(len(shared), hit_tokens))
 
-    def _admitted(self, req: Request, idx: int, now: int, dt: float,
-                  prefilled: int, first: int, margin: float) -> None:
-        """Bookkeeping of an admission whose prefill took ``dt`` seconds
-        and ran ``prefilled`` prompt tokens."""
+    def _admitted(self, req: Request, idx: int, now: int, ts_admit: float,
+                  dt: float, prefilled: int, shape: int, first: int,
+                  margin: float, hit=(0, 0)) -> None:
+        """Bookkeeping of an admission whose prefill started at trace time
+        ``ts_admit``, took ``dt`` seconds and ran ``prefilled`` prompt
+        tokens (``shape`` tokens with padding); ``hit`` is the (pages,
+        tokens) of a paged prefix hit."""
         self.margins[req.rid] = [margin]
         m = self.metrics
         m.counter("engine.t_prefill_s").inc(dt)
@@ -536,13 +728,76 @@ class DecodeEngine:
         m.counter("engine.prefill_tokens").inc(prefilled)
         m.counter("engine.admitted").inc()
         m.gauge("engine.prefill_compiles").set(len(self._prefill_shapes))
+        self._set_reuse_gauge()
         m.histogram("engine.prefill_ms").observe(dt * 1e3)
         # the first token comes from the prefill logits: TTFT for an admitted
         # request is the fenced prefill time (queue wait is the scheduler's)
         m.histogram("engine.ttft_ms").observe(dt * 1e3)
-        self.slots[idx] = _Slot(req, first, now)
+        self._publish_routes()
+        obs_health.attribute_latency(
+            m, "matmul", dispatch.dominant_route(m), dt)
+        self.slots[idx] = _Slot(req, first, now, ts_admit, ts_admit + dt)
+        m.gauge("engine.slot_occupancy").set(len(self._occupied()))
+        if self.trace is not None:
+            track = obs_trace.req_track(req.rid)
+            pages, hit_tokens = hit
+            self.trace.instant(
+                "admit", track=track, ts=ts_admit, rid=req.rid, slot=idx,
+                prompt_len=req.prompt_len, iteration=now,
+                **({"prefix_hit_tokens": hit_tokens} if self._paged else {}))
+            if hit_tokens:
+                # a remap is not a prefill: the event carries what the page
+                # hit skipped, so reconcile can tell the two apart
+                self.trace.instant(
+                    "prefix_hit", track=track, ts=ts_admit, rid=req.rid,
+                    pages_reused=pages, tokens=hit_tokens,
+                    flops_saved=hit_tokens * self._flops_per_token)
+            self.trace.span("prefill", ts_admit, ts_admit + dt, track=track,
+                            rid=req.rid, tokens=shape)
+            self.trace.instant("first_token", track=track, ts=ts_admit + dt,
+                               rid=req.rid, token=first)
         if req.max_new == 1 or first == self.ecfg.eos_id:
             self._mark_done(idx, now)
+
+    def _stepped(self, now: int, dt: float, live: List[int]) -> float:
+        """Bookkeeping shared by a decode step and a speculative round of
+        ``dt`` fenced seconds over the ``live`` slots; returns the trace
+        time at its end."""
+        m = self.metrics
+        m.counter("engine.t_decode_s").inc(dt)
+        m.counter("engine.decode_steps").inc()
+        m.counter("engine.slot_steps").inc(len(live))
+        m.counter("engine.padded_slot_steps").inc(len(self._occupied()))
+        self._set_reuse_gauge()
+        m.histogram("engine.decode_step_ms").observe(dt * 1e3)
+        self._publish_routes()
+        obs_health.attribute_latency(m, "decode_attn",
+                                     self.decode_attn_route, dt)
+        self._sample_health()
+        ts1 = self._now()
+        if self.trace is not None:
+            self.trace.span("decode_step", ts1 - dt, ts1, slots=len(live),
+                            iteration=now)
+        return ts1
+
+    def _emit(self, i: int, toks, margins, ts1: float, now: int) -> None:
+        """Slot ``i`` emits ``toks`` (with their top-2 margins) at trace
+        time ``ts1``."""
+        s = self.slots[i]
+        s.gen.extend(toks)
+        self.margins[s.req.rid].extend(margins)
+        s.next_tok = toks[-1]
+        s.next_pos += len(toks)
+        self.metrics.histogram("engine.itl_ms").observe(
+            (ts1 - s.ts_last_token) * 1e3)
+        s.ts_last_token = ts1
+        if self.trace is not None:
+            track = obs_trace.req_track(s.req.rid)
+            for t in toks:
+                self.trace.instant("token", track=track, ts=ts1,
+                                   rid=s.req.rid, token=t, iteration=now)
+        if len(s.gen) >= s.req.max_new or s.next_tok == self.ecfg.eos_id:
+            self._mark_done(i, now)
 
     def _decode_step(self, now: int) -> None:
         n = self.ecfg.slots
@@ -560,23 +815,9 @@ class DecodeEngine:
             torch.as_tensor(pos, device=self.device), self.state)
         nxt, margin = self._pick(logits)
         self._fence()
-        dt = time.perf_counter() - t0
-        m = self.metrics
-        m.counter("engine.t_decode_s").inc(dt)
-        m.counter("engine.decode_steps").inc()
-        m.counter("engine.slot_steps").inc(len(live))
-        m.counter("engine.padded_slot_steps").inc(len(self._occupied()))
-        m.histogram("engine.decode_step_ms").observe(dt * 1e3)
-        itl = m.histogram("engine.itl_ms")
+        ts1 = self._stepped(now, time.perf_counter() - t0, live)
         for i in live:
-            s = self.slots[i]
-            s.gen.append(int(nxt[i]))
-            self.margins[s.req.rid].append(float(margin[i]))
-            s.next_tok = int(nxt[i])
-            s.next_pos += 1
-            itl.observe(dt * 1e3)
-            if len(s.gen) >= s.req.max_new or nxt[i] == self.ecfg.eos_id:
-                self._mark_done(i, now)
+            self._emit(i, [int(nxt[i])], [float(margin[i])], ts1, now)
 
     # -- self-speculative decode --------------------------------------------
     def _spec_draft_body(self, steps: int, tok, pos, state):
@@ -620,14 +861,22 @@ class DecodeEngine:
         state = lm.rollback_decode_state(state, cut)
         return targets, top2[..., 0] - top2[..., 1], a, emit, state
 
-    def _spec_fused(self, steps: int, tok, pos, remaining, state):
+    def _spec_fused(self, steps: int, tok, pos, remaining, state,
+                    marks: Optional[_PhaseMarks] = None):
         """One whole round on the device, with no host synchronisation:
-        the draft steps, the verify pass, acceptance and rollback. Returns
-        ((n, 2 * (steps + 1) + 2) float64: targets, margins, accepted and
-        emitted per slot, for one read), state)."""
+        the draft steps, the verify pass, acceptance and rollback; ``marks``
+        (if given) is marked before the draft, between the parts and after
+        the verify. Returns ((n, 2 * (steps + 1) + 2) float64: targets,
+        margins, accepted and emitted per slot, for one read), state)."""
+        if marks is not None:
+            marks.mark()
         drafts, state = self._spec_draft_body(steps, tok, pos, state)
+        if marks is not None:
+            marks.mark()
         targets, margins, a, emit, state = self._spec_verify_fn(
             tok, drafts, pos, remaining, state)
+        if marks is not None:
+            marks.mark()
         f = torch.float64      # holds the token ids and counts exactly
         return torch.cat([targets.to(f), margins.to(f), a[:, None].to(f),
                           emit[:, None].to(f)], dim=1), state
@@ -649,37 +898,43 @@ class DecodeEngine:
             toks[i, 0] = s.next_tok
             pos[i] = s.next_pos
             remaining[i] = s.req.max_new - len(s.gen)
+        marks = _PhaseMarks(self.device) if self.trace is not None else None
         t0 = time.perf_counter()
         out, self.state = self._spec_fused(
             k, *(torch.as_tensor(a, device=self.device)
-                 for a in (toks, pos, remaining)), self.state)
+                 for a in (toks, pos, remaining)), self.state, marks)
         host = out.cpu().numpy()            # the round's one read
         self._fence()
         dt = time.perf_counter() - t0
         tgt, marg = host[:, :k + 1].astype(np.int64), host[:, k + 1:2 * k + 2]
         acc, emit = host[:, -2].astype(np.int64), host[:, -1].astype(np.int64)
         m = self.metrics
-        m.counter("engine.t_decode_s").inc(dt)
-        m.counter("engine.decode_steps").inc()
-        m.counter("engine.slot_steps").inc(len(live))
-        m.counter("engine.padded_slot_steps").inc(len(self._occupied()))
         m.counter("spec.rounds").inc()
         m.counter("spec.draft_tokens").inc(k * len(live))
         m.counter("spec.accepted_tokens").inc(int(acc[live].sum()))
-        m.histogram("engine.decode_step_ms").observe(dt * 1e3)
-        itl = m.histogram("engine.itl_ms")
+        accept_len = m.histogram("spec.accept_len")
+        for i in live:
+            accept_len.observe(float(acc[i]))
+        ts1 = self._stepped(now, dt, live)
+        if self.trace is not None:
+            # the draft part's device time, read after the fence, inside
+            # the round's fenced time
+            t_draft = min(marks.seconds(0, 1), dt)
+            self.trace.span("spec_draft", ts1 - dt, ts1 - dt + t_draft,
+                            slots=len(live), k=k, iteration=now)
+            self.trace.span("spec_verify_phase", ts1 - dt + t_draft, ts1,
+                            slots=len(live), iteration=now,
+                            device_s=marks.seconds(1, 2))
+            self.trace.instant("spec_verify", ts=ts1, drafted=k * len(live),
+                               accepted=int(acc[live].sum()),
+                               emitted=int(emit[live].sum()), iteration=now)
         for i in live:
             s = self.slots[i]
             s.spec_drafted += k
             s.spec_accepted += int(acc[i])
             e = int(emit[i])
-            s.gen.extend(int(t) for t in tgt[i, :e])
-            self.margins[s.req.rid].extend(float(x) for x in marg[i, :e])
-            s.next_tok = int(tgt[i, e - 1])
-            s.next_pos += e
-            itl.observe(dt * 1e3)
-            if len(s.gen) >= s.req.max_new or s.next_tok == self.ecfg.eos_id:
-                self._mark_done(i, now)
+            self._emit(i, [int(t) for t in tgt[i, :e]],
+                       [float(x) for x in marg[i, :e]], ts1, now)
 
     # -- main loop ----------------------------------------------------------
     def step(self, now: int) -> bool:
@@ -707,6 +962,9 @@ class DecodeEngine:
         elif not self._occupied() and not self.scheduler.has_pending():
             return False
         self.metrics.counter("engine.iterations").inc()
+        self.monitor.check(self.metrics, self.trace)
+        if self.on_step is not None:
+            self.on_step(self.metrics)
         return True
 
     def run(self) -> Dict[int, Completion]:

@@ -16,8 +16,12 @@ The scheduler owns *which* request enters *which* slot *when*; the engine
 Prefill/decode interleave
 -------------------------
 Every engine iteration grants the scheduler ``prefill_chunk`` tokens of
-prefill bandwidth (``EngineConfig.prefill_chunk``, set explicitly: the
-port has no roofline model yet). Credit accrues while work is waiting, and a request is admitted
+prefill bandwidth (the chunk comes from
+``repro_torch.dist.roofline.suggest_prefill_chunk`` unless the engine is
+given one: the headroom between the decode step's memory/interconnect
+ceiling and its compute term, i.e. how many compute-bound prefill tokens
+ride along a memory-bound decode step for free). Credit accrues while
+work is waiting, and a request is admitted
 once its prompt cost is covered — a prompt longer than the chunk therefore
 spreads its admission over ``ceil(prompt / chunk)`` iterations, which is
 exactly the stall pattern of chunked prefill without needing a separate

@@ -7,21 +7,40 @@ self-speculatively: a uniform ``--draft-bits`` repack of the same weights
 proposes K tokens per round and the searched policy verifies them in one
 multi-token pass (greedy only, int8 KV, either layout).
 
-The weights are the port's seeded random initialisation (no checkpoint of a
-published model ships with the repository); the policy is a searched
-``MPQPolicy`` json, e.g. one the reference package wrote with ``serve
---write-demo-policy``, or ``demo_mixed_policy`` when none is given.
+The weights are the port's seeded random initialisation (``--seed``; no
+checkpoint of a published model ships with the repository); the policy is a
+searched ``MPQPolicy`` json, e.g. one ``--write-demo-policy`` wrote, or
+``demo_mixed_policy`` when none is given. ``--uniform-bits B`` serves the
+fake-quant training graph at uniform B bits instead (fp KV), the reference
+package's path without ``--policy``.
+
+The engine budgets prefill from the roofline model of its own decode step
+(``dist.roofline.suggest_prefill_chunk``) on the H100 envelope, or on a
+measured device table (``--chip-table``, as ``obs.calibrate`` writes it).
+``--compare`` serves the same requests again under the fixed schedule and
+checks the tokens (identical for token-at-a-time decode; on every decisive
+step for speculation, whose rounds take other shapes under the other
+schedule) and counts the decode steps continuous batching saved; it also
+gates the request-lifecycle trace against the engine's counters
+(``check_trace``) and replays the measured timings against the roofline
+(``calibration_report``). ``--smoke`` serves the arch's reduced config and
+implies ``--compare --stagger``. ``--check`` also gates the greedy tokens
+against the fake-quant reference engine on decisive steps. The trace, the
+metrics snapshot and a periodic metrics stream with a Prometheus dump are
+written with ``--trace-out``, ``--metrics-out`` and ``--metrics-stream``.
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device and without ``--device cpu`` it raises rather than run on the CPU.
 
 Examples:
   python -m repro_torch.launch.serve --requests 8 --slots 4 \
-      --prompt-len 256 --gen 32 --cache-len 320
-  python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+      --prompt-len 256 --gen 32 --cache-len 320 --compare --stagger
+  python -m repro_torch.launch.serve --smoke --device cpu \
+      --trace-out out/trace.json --metrics-stream out/metrics.jsonl
   python -m repro_torch.launch.serve --smoke --device cpu --kv-layout paged \
       --check --stagger
-  python -m repro_torch.launch.serve --policy searched.json --check
+  python -m repro_torch.launch.serve --write-demo-policy searched.json
+  python -m repro_torch.launch.serve --policy searched.json --explain-policy
   python -m repro_torch.launch.serve --smoke --device cpu --speculate 4 \
       --draft-bits 2
 """
@@ -29,7 +48,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional
+import json
+import os
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,15 +61,10 @@ from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch.engine import DecodeEngine, EngineConfig, \
     check_kv_layout, check_speculate, decisive_prefix
-from repro_torch.launch.scheduler import Request
+from repro_torch.launch.scheduler import POLICIES, Request
 from repro_torch.models import lm
 from repro_torch.models.quant_layers import QuantContext
 from repro_torch.runtime import dispatch
-
-
-# prefill tokens the scheduler grants per iteration (the reference derives
-# it from its TPU roofline model, which the port does not have yet)
-PREFILL_CHUNK = 128
 
 
 def resolve_device(name: Optional[str]) -> torch.device:
@@ -58,49 +74,6 @@ def resolve_device(name: Optional[str]) -> torch.device:
         raise RuntimeError("no CUDA device: pass --device cpu to run the "
                            "plain versions on the CPU")
     return dev
-
-
-def build_requests(data, n, prompt_len, gen, *, stagger=False,
-                   share_prefix=0) -> List[Request]:
-    """A deterministic request set from the synthetic corpus; ``stagger``
-    varies prompt/generation lengths across requests; ``share_prefix``
-    overwrites the first that many tokens of every prompt with request 0's
-    (the shared-system-prompt traffic the paged layout's prefix reuse
-    serves)."""
-    reqs = []
-    base = None
-    for i in range(n):
-        p, g = prompt_len, gen
-        if stagger:
-            p = max(4, prompt_len - 3 * (i % 4))
-            g = max(2, gen - 2 * (i % 3))
-        toks = data.batch(i, 1, p)["tokens"][0]
-        if share_prefix:
-            toks = np.asarray(toks).copy()
-            if base is None:
-                base = toks[:share_prefix].copy()
-            k = min(share_prefix, len(toks))
-            toks[:k] = base[:k]
-        reqs.append(Request(rid=i, tokens=toks, max_new=g))
-    return reqs
-
-
-def demo_mixed_policy(cfg, meta=None) -> MPQPolicy:
-    """A mixed MPQPolicy cycling the searched widths over the arch's QLayer
-    table -- a deterministic stand-in for an ILP search result (the same
-    assignment as the reference's ``demo_mixed_policy``)."""
-    ql = lm.enumerate_qlayers(cfg)
-    bits = sorted(int(b) for b in cfg.bits)
-    n = len(bits)
-    return MPQPolicy(
-        {q.name: bits[i % n] for i, q in enumerate(ql)},
-        {q.name: bits[(i + 1) % n] for i, q in enumerate(ql)},
-        meta=dict(meta or {}, kind="demo-mixed", arch=cfg.name))
-
-
-def make_context(cfg) -> QuantContext:
-    return QuantContext.make(cfg.bits, cfg.quant_act_signed,
-                             compute_dtype=torch.float32)
 
 
 def check_kv(kv: str, kv_layout: str) -> None:
@@ -136,35 +109,276 @@ def check_spec(cfg, speculate: int, draft_bits: int, *, kv: str = "int8",
         raise ValueError(f"--draft-bits must be in [2, 8], got {draft_bits}")
 
 
+@dataclasses.dataclass
+class ServeConfig:
+    """The serving flags as one typed, validated object: ``main()`` builds
+    it from argparse (``from_args``), tests build it directly, and every
+    engine of a run takes its ``EngineConfig`` from ``engine_config()``.
+    Route-shaped fields validate against ``runtime.dispatch.ROUTES`` at
+    construction."""
+
+    arch: str = "qwen3-0.6b"
+    requests: int = 8
+    slots: int = 4
+    prompt_len: int = 32
+    gen: int = 16
+    cache_len: int = 0          # 0 = prompt + gen
+    prefill_chunk: int = 0      # prefill tokens per iteration; 0 = roofline
+    schedule: str = "continuous"
+    stagger: bool = False
+    arrive_every: int = 0
+    policy_path: Optional[str] = None   # None: demo_mixed_policy
+    kv: str = "int8"            # int8 | fp: the packed session's KV rows
+    kv_layout: str = "ring"     # ring | paged (dispatch.ROUTES registry)
+    page_size: int = 8          # tokens per KV page (paged only)
+    decode_attn: str = "auto"   # auto | a dispatch decode_attn route
+    bucket: bool = True         # prompt-length bucketing (ring only)
+    chip_table: Optional[str] = None  # measured device table json (roofline)
+    speculate: int = 0          # self-speculative draft length k (0 = off)
+    draft_bits: int = 2         # draft policy weight bits (--speculate)
+    sampling: str = "greedy"    # token selection; only greedy exists
+    seed: int = 0               # lm.init_params seed
+    trace: bool = True          # record the request-lifecycle trace
+
+    def __post_init__(self):
+        if self.schedule not in POLICIES:
+            raise ValueError(
+                f"unknown schedule {self.schedule!r}; known: {POLICIES}")
+        check_kv(self.kv, self.kv_layout)
+        if self.decode_attn != "auto":
+            dispatch.ROUTES.validate("decode_attn", self.decode_attn)
+        if self.speculate < 0:
+            raise ValueError(f"--speculate must be >= 0, got {self.speculate}")
+        if self.sampling != "greedy":
+            raise ValueError(
+                f"unknown sampling mode {self.sampling!r}; the engine "
+                "decodes greedily (argmax)")
+
+    @property
+    def resolved_cache_len(self) -> int:
+        return self.cache_len or (self.prompt_len + self.gen)
+
+    @property
+    def session_kv(self) -> str:
+        """KV storage mode for the packed session (``--kv`` normalized)."""
+        return "none" if self.kv == "fp" else "int8"
+
+    @classmethod
+    def from_args(cls, args) -> "ServeConfig":
+        return cls(
+            arch=args.arch, requests=args.requests, slots=args.slots,
+            prompt_len=args.prompt_len, gen=args.gen,
+            cache_len=args.cache_len, schedule=args.schedule,
+            stagger=args.stagger, arrive_every=args.arrive_every,
+            policy_path=args.policy, kv=args.kv, kv_layout=args.kv_layout,
+            page_size=args.page_size, decode_attn=args.decode_attn,
+            bucket=not args.no_bucket, chip_table=args.chip_table,
+            speculate=args.speculate, draft_bits=args.draft_bits,
+            seed=args.seed, trace=not args.no_trace)
+
+    @property
+    def chip(self):
+        """``--chip-table`` resolved to a calibrated ``ChipSpec`` (cached);
+        None without a table."""
+        if self.chip_table is None:
+            return None
+        if not hasattr(self, "_chip"):
+            self._chip = load_chip_table(self.chip_table)
+        return self._chip
+
+    def engine_config(self, *, kv_quant: Optional[str] = None,
+                      schedule: Optional[str] = None,
+                      layout: Optional[str] = None,
+                      calibrated: bool = True,
+                      speculate: int = 0) -> EngineConfig:
+        """An ``EngineConfig`` for one engine of this serving run.
+
+        ``kv_quant`` defaults to the packed session's storage mode; a
+        non-int8 engine (the fp path, the fake-quant graph) serves through
+        the ring layout: pages hold int8 codes. ``calibrated=False`` keeps
+        the default ``ChipSpec`` even when a ``--chip-table`` is loaded.
+        ``speculate`` is opt-in per engine: only the measured speculative
+        engine drafts."""
+        kv = self.session_kv if kv_quant is None else kv_quant
+        lay = self.kv_layout if layout is None else layout
+        if kv != "int8":
+            lay = "ring"
+        ecfg = EngineConfig(
+            slots=self.slots, cache_len=self.resolved_cache_len,
+            prefill_chunk=self.prefill_chunk,
+            policy=schedule or self.schedule, kv_quant=kv, kv_layout=lay,
+            page_size=self.page_size, bucket_prompts=self.bucket,
+            trace=self.trace, speculate=speculate)
+        if calibrated and self.chip is not None:
+            ecfg = dataclasses.replace(ecfg, chip=self.chip)
+        return ecfg
+
+
+def build_requests(data, n, prompt_len, gen, *, stagger=False,
+                   arrive_every=0, share_prefix=0) -> List[Request]:
+    """A deterministic request set from the synthetic corpus. ``stagger``
+    varies prompt/generation lengths across requests (the traffic
+    continuous batching wins on); ``arrive_every`` spaces arrivals out by
+    that many engine iterations; ``share_prefix`` overwrites the first that
+    many tokens of every prompt with request 0's (the shared-system-prompt
+    traffic the paged layout's prefix reuse serves)."""
+    reqs = []
+    base = None
+    for i in range(n):
+        p, g = prompt_len, gen
+        if stagger:
+            p = max(4, prompt_len - 3 * (i % 4))
+            g = max(2, gen - 2 * (i % 3))
+        toks = data.batch(i, 1, p)["tokens"][0]
+        if share_prefix:
+            toks = np.asarray(toks).copy()
+            if base is None:
+                base = toks[:share_prefix].copy()
+            k = min(share_prefix, len(toks))
+            toks[:k] = base[:k]
+        reqs.append(Request(rid=i, tokens=toks, max_new=g,
+                            arrival=i * arrive_every))
+    return reqs
+
+
+def load_chip_table(path: str):
+    """``--chip-table`` loader: a measured device-table json (a bare
+    stanza, or an object with a ``device_table`` key, as
+    ``calibration_report`` results are written) -> calibrated
+    ``ChipSpec``."""
+    from repro_torch.dist import roofline
+
+    with open(path) as f:
+        table = json.load(f)
+    if "device_table" in table:
+        table = table["device_table"]
+    try:
+        return roofline.chip_from_table(table)
+    except ValueError as e:
+        raise SystemExit(f"--chip-table {path}: {e}")
+
+
+def demo_mixed_policy(cfg, meta=None) -> MPQPolicy:
+    """A mixed MPQPolicy cycling the searched widths over the arch's QLayer
+    table -- a deterministic stand-in for an ILP search result (the same
+    assignment as the reference's ``demo_mixed_policy``), with a
+    descriptive ``SolveReport`` (zero importance, real costs) embedded under
+    ``meta["solve_report"]``, so ``--explain-policy`` renders it."""
+    from repro_torch.core import ilp
+
+    ql = lm.enumerate_qlayers(cfg)
+    bits = sorted(int(b) for b in cfg.bits)
+    n = len(bits)
+    policy = MPQPolicy(
+        {q.name: bits[i % n] for i, q in enumerate(ql)},
+        {q.name: bits[(i + 1) % n] for i, q in enumerate(ql)},
+        meta=dict(meta or {}, kind="demo-mixed", arch=cfg.name))
+    report = ilp.describe_policy_report(ql, policy, bits,
+                                        meta={"kind": "demo-mixed",
+                                              "arch": cfg.name})
+    policy.meta["solve_report"] = report.to_json()
+    return policy
+
+
+def write_demo_policy(path, arch="qwen3-0.6b", smoke=True) -> MPQPolicy:
+    """Write a ``demo_mixed_policy`` json (``--write-demo-policy``), so the
+    ``--policy`` path can be served without running the search."""
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    policy = demo_mixed_policy(cfg, meta={"smoke": smoke})
+    policy.save(path)
+    print(f"wrote demo policy for {cfg.name} ({len(policy.w_bits)} layers) "
+          f"-> {path}")
+    return policy
+
+
+def explain_policy(args, cfg):
+    """``--explain-policy``: render the ILP audit trail of ``--policy`` as
+    a per-layer table (importance, chosen bits, bytes, binding constraint)
+    and exit. The report is the policy's embedded ``SolveReport``; a policy
+    without one gets a descriptive report rebuilt from its bit assignment
+    (zero importance, measured costs). A PATH argument also writes the
+    report json there."""
+    from repro_torch.core import ilp
+
+    policy = MPQPolicy.load(args.policy)
+    raw = (policy.meta or {}).get("solve_report")
+    if raw is not None:
+        report = ilp.SolveReport.from_json(raw)
+    else:
+        ql = lm.enumerate_qlayers(cfg)
+        try:
+            policy.validate(ql)
+        except ValueError as e:
+            raise SystemExit(
+                f"--explain-policy: {args.policy} has no embedded "
+                f"solve_report and does not match arch {cfg.name!r} "
+                f"(did you mix --smoke and full variants?): {e}")
+        report = ilp.describe_policy_report(
+            ql, policy, sorted(int(b) for b in cfg.bits),
+            meta={"arch": cfg.name, "policy_path": args.policy})
+    print(report.render_table())
+    if args.explain_policy != "-":
+        _ensure_dir(args.explain_policy)
+        report.save(args.explain_policy)
+        print(f"solve report -> {args.explain_policy}")
+    return report
+
+
+def make_context(cfg) -> QuantContext:
+    return QuantContext.make(cfg.bits, cfg.quant_act_signed,
+                             compute_dtype=torch.float32)
+
+
+def build_session(cfg, params, policy: MPQPolicy, *, kv: str = "int8",
+                  speculate: int = 0, draft_bits: int = 2):
+    """Pack ``policy`` into a ``QuantizedSession`` (a ``SpecSession`` with
+    its ``draft_bits`` draft pack when ``speculate`` > 0)."""
+    from repro_torch.runtime.session import QuantizedSession, SpecSession
+    kv_quant = "int8" if kv == "int8" else "none"
+    if speculate:
+        return SpecSession(cfg, params, policy, make_context(cfg),
+                           kv_quant=kv_quant, draft_w_bits=draft_bits)
+    return QuantizedSession(cfg, params, policy, make_context(cfg),
+                            kv_quant=kv_quant)
+
+
 def serve_quantized(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
-                    cache_len: int, prefill_chunk: int, device=None,
+                    cache_len: int, prefill_chunk: int = 0, device=None,
                     kv: str = "int8", kv_layout: str = "ring",
                     page_size: int = 8, speculate: int = 0,
                     draft_bits: int = 2):
-    """Pack ``policy`` into a ``QuantizedSession`` (a ``SpecSession`` with
-    its ``draft_bits`` draft pack when ``speculate`` > 0) and serve
-    ``reqs`` through the engine over a ``kv`` ring KV cache or the paged
-    int8 layout. Returns (session, engine, completions)."""
-    from repro_torch.runtime.session import QuantizedSession, SpecSession
-    check_kv(kv, kv_layout)
+    """Pack ``policy`` (``build_session``) and serve ``reqs`` through the
+    engine over a ``kv`` ring KV cache or the paged int8 layout
+    (``prefill_chunk`` 0: the roofline budget). Returns (session, engine,
+    completions)."""
     check_spec(cfg, speculate, draft_bits, kv=kv)
-    kv_quant = "int8" if kv == "int8" else "none"
-    if speculate:
-        sess = SpecSession(cfg, params, policy, make_context(cfg),
-                           kv_quant=kv_quant, draft_w_bits=draft_bits)
-    else:
-        sess = QuantizedSession(cfg, params, policy, make_context(cfg),
-                                kv_quant=kv_quant)
-    eng = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
-                       device=device,
-                       ecfg=EngineConfig(slots=slots, cache_len=cache_len,
-                                         prefill_chunk=prefill_chunk,
-                                         kv_quant=kv_quant,
-                                         kv_layout=kv_layout,
-                                         page_size=page_size,
-                                         speculate=speculate))
+    scfg = ServeConfig(arch=cfg.name, slots=slots, cache_len=cache_len,
+                       prefill_chunk=prefill_chunk, kv=kv,
+                       kv_layout=kv_layout, page_size=page_size,
+                       bucket=False, speculate=speculate,
+                       draft_bits=draft_bits)
+    sess = build_session(cfg, params, policy, kv=kv, speculate=speculate,
+                         draft_bits=draft_bits)
+    eng, out = run_engine(None, cfg, None, sess.ctx, reqs, scfg=scfg,
+                          device=device, adapter=sess, speculate=speculate)
+    return sess, eng, out
+
+
+def run_engine(params, cfg, bits, ctx, reqs, *, scfg: ServeConfig, device,
+               schedule: Optional[str] = None, adapter=None,
+               calibrated: bool = True, speculate: int = 0, on_step=None):
+    """Build one engine of this serving run and drain ``reqs`` through it:
+    the packed session ``adapter`` (its KV mode and layout), or without
+    one the fake-quant graph at ``bits`` with fp KV rows. Returns (engine,
+    completions)."""
+    ecfg = scfg.engine_config(kv_quant=None if adapter is not None
+                              else "none", schedule=schedule,
+                              calibrated=calibrated, speculate=speculate)
+    eng = DecodeEngine(params if adapter is None else adapter.params, cfg,
+                       bits, ctx, adapter=adapter, device=device, ecfg=ecfg)
+    eng.on_step = on_step
     eng.submit_all(reqs)
-    return sess, eng, eng.run()
+    return eng, eng.run()
 
 
 def token_at_a_time(sess, cfg, reqs, eng):
@@ -200,7 +414,7 @@ def compare_spec(out, base, base_out, min_margin: float = 1e-2):
 
 
 def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
-                     cache_len: int, prefill_chunk: int, device=None,
+                     cache_len: int, prefill_chunk: int = 0, device=None,
                      compute_dtype=torch.float32, kv: str = "int8"):
     """The fake-quant graph (``LMAdapter``) through the same engine (ring
     layout), with int8 KV slots referenced as quantize-dequantize in fp
@@ -261,97 +475,200 @@ def check_greedy(cfg, params, policy, reqs, out, **kw):
 
 
 def print_stats(label: str, eng) -> None:
+    """One line of the epoch's ``EngineStats`` and its prefill budget, then
+    the monitor's alerts."""
     d = eng.stats.as_dict()
     keys = ("decode_steps", "prefill_calls", "prefill_tokens",
             "tokens_generated",
             "prefill_p50_ms", "decode_step_p50_ms", "decode_tokens_per_s",
-            "decode_attn_route", "act_quant_reused")
+            "decode_attn_route", "act_quant_reused", "alerts_fired")
     print(f"[{label}] " + " ".join(
         f"{k}={d[k]:.4g}" if isinstance(d.get(k), float) else f"{k}={d.get(k)}"
-        for k in keys if k in d))
+        for k in keys if k in d) + f" prefill_chunk={eng.prefill_chunk}")
+    for a in eng.monitor.alerts:
+        print(f"  ALERT[{a.severity}] {a.name}: {a.metric} {a.op} "
+              f"{a.threshold:g} (value {a.value:g})")
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-0.6b")
-    ap.add_argument("--smoke", action="store_true",
-                    help="the arch's reduced smoke config")
-    ap.add_argument("--policy", default=None,
-                    help="MPQPolicy json (default: demo_mixed_policy)")
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
-    ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--cache-len", type=int, default=0, help="0 = prompt+gen")
-    ap.add_argument("--stagger", action="store_true")
-    ap.add_argument("--kv", default="int8", choices=("int8", "fp"),
-                    help="KV-cache storage")
-    ap.add_argument("--kv-layout", default="ring",
-                    choices=dispatch.ROUTES.routes("kv_layout"),
-                    help="ring = per-slot ring buffers; paged = pooled "
-                         "fixed-size int8 pages with shared-prefix remapping "
-                         "and chunked append prefill (prompts then share "
-                         "their first prompt-len // 2 tokens)")
-    ap.add_argument("--page-size", type=int, default=8,
-                    help="tokens per KV page (--kv-layout paged)")
-    ap.add_argument("--speculate", type=int, default=0, metavar="K",
-                    help="self-speculative decoding: a uniform --draft-bits "
-                         "repack of the same packed weights proposes K "
-                         "tokens per round and the searched policy verifies "
-                         "them in one multi-token pass (needs --policy or "
-                         "--smoke, --kv int8)")
-    ap.add_argument("--draft-bits", type=int, default=2,
-                    help="weight bits of the draft pack (--speculate); one "
-                         "of the arch's searched widths")
-    ap.add_argument("--check", action="store_true",
-                    help="also run the fake-quant reference engine (float32 "
-                         "and float64) and compare greedy tokens on decisive "
-                         "steps (check_greedy)")
-    args = ap.parse_args(argv)
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    try:
-        check_kv(args.kv, args.kv_layout)
-        check_kv_layout(cfg, args.kv_layout)
-        check_spec(cfg, args.speculate, args.draft_bits, kv=args.kv,
-                   policy_given=bool(args.policy) or args.smoke)
-    except (ValueError, NotImplementedError) as e:
-        raise SystemExit(str(e))
+def _ensure_dir(path: str) -> None:
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
 
-    dev = resolve_device(args.device)
-    policy = (MPQPolicy.load(args.policy) if args.policy
+
+def export_obs(args, eng) -> None:
+    """``--trace-out`` / ``--metrics-out`` artifacts of one engine's
+    epoch."""
+    if getattr(args, "trace_out", None):
+        if eng.trace is None:
+            raise SystemExit("--trace-out: engine tracing is disabled")
+        _ensure_dir(args.trace_out)
+        eng.trace.write(args.trace_out)
+        print(f"trace: {len(eng.trace.events)} events -> {args.trace_out}")
+    if getattr(args, "metrics_out", None):
+        _ensure_dir(args.metrics_out)
+        with open(args.metrics_out, "w") as f:
+            json.dump(eng.metrics.snapshot(), f, indent=1, sort_keys=True)
+        print(f"metrics: {len(eng.metrics)} series -> {args.metrics_out}")
+
+
+def make_streamer(args):
+    """``--metrics-stream``: the JSONL snapshot streamer (or None). Hook it
+    onto an engine with ``eng.on_step = streamer.tick``: the engine calls
+    it once per scheduler iteration."""
+    path = getattr(args, "metrics_stream", None)
+    if not path:
+        return None
+    from repro_torch.obs.export import MetricsStreamer
+
+    _ensure_dir(path)
+    return MetricsStreamer(path, interval_s=float(args.metrics_interval))
+
+
+def finish_stream(args, eng, streamer) -> None:
+    """Close the JSONL stream (force-emitting a final snapshot, so every
+    run yields >= 2 snapshots) and write a Prometheus text dump of the same
+    registry next to it (``<path>.prom``)."""
+    if streamer is None:
+        return
+    from repro_torch.obs.export import write_prometheus
+
+    streamer.close(eng.metrics)
+    prom = args.metrics_stream + ".prom"
+    text = write_prometheus(eng.metrics, prom)
+    print(f"metrics stream: {streamer.seq} snapshots -> "
+          f"{args.metrics_stream} | {len(text.splitlines())} prometheus "
+          f"lines -> {prom}")
+
+
+def check_trace(eng, label) -> None:
+    """Gate: the recorded lifecycle trace and the stats counters describe
+    the same run (``obs.trace.reconcile``)."""
+    from repro_torch.obs import trace as obs_trace
+    if eng.trace is None:
+        return
+    problems = obs_trace.reconcile(eng.trace, eng.stats.as_dict())
+    if problems:
+        raise SystemExit(f"{label}: trace/stats reconcile failed: "
+                         + "; ".join(problems))
+    print(f"{label}: trace reconciles with engine stats "
+          f"({len(eng.trace.events)} events)")
+
+
+def calibration_report(eng, cfg, *, gate=False):
+    """Replay the epoch's measured phase timings against the roofline
+    step-cost model the engine budgeted with (``obs.calibrate``), publish
+    the worst modeled-vs-measured factor for the drift watcher, and (with
+    ``gate``) fail on a non-finite or non-positive ratio."""
+    from repro_torch.obs import calibrate
+    from repro_torch.obs import health as obs_health
+    report = calibrate.calibrate(
+        cfg, eng.stats.as_dict(), slots=eng.ecfg.slots,
+        cache_tokens=eng.ecfg.cache_len, kv_bits=eng.kv_bits,
+        kv_attend=eng.kv_attend,
+        w_bits_total=getattr(eng.adapter, "w_bits_total", None),
+        chip=eng.ecfg.chip)
+    print("roofline calibration (measured vs modeled):")
+    print(calibrate.render_table(report["rows"]))
+    t = report["device_table"]
+    print(f"  measured device table: hbm_bytes_s={t['hbm_bytes_s']:.3e} "
+          f"peak_flops={t['peak_flops']:.3e} ({t['name']})")
+    eng.metrics.gauge(
+        "roofline.drift_max",
+        help="worst modeled-vs-measured phase cost factor").set(
+            obs_health.roofline_drift(report["rows"]))
+    eng.monitor.check(eng.metrics, eng.trace)
+    if gate and not report["finite"]:
+        raise SystemExit("roofline calibration produced a non-finite or "
+                         f"non-positive ratio: {report['rows']}")
+    return report
+
+
+def measured_epoch(args, cfg, eng, label: str, streamer):
+    """What follows a measured run: its stats, the trace and metrics
+    artifacts, under ``--smoke`` / ``--compare`` the trace and calibration
+    gates, then the metrics stream's close (after the calibration gauge
+    lands, so the last snapshot and the dump carry it). Returns the
+    calibration report (None without the gates)."""
+    print_stats(label, eng)
+    export_obs(args, eng)
+    report = None
+    if args.smoke or args.compare:
+        check_trace(eng, label)
+        report = calibration_report(eng, cfg, gate=True)
+    finish_stream(args, eng, streamer)
+    return report
+
+
+def compare_schedules(args, scfg: ServeConfig, eng, out, fixed, fixed_out):
+    """``--compare``: the continuous run ``eng``/``out`` against the same
+    requests under the fixed schedule. Token-at-a-time decode must give the
+    same tokens (every step runs all slots, so each row sees the same
+    shapes); speculative rounds take other shapes under the other schedule,
+    so there the tokens must agree on every decisive step
+    (``decisive_prefix``). Returns the decode steps saved."""
+    cont = eng.stats
+    saved = fixed.stats.decode_steps - cont.decode_steps
+    if eng.ecfg.speculate:
+        same, total, n, bad = compare_spec(out, fixed, fixed_out)
+        if bad:
+            raise SystemExit(f"token mismatch vs fixed batch on a decisive "
+                             f"step: rids {bad}")
+        what = (f"tokens equal the fixed batch's on {n} decisive steps "
+                f"({same} of {total} identical)")
+    else:
+        bad = [rid for rid, c in out.items()
+               if fixed_out[rid].tokens != c.tokens]
+        if bad:
+            raise SystemExit(f"token mismatch vs fixed batch: rids {bad}")
+        what = "token-identical with fixed batch"
+    print(f"{what}; {saved} decode steps saved ({cont.decode_steps} vs "
+          f"{fixed.stats.decode_steps})")
+    if scfg.chip is not None:
+        print(f"chip-table {scfg.chip_table}: calibrated prefill chunk "
+              f"{eng.prefill_chunk} vs default {fixed.prefill_chunk} -- "
+              "tokens identical, only the budget differs")
+    if args.smoke and args.stagger and not eng.ecfg.speculate and saved <= 0:
+        raise SystemExit("continuous batching saved no decode steps on a "
+                         "staggered schedule")
+    return saved
+
+
+def serve_packed(args, scfg: ServeConfig, cfg, params, reqs, dev):
+    """The packed path: ``--policy`` (or the demo policy) packed once and
+    served; the gates of ``--smoke``, ``--compare`` and ``--check``."""
+    from repro_torch.runtime.session import summarize
+
+    policy = (MPQPolicy.load(scfg.policy_path) if scfg.policy_path
               else demo_mixed_policy(cfg))
-    params = lm.init_params(cfg, seed=0, device=dev)
-    # paged serving shares half the prompt across requests, so the run
-    # exercises prefix remapping and not only the page pool
-    share = args.prompt_len // 2 if args.kv_layout == "paged" else 0
-    reqs = build_requests(SyntheticLM(cfg), args.requests, args.prompt_len,
-                          args.gen, stagger=args.stagger, share_prefix=share)
-    cache_len = args.cache_len or (args.prompt_len + args.gen)
-    kw = dict(slots=args.slots, cache_len=cache_len,
-              prefill_chunk=PREFILL_CHUNK, device=dev)
-    sess, eng, out = serve_quantized(cfg, params, policy, reqs, kv=args.kv,
-                                     kv_layout=args.kv_layout,
-                                     page_size=args.page_size,
-                                     speculate=args.speculate,
-                                     draft_bits=args.draft_bits, **kw)
-    print_stats("quantized", eng)
-    if args.kv_layout == "paged":
-        st = eng.stats
-        print(f"paged KV: {eng.pool.n_pages} pages x {args.page_size} tokens "
+    try:
+        sess = build_session(cfg, params, policy, kv=scfg.kv,
+                             speculate=scfg.speculate,
+                             draft_bits=scfg.draft_bits)
+    except ValueError as e:
+        raise SystemExit(f"--policy / --draft-bits: {e}")
+    streamer = make_streamer(args)
+    eng, out = run_engine(None, cfg, None, sess.ctx, reqs, scfg=scfg,
+                          device=dev, adapter=sess, speculate=scfg.speculate,
+                          on_step=streamer.tick if streamer else None)
+    res: Dict[str, Any] = dict(scfg=scfg, sess=sess, eng=eng, completions=out)
+    res["calibration"] = measured_epoch(args, cfg, eng,
+                                        f"quantized/{scfg.schedule}",
+                                        streamer)
+    st = eng.stats
+    if eng.ecfg.kv_layout == "paged":
+        print(f"paged KV: {eng.pool.n_pages} pages x {scfg.page_size} tokens "
               f"| {st.prefix_hit_tokens} prompt tokens from shared pages, "
               f"{st.prefill_flops_saved:.0f} prefill FLOPs saved | "
               f"{st.kv_unique_pages} pages in use | {st.prefill_compiles} "
               "prefill chunk shape(s)")
-    from repro_torch.runtime.session import summarize
     s = summarize(sess)
     print(f"packed weights: {s['packed_bytes']} B (+{s['scale_bytes']} B "
           f"scales) vs policy accounting {s['policy_bytes']:.0f} B "
-          f"(x{s['packed_vs_policy']:.3f}) on {dev}")
-    if args.speculate:
-        st = eng.stats
-        print(f"speculate k={args.speculate} draft_bits={args.draft_bits}: "
+          f"(x{s['packed_vs_policy']:.3f}) on {dev} | kv={s['kv_quant']} "
+          f"layout={eng.ecfg.kv_layout} decode-attn={eng.decode_attn_route}")
+    if scfg.speculate:
+        print(f"speculate k={scfg.speculate} draft_bits={scfg.draft_bits}: "
               f"{st.spec_rounds} rounds | drafted {st.spec_draft_tokens} "
               f"accepted {st.spec_accepted_tokens} (accept rate "
               f"{st.spec_accept_rate:.2f}) | draft pack {sess.draft_bytes()} B "
@@ -371,14 +688,220 @@ def main(argv=None):
                   f"identical; {st.decode_steps} spec rounds vs "
                   f"{base.stats.decode_steps} decode steps)")
     print("generated[rid=0]:", out[0].tokens)
+    if args.compare and scfg.schedule != "fixed":
+        fixed, fixed_out = run_engine(None, cfg, None, sess.ctx, reqs,
+                                      scfg=scfg, device=dev, adapter=sess,
+                                      schedule="fixed", calibrated=False,
+                                      speculate=scfg.speculate)
+        print_stats("quantized/fixed", fixed)
+        res.update(fixed=fixed, fixed_completions=fixed_out,
+                   saved=compare_schedules(args, scfg, eng, out, fixed,
+                                           fixed_out))
+    elif args.compare:
+        print("note: --compare has no effect with --schedule fixed "
+              "(nothing to compare the fixed path against)")
     if args.check:
-        n, bad, _ = check_greedy(cfg, params, policy, reqs, out, kv=args.kv,
-                                 **kw)
+        n, bad, _ = check_greedy(cfg, params, policy, reqs, out, kv=scfg.kv,
+                                 slots=scfg.slots,
+                                 cache_len=scfg.resolved_cache_len,
+                                 prefill_chunk=eng.prefill_chunk, device=dev)
         if bad:
             raise SystemExit(f"packed runtime diverged from the fake-quant "
                              f"reference on decisive steps: rids {bad}")
         print(f"greedy tokens equal the fake-quant reference on {n} "
               "decisive steps")
+    return res
+
+
+def serve_fake_quant(args, scfg: ServeConfig, cfg, params, reqs, dev):
+    """``--uniform-bits``: the fake-quant graph at uniform bits (fp KV), as
+    the reference package serves without ``--policy``; with ``--compare``
+    against the fixed schedule, then one int8 ``quant_matmul`` against its
+    fake-quant value on the first layer's ``wq``."""
+    from repro_torch.core.quantizer import bit_range
+
+    ql = lm.enumerate_qlayers(cfg)
+    policy = MPQPolicy.uniform(ql, args.uniform_bits)
+    bits = lm.bits_from_policy(cfg, policy)
+    ctx = make_context(cfg)
+    streamer = make_streamer(args)
+    eng, out = run_engine(params, cfg, bits, ctx, reqs, scfg=scfg, device=dev,
+                          on_step=streamer.tick if streamer else None)
+    res: Dict[str, Any] = dict(scfg=scfg, eng=eng, completions=out)
+    res["calibration"] = measured_epoch(args, cfg, eng, scfg.schedule,
+                                        streamer)
+    r0 = out[0]
+    print(f"generated[rid=0] ({r0.prompt_len}-token prompt):", r0.tokens)
+    if args.compare and scfg.schedule != "fixed":
+        fixed, fixed_out = run_engine(params, cfg, bits, ctx, reqs,
+                                      scfg=scfg, device=dev,
+                                      schedule="fixed", calibrated=False)
+        print_stats("fixed", fixed)
+        res.update(fixed=fixed, fixed_completions=fixed_out,
+                   saved=compare_schedules(args, scfg, eng, out, fixed,
+                                           fixed_out))
+    elif args.compare:
+        print("note: --compare has no effect with --schedule fixed "
+              "(nothing to compare the fixed path against)")
+    p0 = params.get("body", {}).get("0", {}).get("wq")
+    if p0 is not None:
+        w = p0["w"][0] if p0["w"].dim() == 3 else p0["w"]
+        s_w = (p0["s_w"][0] if p0["s_w"].dim() == 2 else p0["s_w"])[2:3]
+        qmin, qmax = bit_range(4, True)
+        wq = torch.clamp(torch.round(w / s_w), qmin, qmax).to(torch.int8)
+        gen = torch.Generator(device=dev).manual_seed(scfg.seed)
+        x = torch.randn((8, w.shape[0]), generator=gen, device=dev)
+        s_x = torch.full((1,), 0.05, device=dev)
+        xq = torch.clamp(torch.round(x / s_x), qmin, qmax).to(torch.int8)
+        kern = ops.quant_matmul(xq, wq, s_x, s_w)
+        ref = (xq.float() * s_x) @ (wq.float() * s_w)
+        res["int8_max_err"] = float((kern - ref).abs().max())
+        print(f"int8 quant_matmul vs fake-quant ref: "
+              f"max_err={res['int8_max_err']:.2e}")
+    return res
+
+
+def main(argv=None):
+    """The serve CLI. Returns what it served (the ``ServeConfig``, the
+    measured engine and its completions, the fixed-schedule engine under
+    ``--compare``, the calibration report), or None after
+    ``--write-demo-policy`` / ``--explain-policy``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config; implies "
+                         "--compare and --stagger and caps the request set")
+    ap.add_argument("--policy", default=None,
+                    help="MPQPolicy json (default: demo_mixed_policy)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", "--batch", type=int, default=4, dest="slots")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=0, help="0 = prompt+gen")
+    ap.add_argument("--schedule", default="continuous", choices=POLICIES)
+    ap.add_argument("--stagger", action="store_true")
+    ap.add_argument("--arrive-every", type=int, default=0,
+                    help="space request arrivals this many iterations apart")
+    ap.add_argument("--compare", action="store_true",
+                    help="also serve under the fixed schedule and check the "
+                         "tokens and the decode steps saved; gate the trace "
+                         "and the roofline calibration")
+    ap.add_argument("--kv", default="int8", choices=("int8", "fp"),
+                    help="KV-cache storage")
+    ap.add_argument("--kv-layout", default="ring",
+                    choices=dispatch.ROUTES.routes("kv_layout"),
+                    help="ring = per-slot ring buffers; paged = pooled "
+                         "fixed-size int8 pages with shared-prefix remapping "
+                         "and chunked append prefill (prompts then share "
+                         "their first prompt-len // 2 tokens)")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="tokens per KV page (--kv-layout paged)")
+    ap.add_argument("--decode-attn", default="auto",
+                    choices=("auto",) + dispatch.ROUTES.routes("decode_attn"),
+                    help="decode-attention route over the int8 KV cache: "
+                         "auto = fused (the CUDA kernel) on the card, "
+                         "dequant-fp on the CPU")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: a uniform --draft-bits "
+                         "repack of the same packed weights proposes K "
+                         "tokens per round and the searched policy verifies "
+                         "them in one multi-token pass (needs --policy or "
+                         "--smoke, --kv int8)")
+    ap.add_argument("--draft-bits", type=int, default=2,
+                    help="weight bits of the draft pack (--speculate); one "
+                         "of the arch's searched widths")
+    ap.add_argument("--no-bucket", action="store_true",
+                    help="disable prompt-length bucketing (ring layout)")
+    ap.add_argument("--chip-table", default=None, metavar="JSON",
+                    help="measured device table (obs.calibrate's "
+                         "device_table, bare or under a device_table key): "
+                         "budget the engine with that ChipSpec instead of "
+                         "the H100 envelope")
+    ap.add_argument("--explain-policy", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="render the --policy's ILP audit trail "
+                         "(SolveReport: per-layer importance, chosen bits, "
+                         "bytes, binding constraint) as a table and exit; "
+                         "a PATH argument also writes the report json")
+    ap.add_argument("--metrics-stream", default=None, metavar="PATH",
+                    help="append periodic JSONL metric snapshots while "
+                         "serving (one {ts, seq, metrics} object per line); "
+                         "a Prometheus text dump of the final registry "
+                         "lands at PATH.prom")
+    ap.add_argument("--metrics-interval", type=float, default=0.5,
+                    help="seconds between --metrics-stream snapshots")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the request-lifecycle trace of the measured "
+                         "run: .jsonl = one event per line, anything else = "
+                         "Chrome trace JSON (chrome://tracing / Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the engine metrics-registry snapshot (json)")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="record no request-lifecycle trace (the trace's "
+                         "own cost is the difference)")
+    ap.add_argument("--write-demo-policy", default=None, metavar="PATH",
+                    help="write a mixed demo MPQPolicy json and exit")
+    ap.add_argument("--uniform-bits", type=int, default=None, metavar="B",
+                    help="serve the fake-quant graph at uniform B bits (fp "
+                         "KV) instead of a packed policy")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights (lm.init_params)")
+    ap.add_argument("--check", action="store_true",
+                    help="also run the fake-quant reference engine (float32 "
+                         "and float64) and compare greedy tokens on decisive "
+                         "steps (check_greedy)")
+    args = ap.parse_args(argv)
+
+    if args.write_demo_policy:
+        # layer names depend on the config size: the policy is written for
+        # the variant (--smoke or full) it will serve
+        write_demo_policy(args.write_demo_policy, args.arch,
+                          smoke=args.smoke)
+        return None
+    if args.explain_policy is not None:
+        if not args.policy:
+            raise SystemExit("--explain-policy needs --policy <json> (the "
+                             "report explains a concrete bit assignment)")
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        explain_policy(args, cfg)
+        return None
+    if args.smoke:
+        if args.schedule == "fixed":
+            raise SystemExit("--smoke needs a continuous schedule: its gate "
+                             "compares the engine against the fixed path")
+        args.compare = True
+        args.stagger = True
+        args.requests = min(args.requests, 6)
+        args.prompt_len = min(args.prompt_len, 16)
+        args.gen = min(args.gen, 8)
+
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    try:
+        scfg = ServeConfig.from_args(args)
+        check_kv_layout(cfg, scfg.kv_layout)
+        check_spec(cfg, scfg.speculate, scfg.draft_bits, kv=scfg.kv,
+                   policy_given=bool(args.policy) or args.smoke)
+        if args.uniform_bits is not None and (args.policy or scfg.speculate):
+            raise ValueError("--uniform-bits serves the fake-quant graph: "
+                             "it takes neither --policy nor --speculate")
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e))
+
+    dev = resolve_device(args.device)
+    params = lm.init_params(cfg, seed=scfg.seed, device=dev)
+    # paged serving shares half the prompt across requests, so the run
+    # exercises prefix remapping and not only the page pool
+    share = scfg.prompt_len // 2 if scfg.kv_layout == "paged" else 0
+    reqs = build_requests(SyntheticLM(cfg), scfg.requests, scfg.prompt_len,
+                          scfg.gen, stagger=scfg.stagger,
+                          arrive_every=scfg.arrive_every, share_prefix=share)
+    forced = None if scfg.decode_attn == "auto" else scfg.decode_attn
+    with dispatch.force_route("decode_attn", forced):
+        if args.uniform_bits is not None:
+            return serve_fake_quant(args, scfg, cfg, params, reqs, dev)
+        return serve_packed(args, scfg, cfg, params, reqs, dev)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,12 @@ Decode attention resolves the same way between ``fused`` (the
 ``decode_attn_quant`` kernel on the codes) and ``dequant-fp``.
 
 ``Counts`` records which route each call took, per op; the engine reads it
-to show that no kernel-eligible layer fell through to ``dequant-fp``.
+to show that no kernel-eligible layer fell through to ``dequant-fp``. After
+each fenced prefill and step the engine publishes what its session's
+``Counts`` gained into its metrics registry (``publish_routes``:
+``dispatch.route.<route>`` per matmul, ``dispatch.decode_attn.<route>``
+per attention call) and attributes the measured time to the
+``dominant_route``.
 """
 from __future__ import annotations
 
@@ -104,6 +109,8 @@ class Counts:
 
 
 _COUNTS: List[Optional[Counts]] = [None]
+# registry counter family of each routed op
+_FAMILY = {"matmul": "route", "decode_attn": "decode_attn"}
 
 
 @contextlib.contextmanager
@@ -121,14 +128,49 @@ def _count(op: str, route: str) -> None:
         _COUNTS[-1].add(op, route)
 
 
+def publish_routes(registry, counts: Counts,
+                   seen: Dict[str, Dict[str, int]]) -> None:
+    """Add what ``counts`` tallied since ``seen`` (a copy of its earlier
+    ``routes``, brought up to date here) to ``registry``'s
+    ``dispatch.<family>.<route>`` counters."""
+    for op, routes in counts.routes.items():
+        done = seen.setdefault(op, {})
+        for route, n in routes.items():
+            if n > done.get(route, 0):
+                registry.counter(f"dispatch.{_FAMILY[op]}.{route}").inc(
+                    n - done.get(route, 0))
+                done[route] = n
+
+
+def dominant_route(registry, family: str = "route") -> str:
+    """Most-counted ``dispatch.<family>.*`` route in a registry ("fp" when
+    nothing was counted): the route the engine attributes its measured
+    phase latencies to (``obs.health.attribute_latency``)."""
+    prefix = f"dispatch.{family}."
+    best, best_count = "fp", 0.0
+    for name in getattr(registry, "_metrics", {}):
+        if name.startswith(prefix):
+            v = registry.value(name)
+            if v > best_count:
+                best, best_count = name[len(prefix):], v
+    return best
+
+
 # ---------------------------------------------------------------------------
 # decode-attention routing (int8 KV cache)
 # ---------------------------------------------------------------------------
-def resolve_decode_attn(device: torch.device) -> str:
-    """``fused`` on a CUDA device, ``dequant-fp`` on the CPU (or forced)."""
+def decode_attn_route(device: torch.device) -> str:
+    """The decode-attention route for ``device``: forced, else ``fused`` on
+    a CUDA device and ``dequant-fp`` on the CPU."""
     route = ROUTES.forced("decode_attn")
     if route is None:
         route = "fused" if device.type == "cuda" else "dequant-fp"
+    return route
+
+
+def resolve_decode_attn(device: torch.device) -> str:
+    """``decode_attn_route``, counted as one attention call's route."""
+    route = decode_attn_route(device)
     _count("decode_attn", route)
     return route
 

@@ -13,6 +13,11 @@ Construction packs once:
    ``ceil(bits/8)`` bytes per weight, ``MPQPolicy.size_bytes`` to within
    padding.
 
+Packing also measures each projection's health (``obs.health.site_health``:
+code saturation and scale utilization, from the weight and the scale the
+packing used) once, into ``pack_health``; the engine publishes it into its
+metrics registry.
+
 Packing also tags activation-reuse groups: projections of one site whose
 (a_bits, signedness, trained bank scale values) coincide share a
 ``PackedLinear.a_group``, so ``dispatch.act_reuse_scope`` quantizes their
@@ -47,6 +52,7 @@ from repro_torch.core.quantizer import (bit_range, grad_scale,
                                         lsq_grad_scale_factor)
 from repro_torch.models import lm
 from repro_torch.models.quant_layers import QuantContext, pinned_table
+from repro_torch.obs import health as obs_health
 from repro_torch.runtime import dispatch, packing
 
 
@@ -92,6 +98,12 @@ class QuantizedSession:
         # dispatch route tallies of every forward (``dispatch.Counts``); the
         # engine reads them
         self.route_counts = dispatch.Counts()
+        # the engine's metrics registry (it assigns this at build and
+        # reset): _forward counts its activation-quantize reuse there
+        self.metrics = None
+        # per-projection pack-time health, measured in _build_params from
+        # the weights and the scales the packing used
+        self.pack_health: Dict[str, Dict[str, float]] = {}
         self.params = self._build_params(params)
         self.table = pinned_table(params["embed"], self.ctx)
 
@@ -113,10 +125,13 @@ class QuantizedSession:
                 s_w = effective_weight_scale(leaf["s_w"], self._lut[wb],
                                              leaf["w"].numel(), wb)
                 a_idx = self._lut[int(self.policy.a_bits[q.name])]
-                _set_path(sp, q.path, packing.pack_linear(
+                pl = packing.pack_linear(
                     leaf["w"], wb, s_w, int(self.policy.a_bits[q.name]),
                     leaf["s_a"][..., a_idx],
-                    a_signed=self.cfg.quant_act_signed))
+                    a_signed=self.cfg.quant_act_signed)
+                self.pack_health[q.name] = obs_health.site_health(
+                    leaf["w"], wb, pl.scale)
+                _set_path(sp, q.path, pl)
                 packed_paths.append(q.path)
             _tag_act_groups(sp, packed_paths, key)
             sites_p[key] = sp
@@ -143,6 +158,11 @@ class QuantizedSession:
     def kv_quant(self) -> str:
         return self.ctx.kv_quant
 
+    @property
+    def w_bits_total(self) -> float:
+        """Exact packed weight-storage bits, the roofline's bytes term."""
+        return self.policy_bytes() * 8.0
+
     # -- engine adapter API -------------------------------------------------
     def _forward(self, params, x, mode, states, pos, prefill_cap, slot=None):
         sites = [(s, params["sites"][lm.site_key(s.gidx)], None)
@@ -153,6 +173,8 @@ class QuantizedSession:
                                          mode=mode, states=states, pos=pos,
                                          prefill_cap=prefill_cap, slot=slot)
         self.act_quant_reused += scope["hits"]
+        if self.metrics is not None and scope["hits"]:
+            self.metrics.counter("dispatch.act_reuse_hits").inc(scope["hits"])
         return x, new_states
 
     def prefill(self, params, tokens, *, prefill_cap, true_len=None):
@@ -236,12 +258,14 @@ class SpecSession(QuantizedSession):
                                          cfg.bits, self.draft_w_bits)
         super().__init__(cfg, params, policy, ctx, kv_quant=kv_quant)
         # the second tree through the same packing, with the draft policy
-        # active for the call
-        self.policy = self.policy_draft
+        # (and a health record of its own) active for the call
+        target_health = self.pack_health
+        self.policy, self.pack_health = self.policy_draft, {}
         try:
             self.draft_params = self._build_params(params)
+            self.draft_pack_health = self.pack_health
         finally:
-            self.policy = policy
+            self.policy, self.pack_health = policy, target_health
 
     def draft_bytes(self) -> int:
         """Measured device bytes of the draft tree's packed codes: what a

@@ -733,6 +733,15 @@ def test_spec_engine_on_the_card_syncs_only_between_rounds(dev, monkeypatch):
         sess, eng, out = tserve.serve_quantized(cfg, params, policy, reqs,
                                                 speculate=3, **kw, **lay)
         assert eng.stats.spec_rounds == len(inside) > 0
+        # traced (the default): each guarded round carries its draft and
+        # verify spans, timed by events read after the round's fence, and
+        # the trace reconciles with the stats
+        from repro_torch.obs import trace as obs_trace
+        assert eng.trace is not None
+        drafts = [e for e in eng.trace.events if e.name == "spec_draft"]
+        assert len(drafts) == eng.stats.spec_rounds
+        assert all(e.dur > 0 for e in drafts)
+        assert obs_trace.reconcile(eng.trace, eng.stats.as_dict()) == []
         # a rejected draft: the rounds rolled rows back on this layout
         assert eng.stats.spec_accepted_tokens < eng.stats.spec_draft_tokens
         one = "decode_attn_quant" + ("_paged" if layout == "paged" else "")

@@ -39,7 +39,11 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.runtime.session, repro_torch.interop, "
             "repro_torch.kernels.ops, repro_torch.launch.train, "
-            "repro_torch.core.importance, repro_torch.models.recurrent\n"
+            "repro_torch.core.importance, repro_torch.models.recurrent, "
+            "repro_torch.dist, repro_torch.dist.roofline, repro_torch.obs, "
+            "repro_torch.obs.calibrate, repro_torch.obs.health, "
+            "repro_torch.obs.trace, repro_torch.obs.export, "
+            "repro_torch.obs.monitor\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.')))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
