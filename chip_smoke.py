@@ -127,6 +127,40 @@ In order:
    observation per live slot and round, 28 verify launches per round and
    no sync inside a round.
 
+10. bundle phase: the train phase's final params and searched policy saved
+    as a serving bundle (``checkpoint.save_serving_bundle``) in a temporary
+    directory under the git-ignored ``build/``. Gates: ``peek_serving_policy``
+    returns the policy; ``QuantizedSession.from_checkpoint`` on the card
+    packs code bytes bit for bit the in-memory session's; both serve the
+    serve phase's first 4 requests with the same greedy tokens, bit for bit,
+    through the matmul and ring attention kernels. The save and load seconds
+    and the bundle's size are printed, and the directory is removed;
+11. elastic phases, ring and paged: ``repro_torch.launch.serve.main`` at
+    Qwen3-0.6B full width (28 layers, 4 slots) with ``--elastic
+    --policy-variants 3,4,6 --requests 12 --stagger --arrive-every 1`` on a
+    full-width demo policy file (the CLI's 32-token prompts less 0-9 and 16
+    new tokens less 0-4; paged: half the prompt shared). Gates: at least
+    one downshift, one admission round held for a drain and two variants
+    serving requests; every completion bit for bit its variant's
+    single-policy packed engine (``serve.check_elastic``); the trace
+    reconciled; no ``pack_linear`` call after the bank is built; the matmul
+    kernels and the layout's attention kernel launched (the other not), no
+    kernel-eligible matmul of any variant on dequant-fp; over the ring, the
+    run replayed from the largest variant on the dequant-fp routes takes
+    the same swap decisions and each completion equals its variant's
+    fake-quant reference engine bit for bit (the reference package's own
+    gate; over pages the append chunks' float GEMM shapes differ from the
+    ring reference's prefill, so not even that op chain is bitwise). The
+    served tokens against that reference on decisive steps are printed:
+    the kernels' exact integer sums are a third float evaluation, which
+    parts from the float32 and float64 references on near-ties (margins of
+    a few hundredths). Printed with the card's name and power limit: each
+    variant's packed bytes, the swaps and
+    ``engine.swap_ms``, the admission re-solves' ``ilp.solve_ms`` (196
+    layers, 2048 bins, on the host), the decode-step p50 of each variant
+    (from the trace's swap epochs) and each variant's kernel launches in one
+    decode step.
+
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
 per-case numbers also go to ``chiprun_out/chip_smoke.json``.
@@ -161,6 +195,8 @@ PREFILL_M = 128             # the matmuls' prefill rows (M > 16: tensor cores)
 MAIN_SC = 320               # the summary row of decode attention: the serve ring
 PROMPTS = [256, 128, 224, 160, 192, 144, 240, 176]
 GEN, SLOTS, CACHE_LEN, PREFILL_CHUNK = 32, 4, 320, 256
+# elastic phases: the bank's average weight-bit budgets, the requests
+ELASTIC_BUDGETS, ELASTIC_REQUESTS = "3,4,6", 12
 # decode steps (continuous, fixed) of the reference engine over the serve
 # CLI's staggered requests at its auto prefill chunk: the port's must equal
 # them (tests/test_torch_serve_cli.py holds the two engines together)
@@ -990,7 +1026,8 @@ def _is_bank(path: str) -> bool:
 
 def train_phase(torch, ops, dev):
     """The paper pipeline on Qwen3-0.6B at full width and depth. Returns
-    (launch counts of the run, results)."""
+    (launch counts of the run, results, the final params, the searched
+    policy)."""
     from repro_torch import optim, training
     from repro_torch.configs import get_config
     from repro_torch.core import importance as imp
@@ -1126,8 +1163,7 @@ def train_phase(torch, ops, dev):
                ilp_ms=sr.elapsed_s * 1e3, ilp_solver=sr.solver,
                avg_bits=[w_avg, a_avg], bitops=sr.bitops,
                bitops_budget=budget, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    del params
-    return total, res
+    return total, res, params, sr.policy
 
 
 def profile_device(torch, fn, top: int = 8, watch=()):
@@ -1318,11 +1354,265 @@ def profile_decode_step(torch, sess, dev, label="serve", layout=None,
     return res
 
 
+def serve_requests(cfg, n=len(PROMPTS)):
+    """The serve phase's first ``n`` requests (PROMPTS, GEN new tokens)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.scheduler import Request
+    data = SyntheticLM(cfg)
+    return [Request(rid=i, tokens=data.batch(i, 1, p)["tokens"][0],
+                    max_new=GEN) for i, p in enumerate(PROMPTS[:n])]
+
+
+def _packed_by_path(tree, pre=""):
+    from repro_torch.runtime import packing
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, packing.PackedLinear):
+            out[pre + k] = v
+        elif isinstance(v, dict):
+            out.update(_packed_by_path(v, f"{pre}{k}/"))
+    return out
+
+
+def bundle_phase(torch, ops, dev, params, policy):
+    """The train phase's final params and searched policy as a serving
+    bundle (module docstring, phase 10)."""
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine, EngineConfig
+    from repro_torch.runtime.session import QuantizedSession
+
+    cfg = get_config("qwen3-0.6b")
+    reqs = serve_requests(cfg, 4)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="bundle.", dir=build)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_serving_bundle(d, 0, params, policy,
+                                 extra_meta={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(d).rglob("*")
+                   if f.is_file())
+        peek = ckpt.peek_serving_policy(d)
+        gate(peek.w_bits == policy.w_bits and peek.a_bits == policy.a_bits,
+             "[bundle] peek_serving_policy returned another policy")
+        mem = QuantizedSession(cfg, params, policy, serve.make_context(cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disk = QuantizedSession.from_checkpoint(d, cfg, device=dev)
+        load_s = sync_ms(torch, t0) / 1e3
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    mp, dp = _packed_by_path(mem.params), _packed_by_path(disk.params)
+    gate(set(mp) == set(dp) and all(
+        torch.equal(mp[k].codes, dp[k].codes)
+        and torch.equal(mp[k].scale, dp[k].scale) for k in mp),
+        "[bundle] packed codes of the bundle's session differ from the "
+        "in-memory session's")
+    outs, launches = [], {}
+    for label, sess in (("in-memory", mem), ("bundle", disk)):
+        eng = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
+                           device=dev, ecfg=EngineConfig(
+                               slots=SLOTS, cache_len=CACHE_LEN,
+                               prefill_chunk=PREFILL_CHUNK, kv_quant="int8"))
+        eng.submit_all(reqs)
+        ops.reset_launches()                     # counts: this run only
+        outs.append(eng.run())
+        launches[label] = {k: ops.launches[k] for k in SERVE_KERNELS}
+        gate(launches[label]["decode_attn_quant"] > 0
+             and launches[label]["quant_matmul"]
+             + launches[label]["quant_matmul_w4"] > 0
+             and sess.route_counts.eligible_fp == 0,
+             f"[bundle] the {label} session launched {launches[label]}, "
+             f"{sess.route_counts.eligible_fp} eligible matmuls on dequant-fp")
+    same = all(outs[0][r.rid].tokens == outs[1][r.rid].tokens for r in reqs)
+    gate(same, "[bundle] the bundle's session served other tokens than the "
+         "in-memory session")
+    print(f"[bundle] serving bundle of the trained params and searched "
+          f"policy: {size / 1e9:.3f} GB, saved in {save_s:.2f} s, restored "
+          f"onto the card and packed in {load_s:.2f} s; packed codes "
+          f"({disk.packed_bytes()} B) bit for bit the in-memory session's; "
+          f"{len(reqs)} requests with identical greedy tokens; launches "
+          f"{launches['bundle']}", flush=True)
+    return dict(bytes=size, save_s=save_s, load_pack_s=load_s,
+                packed_bytes=disk.packed_bytes(), launches=launches,
+                requests=len(reqs))
+
+
+@contextlib.contextmanager
+def elastic_probe(ops):
+    """Watch the elastic engines run inside: for each, the ``pack_linear``
+    calls and the kernel launches of its run alone (counts set to 0 just
+    before it, read just after)."""
+    from repro_torch.launch import engine
+    from repro_torch.runtime import packing
+    real_pack, real_run = packing.pack_linear, engine.DecodeEngine.run
+    packs, runs = [0], []
+
+    def counting(*a, **kw):
+        packs[0] += 1
+        return real_pack(*a, **kw)
+
+    def run(self):
+        if self.elastic is None:
+            return real_run(self)
+        before = packs[0]
+        ops.reset_launches()
+        out = real_run(self)
+        runs.append(dict(packs=packs[0] - before,
+                         launches={k: ops.launches[k] for k in SERVE_KERNELS}))
+        return out
+
+    packing.pack_linear, engine.DecodeEngine.run = counting, run
+    try:
+        yield runs
+    finally:
+        packing.pack_linear, engine.DecodeEngine.run = real_pack, real_run
+
+
+def variant_step_ms(trace) -> dict:
+    """Decode-step p50 (ms) of each variant: the ``decode_step`` spans of
+    each swap epoch of an elastic trace."""
+    swaps = sorted((e for e in trace.events if e.name == "policy_swap"),
+                   key=lambda e: e.ts)
+    steps = {}
+    for e in trace.events:
+        if e.name == "decode_step":
+            pid = [w.args["to"] for w in swaps if w.ts <= e.ts][-1]
+            steps.setdefault(pid, []).append(e.dur * 1e3)
+    return {pid: statistics.median(v) for pid, v in steps.items()}
+
+
+def step_launches(torch, ops, sess, dev, layout=None) -> dict:
+    """Kernel launches of one decode step (4 slots) of ``sess``'s active
+    variant."""
+    st = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev,
+                         layout=layout)
+    if layout is not None:
+        P = layout.pages_per_slot(CACHE_LEN)
+        tbl = torch.arange(SLOTS * P, dtype=torch.int32, device=dev)
+        st = {"sites": {k: c._replace(page_table=tbl.reshape(SLOTS, P))
+                        for k, c in st["sites"].items()}}
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 20
+    ops.reset_launches()
+    sess.decode(sess.params, tok, pos, st)
+    torch.cuda.synchronize()
+    return {k: ops.launches[k] for k in SERVE_KERNELS if ops.launches[k]}
+
+
+def elastic_phase(torch, ops, dev, card, layout):
+    """The serve CLI's elastic path at Qwen3-0.6B full width (module
+    docstring, phase 11) over ``layout``."""
+    from repro_torch.launch import serve
+
+    out = ROOT / "chiprun_out" / "elastic"
+    out.mkdir(parents=True, exist_ok=True)
+    policy = out / "demo_policy.json"
+    gate(_serve_cli(serve, ["--arch", "qwen3-0.6b", "--write-demo-policy",
+                            str(policy)]) is None,
+         "[elastic] --write-demo-policy")
+    label = f"elastic-{layout}"
+    argv = ["--arch", "qwen3-0.6b", "--slots", str(SLOTS), "--policy",
+            str(policy), "--elastic", "--policy-variants", ELASTIC_BUDGETS,
+            "--requests", str(ELASTIC_REQUESTS), "--stagger",
+            "--arrive-every", "1", "--kv-layout", layout]
+    t0 = time.perf_counter()
+    with elastic_probe(ops) as runs:
+        res = _serve_cli(serve, argv)
+    wall = time.perf_counter() - t0
+    eng, sess, st = res["eng"], res["sess"], res["eng"].stats
+    gate(len(runs) == 1, f"[{label}] {len(runs)} elastic engine runs")
+    launches, packs = runs[0]["launches"], runs[0]["packs"]
+    attn = "decode_attn_quant_paged" if layout == "paged" \
+        else "decode_attn_quant"
+    other = "decode_attn_quant" if layout == "paged" \
+        else "decode_attn_quant_paged"
+    per_variant = {pid: sorted(r) for pid, r in res["per_variant"].items()}
+    gate(st.policy_swaps_down >= 1 and st.admissions_deferred_swap >= 1
+         and len(per_variant) >= 2,
+         f"[{label}] {st.policy_swaps_down} downshifts, "
+         f"{st.admissions_deferred_swap} rounds held, variants serving "
+         f"{per_variant}")
+    gate(packs == 0, f"[{label}] {packs} pack_linear calls after the bank "
+         "was built")
+    gate(launches["quant_matmul"] > 0 and launches["quant_matmul_w4"] > 0
+         and launches[attn] > 0 and launches[other] == 0,
+         f"[{label}] the elastic run launched {launches}")
+    for pid, counts in sess.variant_route_counts.items():
+        gate(counts.eligible_fp == 0
+             and set(counts.routes["decode_attn"]) <= {"fused"},
+             f"[{label}] variant {pid}: {counts.eligible_fp} eligible "
+             f"matmuls on dequant-fp, attention {counts.routes}")
+    # each completion bit for bit its variant's single-policy packed engine,
+    # and the run replayed on the dequant-fp routes bit for bit its fake-
+    # quant reference; the served tokens against that reference on decisive
+    # steps are printed (the kernels' exact sums part from it on near-ties)
+    try:
+        serve.check_trace(eng, f"[{label}]")
+        with elastic_probe(ops) as replays:
+            checks = serve.check_elastic(res, dev)
+    except SystemExit as e:
+        raise GateError(f"[{label}] {e}") from e
+    gate(len(replays) == (layout == "ring") and all(
+        r["packs"] == 0 and not any(r["launches"].values()) for r in replays),
+         f"[{label}] the replay on the dequant-fp routes: {replays}")
+    lat = st.latency
+    swap = eng.metrics.get("engine.swap_ms")
+    step_p50 = variant_step_ms(eng.trace)
+    vbytes = sess.variant_bytes()
+    layout_obj = eng.layout if layout == "paged" else None
+    variant_launches = {}
+    for pid in sess.variants:
+        sess.set_active(pid)
+        variant_launches[pid] = step_launches(torch, ops, sess, dev,
+                                              layout_obj)
+    n_layers = len(res["bank"].layers)
+    print(f"[{label}] {card}: {len(res['completions'])} requests in "
+          f"{wall:.1f} s wall (bank build, the gates' engines included); "
+          f"bank bytes {vbytes}; {st.policy_swaps} swaps "
+          f"({st.policy_swaps_down} down), engine.swap_ms p50 "
+          f"{swap.percentile(0.5):.3f} max {swap.percentile(1.0):.3f}; "
+          f"{st.ilp_solves} admission re-solves ({n_layers} layers, "
+          f"{res['controller'].bins} bins, on the host): ilp.solve_ms p50 "
+          f"{lat['ilp_solve_p50_ms']:.2f} max {lat['ilp_solve_max_ms']:.2f}; "
+          f"{st.admissions_deferred_swap} rounds held for drains; variants "
+          f"serving {per_variant}; decode step p50 per variant "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(step_p50.items()))
+          + f"; launches {launches}", flush=True)
+    print(f"[{label}] served tokens vs the fake-quant reference on decisive "
+          "steps (printed, not gated): " + "; ".join(
+              f"{pid} {c['decisive']} compared, parted on rids {c['parted']}"
+              for pid, c in checks.items()), flush=True)
+    print(f"[{label}] kernel launches in one decode step per variant: "
+          f"{variant_launches}", flush=True)
+    result = dict(
+        wall_s=wall, variant_bytes=vbytes, policy_swaps=st.policy_swaps,
+        policy_swaps_down=st.policy_swaps_down,
+        swap_ms_p50=swap.percentile(0.5), swap_ms_max=swap.percentile(1.0),
+        ilp_solves=st.ilp_solves, ilp_solve_p50_ms=lat["ilp_solve_p50_ms"],
+        ilp_solve_max_ms=lat["ilp_solve_max_ms"], ilp_layers=n_layers,
+        ilp_bins=res["controller"].bins,
+        admissions_deferred_swap=st.admissions_deferred_swap,
+        per_variant=per_variant, decode_step_p50_ms=step_p50,
+        decode_step_p50_all_ms=lat["decode_step_p50_ms"],
+        reference_decisive=checks, launches=launches,
+        step_launches=variant_launches,
+        avg_bits={pid: p.avg_bits()[0]
+                  for pid, p in res["bank"].policies.items()})
+    del res, eng, sess
+    torch.cuda.empty_cache()
+    return result
+
+
 def serve_phase(torch, ops, dev):
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch import serve
-    from repro_torch.launch.scheduler import Request
     from repro_torch.models import lm
     from repro_torch.runtime.session import summarize
 
@@ -1330,9 +1620,7 @@ def serve_phase(torch, ops, dev):
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device=dev)
     policy = serve.demo_mixed_policy(cfg)
-    data = SyntheticLM(cfg)
-    reqs = [Request(rid=i, tokens=data.batch(i, 1, p)["tokens"][0],
-                    max_new=GEN) for i, p in enumerate(PROMPTS)]
+    reqs = serve_requests(cfg)
     kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
               device=dev)
     torch.cuda.synchronize()
@@ -2238,7 +2526,11 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    train_launches, train_res = train_phase(torch, ops, dev)
+    train_launches, train_res, trained, searched = train_phase(torch, ops,
+                                                                dev)
+    torch.cuda.empty_cache()
+    bundle_res = bundle_phase(torch, ops, dev, trained, searched)
+    del trained
     torch.cuda.empty_cache()
     ring_run, serve_launches, serve_res = serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
@@ -2252,6 +2544,9 @@ def main() -> int:
         torch, ops, dev, "paged", paged_run, paged_res["prefix_hit_tokens"])
     torch.cuda.empty_cache()
     cli_res = serve_cli_phase(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+    elastic_res = {layout: elastic_phase(torch, ops, dev, card, layout)
+                   for layout in ("ring", "paged")}
     reqs = ring_run[0]
     del ring_run, paged_run
     torch.cuda.empty_cache()
@@ -2316,7 +2611,8 @@ def main() -> int:
         {"card": card, "cases": rows, "train": train_res,
          "serve": serve_res, "paged_serve": paged_res,
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
-         "serve_cli": cli_res, "rwkv_serve": rwkv_res, "kernels": kernels},
+         "serve_cli": cli_res, "rwkv_serve": rwkv_res, "bundle": bundle_res,
+         "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,17 @@ own greedy token. The host uploads the round's inputs, and reads targets,
 accept lengths, emit counts and margins back once, after the round: nothing
 inside it synchronises.
 
+Elastic precision serving (``elastic=`` an ``launch.elastic.ElasticController``
+over a ``runtime.session.ElasticSession``): every admission round with
+pending work re-solves the ILP against the engine's live signals (arrived
+queue, occupied slots, fresh page-pool deferrals, KV-cache bytes). A
+decision for another variant holds admission until the in-flight slots
+drain under the variant that admitted them, then repoints ``params`` at the
+chosen resident pre-packed tree (never a repack); the paged layout also
+flushes its prefix registry, whose pages hold KV of the old weights. Each
+request is stamped with the variant that served it (``Completion.policy_id``
+and its trace tokens).
+
 Phase timers stop after ``torch.cuda.synchronize()`` on a CUDA device (the
 host reads the sampled tokens anyway), so a phase's time covers its device
 work, not its launch latency.
@@ -181,6 +192,11 @@ class EngineStats:
     spec_rounds: int = 0  # draft + verify rounds (speculate > 0)
     spec_draft_tokens: int = 0  # tokens the low-bit draft proposed
     spec_accepted_tokens: int = 0  # proposals the target confirmed
+    policy_swaps: int = 0  # elastic variant swaps applied this epoch
+    policy_swaps_down: int = 0  # swaps that lowered the served avg bits
+    ilp_solves: int = 0  # admission-time MCKP re-solves (elastic)
+    admissions_deferred_swap: int = 0  # admit rounds held for a swap drain
+    active_policy: str = ""  # serving variant id ("" = single policy)
     t_prefill_s: float = 0.0
     t_decode_s: float = 0.0
     latency: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -255,10 +271,12 @@ class _Slot:
     """Host-side bookkeeping for one engine slot."""
 
     __slots__ = ("req", "next_tok", "next_pos", "gen", "done", "admitted_at",
-                 "ts_admit", "ts_last_token", "spec_drafted", "spec_accepted")
+                 "ts_admit", "ts_last_token", "spec_drafted", "spec_accepted",
+                 "policy_id")
 
     def __init__(self, req: Request, first_tok: int, now: int,
-                 ts_admit: float = 0.0, ts_last_token: float = 0.0):
+                 ts_admit: float = 0.0, ts_last_token: float = 0.0,
+                 policy_id: str = ""):
         self.req = req
         self.next_tok = first_tok
         self.next_pos = req.prompt_len
@@ -269,6 +287,8 @@ class _Slot:
         self.ts_last_token = ts_last_token  # last emitted token (ITL base)
         self.spec_drafted = 0  # draft proposals made for this slot
         self.spec_accepted = 0  # proposals the target confirmed
+        # elastic: the variant that admitted the request serves all of it
+        self.policy_id = policy_id
 
 
 class _PhaseMarks:
@@ -309,7 +329,7 @@ class DecodeEngine:
 
     def __init__(self, params, cfg: ModelConfig, bits, ctx, *,
                  ecfg: Optional[EngineConfig] = None, adapter=None,
-                 device=None):
+                 device=None, elastic=None):
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
@@ -362,6 +382,25 @@ class DecodeEngine:
                 "speculate > 0 needs a dual-policy adapter "
                 "(runtime.session.SpecSession): a draft_params tree to "
                 "propose tokens and a verify() pass to confirm them")
+        # elastic serving: the controller re-solves the ILP at admission
+        # and the engine swaps the active pre-packed variant between batches
+        self.elastic = elastic
+        self._active_policy = str(getattr(adapter, "active_policy", "") or "")
+        dispatch.ROUTES.validate("elastic", "off" if elastic is None
+                                 else "bank")
+        if elastic is not None:
+            if not (hasattr(adapter, "set_active")
+                    and hasattr(adapter, "params_for")):
+                raise ValueError(
+                    "elastic serving needs a variant-bank adapter "
+                    "(runtime.session.ElasticSession): set_active()/"
+                    "params_for() hand back pre-packed policy variants; a "
+                    "single-policy adapter has nothing to swap")
+            if self._spec_k:
+                raise ValueError(
+                    "elastic + speculate is unsupported: the draft pack is "
+                    "derived from ONE target policy and would go stale at "
+                    "the first swap")
         if kv_mode == "int8":
             self.decode_attn_route = dispatch.decode_attn_route(self.device)
         else:
@@ -427,6 +466,20 @@ class DecodeEngine:
         # number admission defers on
         self.monitor = obs_monitor.default_monitor(
             pool_min_free=(self._pages_per_slot - 1) if self._paged else None)
+        # elastic epoch state: a pending (unapplied) swap decision and the
+        # page-pool deferral count the controller diffs against
+        self._swap_decision = None
+        self._deferred_seen = 0
+        if self.elastic is not None:
+            m.gauge("engine.policy_variants",
+                    help="pre-packed policy variants resident in the bank"
+                    ).set(len(self.adapter.variants))
+            self._observe_active_policy()
+            if self.trace is not None:
+                # reconcile checks each stamped token against the swap epoch
+                # active at its time, so epoch zero needs a marker
+                self.trace.instant("policy_swap", to=self._active_policy,
+                                   initial=True, iteration=-1)
 
     def _now(self) -> float:
         """The trace clock (the host clock without a trace)."""
@@ -483,6 +536,11 @@ class DecodeEngine:
             if isinstance(h, obs_metrics.Histogram) and h.count:
                 lat[f"{key}_p50_ms"] = h.percentile(0.50)
                 lat[f"{key}_p95_ms"] = h.percentile(0.95)
+        solve = m.get("ilp.solve_ms")
+        if isinstance(solve, obs_metrics.Histogram) and solve.count:
+            lat["ilp_solve_p50_ms"] = solve.percentile(0.50)
+            # percentile() clamps to the observed extremes: 1.0 is the max
+            lat["ilp_solve_max_ms"] = solve.percentile(1.0)
         return EngineStats(
             iterations=c("iterations"), decode_steps=c("decode_steps"),
             slot_steps=c("slot_steps"),
@@ -503,6 +561,12 @@ class DecodeEngine:
             spec_rounds=int(m.value("spec.rounds")),
             spec_draft_tokens=int(m.value("spec.draft_tokens")),
             spec_accepted_tokens=int(m.value("spec.accepted_tokens")),
+            policy_swaps=c("policy_swaps"),
+            policy_swaps_down=c("policy_swaps_down"),
+            ilp_solves=c("ilp_solves"),
+            admissions_deferred_swap=int(
+                m.value("scheduler.admissions_deferred_swap")),
+            active_policy=self._active_policy,
             t_prefill_s=m.value("engine.t_prefill_s"),
             t_decode_s=m.value("engine.t_decode_s"), latency=lat)
 
@@ -599,7 +663,8 @@ class DecodeEngine:
         self.completions[rid] = Completion(
             rid=rid, prompt_len=slot.req.prompt_len, tokens=toks,
             admitted_at=slot.admitted_at, finished_at=now,
-            spec_drafted=slot.spec_drafted, spec_accepted=slot.spec_accepted)
+            spec_drafted=slot.spec_drafted, spec_accepted=slot.spec_accepted,
+            policy_id=slot.policy_id)
         self.margins[rid] = self.margins[rid][: len(toks)]
         m = self.metrics
         m.counter("engine.completed").inc()
@@ -736,7 +801,8 @@ class DecodeEngine:
         self._publish_routes()
         obs_health.attribute_latency(
             m, "matmul", dispatch.dominant_route(m), dt)
-        self.slots[idx] = _Slot(req, first, now, ts_admit, ts_admit + dt)
+        self.slots[idx] = _Slot(req, first, now, ts_admit, ts_admit + dt,
+                                self._active_policy)
         m.gauge("engine.slot_occupancy").set(len(self._occupied()))
         if self.trace is not None:
             track = obs_trace.req_track(req.rid)
@@ -755,7 +821,8 @@ class DecodeEngine:
             self.trace.span("prefill", ts_admit, ts_admit + dt, track=track,
                             rid=req.rid, tokens=shape)
             self.trace.instant("first_token", track=track, ts=ts_admit + dt,
-                               rid=req.rid, token=first)
+                               rid=req.rid, token=first,
+                               **self._policy_stamp(self.slots[idx]))
         if req.max_new == 1 or first == self.ecfg.eos_id:
             self._mark_done(idx, now)
 
@@ -795,9 +862,98 @@ class DecodeEngine:
             track = obs_trace.req_track(s.req.rid)
             for t in toks:
                 self.trace.instant("token", track=track, ts=ts1,
-                                   rid=s.req.rid, token=t, iteration=now)
+                                   rid=s.req.rid, token=t, iteration=now,
+                                   **self._policy_stamp(s))
         if len(s.gen) >= s.req.max_new or s.next_tok == self.ecfg.eos_id:
             self._mark_done(i, now)
+
+    @staticmethod
+    def _policy_stamp(slot: _Slot) -> Dict[str, str]:
+        """Trace args naming the variant that serves ``slot`` (none for a
+        single policy)."""
+        return {"policy": slot.policy_id} if slot.policy_id else {}
+
+    # -- elastic precision serving ------------------------------------------
+    def _observe_active_policy(self) -> None:
+        """Gauges of the serving variant: its average weight bits and its
+        packed bytes (``ElasticSession`` accounting follows the swap)."""
+        m = self.metrics
+        m.gauge("engine.active_policy_avg_bits",
+                help="mean weight bits of the serving variant").set(
+                    self.adapter.policy.avg_bits()[0])
+        m.counter(f"engine.policy_active.{self._active_policy}").inc()
+        m.gauge("engine.packed_bytes").set(self.adapter.packed_bytes())
+
+    def _elastic_admission(self, now: int) -> None:
+        """Consult the controller before admitting (drain-then-swap).
+
+        Re-solves every admission round with pending work, so the decision
+        corrects itself while slots drain. A decision for another variant
+        swaps at once if the slots are empty; otherwise it parks in
+        ``_swap_decision``, which holds admission (``Scheduler.admit(
+        hold=True)``) until the in-flight requests finish under the variant
+        that admitted them. Decode never pauses, so the drain ends."""
+        m = self.metrics
+        deferred_now = int(m.value("scheduler.admissions_deferred_pool"))
+        arrived = sum(1 for r in self.scheduler.pending if r.arrival <= now)
+        decision = self.elastic.decide(
+            active=self._active_policy, queue_depth=arrived,
+            occupied=len(self._occupied()), slots=self.ecfg.slots,
+            deferred=max(deferred_now - self._deferred_seen, 0),
+            cache_bytes=float(sum(qkv.tree_inventory(self.state).values())))
+        self._deferred_seen = deferred_now
+        m.histogram("ilp.solve_ms",
+                    help="admission-time MCKP re-solve wall time").observe(
+                        decision.solve_ms)
+        m.counter("engine.ilp_solves").inc()
+        if decision.target == self._active_policy:
+            self._swap_decision = None
+            return
+        self._swap_decision = decision
+        if not self._occupied():
+            self._apply_swap(decision, now)
+
+    def _apply_swap(self, decision, now: int) -> None:
+        """Swap the serving variant: repoint ``params`` at the adapter's
+        resident pre-packed tree (never a repack), on drained slots only, so
+        every request's tokens come from one variant. ``engine.swap_ms`` is
+        fenced."""
+        if self._occupied():
+            raise RuntimeError("policy swap with occupied slots")
+        self._fence()
+        t0 = time.perf_counter()
+        self.params = self.adapter.set_active(decision.target)
+        self._fence()
+        dt = time.perf_counter() - t0
+        prev, self._active_policy = self._active_policy, decision.target
+        self._swap_decision = None
+        # the new variant tallies its own routes: publish from its count on
+        counts = self.adapter.route_counts
+        self._routes_seen = {op: dict(r) for op, r in counts.routes.items()}
+        m = self.metrics
+        if self._paged:
+            # registered prefix pages hold KV of the previous variant's
+            # weights: a hit after the swap would splice them into a request
+            # that must equal its own variant's single-policy engine
+            self._clear_freed(self.pool.flush_prefixes())
+            self._set_pool_gauges()
+        pols = self.adapter.variant_policies
+        down = pols[decision.target].avg_bits()[0] < pols[prev].avg_bits()[0]
+        m.counter("engine.policy_swaps").inc()
+        m.counter("engine.policy_swaps_down" if down
+                  else "engine.policy_swaps_up").inc()
+        m.histogram("engine.swap_ms").observe(dt * 1e3)
+        self._observe_active_policy()
+        # the new variant's pack-time health: per-site gauges overwritten,
+        # the histograms gain its sites
+        if self.adapter.pack_health:
+            obs_health.publish_pack_health(m, self.adapter.pack_health)
+        if self.trace is not None:
+            self.trace.instant(
+                "policy_swap", ts=self.trace.now(), to=decision.target,
+                from_policy=prev, budget_bits=decision.budget_bits,
+                solver=decision.solver, solve_ms=decision.solve_ms,
+                report=decision.summary(), iteration=now)
 
     def _decode_step(self, now: int) -> None:
         n = self.ecfg.slots
@@ -946,13 +1102,17 @@ class DecodeEngine:
                 for i in occ:
                     self._finish(i, now)
         if self.scheduler.has_pending():
+            if self.elastic is not None:
+                self._elastic_admission(now)
             # paged: the pool's worst-case obtainable pages, so admission
-            # defers (FIFO) rather than exhausting the pool mid-prefill
+            # defers (FIFO) rather than exhausting the pool mid-prefill; a
+            # pending swap holds admission while the slots drain
             for req, idx in self.scheduler.admit(
                     now, self._free(), len(self._occupied()),
                     page_budget=self.pool.available_count if self._paged
                     else None,
-                    page_need=self._pages_per_slot if self._paged else 0):
+                    page_need=self._pages_per_slot if self._paged else 0,
+                    hold=self._swap_decision is not None):
                 self._admit(req, idx, now)
         if any(s is not None and not s.done for s in self.slots):
             if self._spec_k:

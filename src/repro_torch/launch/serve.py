@@ -5,7 +5,12 @@ cache or, with ``--kv-layout paged``, pooled int8 pages with shared-prefix
 reuse and chunked append prefill. ``--speculate K`` decodes
 self-speculatively: a uniform ``--draft-bits`` repack of the same weights
 proposes K tokens per round and the searched policy verifies them in one
-multi-token pass (greedy only, int8 KV, either layout).
+multi-token pass (greedy only, int8 KV, either layout). ``--elastic``
+serves a bank of policy variants (``--policy-variants``: their average
+weight-bit budgets, searched over the indicator banks of the weights the
+``--policy`` was searched for) and re-solves the ILP at every admission
+round against the live load, swapping the serving variant once the slots
+drain (``launch.elastic``, ``serve_elastic``).
 
 The weights are the port's seeded random initialisation (``--seed``; no
 checkpoint of a published model ships with the repository); the policy is a
@@ -43,6 +48,9 @@ Examples:
   python -m repro_torch.launch.serve --policy searched.json --explain-policy
   python -m repro_torch.launch.serve --smoke --device cpu --speculate 4 \
       --draft-bits 2
+  python -m repro_torch.launch.serve --smoke --write-demo-policy P
+  python -m repro_torch.launch.serve --smoke --device cpu --policy P \
+      --elastic --stagger
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,6 +144,8 @@ class ServeConfig:
     chip_table: Optional[str] = None  # measured device table json (roofline)
     speculate: int = 0          # self-speculative draft length k (0 = off)
     draft_bits: int = 2         # draft policy weight bits (--speculate)
+    elastic: bool = False       # admission-time ILP re-solve + variant swap
+    policy_variants: str = "3,4,6"  # avg weight-bit budgets of the bank
     sampling: str = "greedy"    # token selection; only greedy exists
     seed: int = 0               # lm.init_params seed
     trace: bool = True          # record the request-lifecycle trace
@@ -153,6 +163,45 @@ class ServeConfig:
             raise ValueError(
                 f"unknown sampling mode {self.sampling!r}; the engine "
                 "decodes greedily (argmax)")
+        dispatch.ROUTES.validate("elastic", "bank" if self.elastic else "off")
+        if self.elastic:
+            if not self.policy_path:
+                raise ValueError(
+                    "--elastic needs --policy <searched.json>: the variant "
+                    "bank searches its budgets over the SAME indicator "
+                    "banks the base policy was searched from, and the base "
+                    "policy anchors that family")
+            if self.speculate:
+                raise ValueError(
+                    "--elastic is incompatible with --speculate: the draft "
+                    "pack pairs with ONE target policy and would go stale "
+                    "at the first hot-swap")
+            if self.schedule == "fixed":
+                raise ValueError(
+                    "--elastic needs a continuous schedule: the controller "
+                    "re-solves against the live admission stream, which "
+                    "the fixed policy drains in whole rounds")
+            if self.kv == "fp":
+                raise ValueError(
+                    "--elastic requires --kv int8: the variant bank is a "
+                    "packed-session feature (pre-packed trees to swap)")
+            self.variant_budgets  # malformed --policy-variants fails HERE
+
+    @property
+    def variant_budgets(self) -> Tuple[float, ...]:
+        """``--policy-variants`` parsed to sorted avg weight-bit budgets."""
+        try:
+            vals = tuple(float(x) for x in self.policy_variants.split(","))
+        except ValueError:
+            raise ValueError(
+                "--policy-variants must be comma-separated average "
+                f"weight-bit budgets, got {self.policy_variants!r}")
+        if len(vals) < 2 or len(set(vals)) != len(vals):
+            raise ValueError(
+                "--policy-variants needs >= 2 distinct budgets "
+                f"(a one-variant bank cannot degrade), got "
+                f"{self.policy_variants!r}")
+        return tuple(sorted(vals))
 
     @property
     def resolved_cache_len(self) -> int:
@@ -174,6 +223,7 @@ class ServeConfig:
             page_size=args.page_size, decode_attn=args.decode_attn,
             bucket=not args.no_bucket, chip_table=args.chip_table,
             speculate=args.speculate, draft_bits=args.draft_bits,
+            elastic=args.elastic, policy_variants=args.policy_variants,
             seed=args.seed, trace=not args.no_trace)
 
     @property
@@ -415,7 +465,8 @@ def compare_spec(out, base, base_out, min_margin: float = 1e-2):
 
 def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                      cache_len: int, prefill_chunk: int = 0, device=None,
-                     compute_dtype=torch.float32, kv: str = "int8"):
+                     compute_dtype=torch.float32, kv: str = "int8",
+                     bucket_prompts: bool = False):
     """The fake-quant graph (``LMAdapter``) through the same engine (ring
     layout), with int8 KV slots referenced as quantize-dequantize in fp
     (``kv="fp"``: plain fp rows); ``compute_dtype`` float64 evaluates the
@@ -429,7 +480,8 @@ def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                        ecfg=EngineConfig(slots=slots, cache_len=cache_len,
                                          prefill_chunk=prefill_chunk,
                                          kv_quant="fake" if kv == "int8"
-                                         else "none"))
+                                         else "none",
+                                         bucket_prompts=bucket_prompts))
     eng.submit_all(reqs)
     with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
         return eng, eng.run()
@@ -713,6 +765,182 @@ def serve_packed(args, scfg: ServeConfig, cfg, params, reqs, dev):
     return res
 
 
+def serve_elastic(args, scfg: ServeConfig, cfg, params, reqs, dev):
+    """The ``--elastic`` path: a variant bank and the admission-time ILP
+    re-solve.
+
+    Builds an ``ElasticSession`` holding one pre-packed tree per
+    ``--policy-variants`` budget (all searched over the same indicator
+    banks, stamped with this weight set's ``bank_fingerprint``), hands the
+    engine an ``ElasticController`` and serves the requests. With
+    ``--smoke`` or ``--check`` the trace must reconcile and every completion
+    must equal its variant's single-policy packed engine and its fake-quant
+    reference (``check_elastic``). ``--smoke`` adds the reference's own
+    gates: at least one downshift, every re-solve under 50 ms. A swap may
+    change who serves the next request, never what an admitted request
+    decodes. Returns what it served."""
+    from repro_torch.launch import elastic as elastic_mod
+    from repro_torch.runtime.session import ElasticSession, bank_fingerprint
+
+    base = MPQPolicy.load(scfg.policy_path)
+    ql = lm.enumerate_qlayers(cfg)
+    try:
+        base.validate(ql, bits=cfg.bits)
+        bank = elastic_mod.build_variant_bank(
+            ql, cfg.bits, scfg.variant_budgets,
+            family=bank_fingerprint(params))
+        sess = ElasticSession(cfg, params, bank.policies, make_context(cfg),
+                              kv_quant=scfg.session_kv, active=bank.full)
+    except ValueError as e:
+        raise SystemExit(f"--elastic: {e}")
+    ctrl = elastic_mod.ElasticController(
+        cfg, bank, slots=scfg.slots, cache_len=scfg.resolved_cache_len,
+        chip=scfg.chip)
+    streamer = make_streamer(args)
+    eng = DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
+                       device=dev, ecfg=scfg.engine_config(), elastic=ctrl)
+    eng.on_step = streamer.tick if streamer else None
+    eng.submit_all(reqs)
+    out = eng.run()
+    print_stats(f"elastic/{scfg.schedule}", eng)
+    export_obs(args, eng)
+    st = eng.stats
+    per_variant: Dict[str, List[int]] = {}
+    for c in out.values():
+        per_variant.setdefault(c.policy_id, []).append(c.rid)
+    budgets = ",".join(f"{b:g}" for b in scfg.variant_budgets)
+    print(f"elastic bank [{budgets}] avg-bit budgets | {st.policy_swaps} "
+          f"swap(s), {st.policy_swaps_down} down | {st.ilp_solves} "
+          f"admission re-solves, max {ctrl.max_solve_ms:.1f} ms | held "
+          f"{st.admissions_deferred_swap} round(s) for drains | final "
+          f"variant {st.active_policy}")
+    for pid in sorted(per_variant):
+        print(f"  {pid}: {len(per_variant[pid])} request(s) "
+              f"{sorted(per_variant[pid])}")
+    res: Dict[str, Any] = dict(scfg=scfg, sess=sess, eng=eng, completions=out,
+                               bank=bank, controller=ctrl,
+                               per_variant=per_variant, params=params,
+                               reqs=reqs)
+    if args.smoke or args.check:
+        check_trace(eng, "elastic")
+    if args.smoke:
+        if st.policy_swaps_down < 1:
+            raise SystemExit(
+                "elastic smoke: the traffic ramp triggered no downshift "
+                "swap — the controller never traded precision for load")
+        if ctrl.max_solve_ms >= 50.0:
+            raise SystemExit(
+                f"elastic smoke: admission-time ILP re-solve took "
+                f"{ctrl.max_solve_ms:.1f} ms (>= 50 ms budget; the paper's "
+                "~0.06 s one-shot search claim is load-bearing here)")
+    if args.smoke or args.check:
+        res["checks"] = check_elastic(res, dev)
+    finish_stream(args, eng, streamer)
+    return res
+
+
+def replay_on_dequant_routes(res, dev):
+    """The elastic run again, from its largest variant, over the same
+    session and requests with the matmul and decode-attention routes
+    forced to ``dequant-fp``: the fake-quant graph's own op chain, so its
+    completions can be held to the fake-quant reference bit for bit (on
+    the CPU that route is the one served). Swap decisions read the load,
+    never the numerics: the replay must stamp every request with the same
+    variant. Returns (engine, completions)."""
+    from repro_torch.launch import elastic as elastic_mod
+
+    eng, sess, bank, scfg = res["eng"], res["sess"], res["bank"], res["scfg"]
+    sess.set_active(bank.full)
+    ctrl = elastic_mod.ElasticController(
+        eng.cfg, bank, slots=scfg.slots, cache_len=scfg.resolved_cache_len,
+        chip=scfg.chip)
+    replay = DecodeEngine(sess.params, eng.cfg, None, sess.ctx, adapter=sess,
+                          device=dev, elastic=ctrl,
+                          ecfg=dataclasses.replace(
+                              eng.ecfg, prefill_chunk=eng.prefill_chunk))
+    replay.submit_all(res["reqs"])
+    with dispatch.force_route("matmul", "dequant-fp"), \
+            dispatch.force_route("decode_attn", "dequant-fp"):
+        out = replay.run()
+    served = {rid: c.policy_id for rid, c in res["completions"].items()}
+    if {rid: c.policy_id for rid, c in out.items()} != served:
+        raise SystemExit("the elastic replay on the dequant-fp routes took "
+                         "other swap decisions than the served run")
+    return replay, out
+
+
+def check_elastic(res, dev):
+    """Hold an elastic run (``serve_elastic``'s result) to each variant, over
+    the requests that variant served (gates, raising SystemExit):
+
+    * its single-policy packed engine (the same layout, slots, cache and
+      prefill chunk): every completion bit for bit;
+    * its fake-quant reference engine: the run replayed on the dequant-fp
+      routes (``replay_on_dequant_routes``) bit for bit, the reference
+      package's own gate -- over the ring, and over pages on the CPU. On
+      the card a paged prefill runs in append chunks, whose float GEMM
+      shapes differ from the ring reference's whole-prompt prefill, so
+      there even the dequant-fp op chain is not the reference's bits.
+
+    Also compares the served tokens with the fake-quant reference on
+    decisive steps (``check_greedy``'s float64 control), recorded and not
+    gated: on the card the kernels' exact integer sums are a third float
+    evaluation, which parts from the float32 and float64 references on
+    near-ties (top-2 margins of a few hundredths). Returns {variant: its
+    rids, decisive steps compared, rids that parted on one}."""
+    from repro_torch.runtime.session import QuantizedSession
+
+    cfg, params, eng, out = (res["eng"].cfg, res["params"], res["eng"],
+                             res["completions"])
+    scfg, bank = res["scfg"], res["bank"]
+    exact = (eng.ecfg.kv_layout == "ring"
+             or torch.device(dev).type == "cpu")
+    dq_out = replay_on_dequant_routes(res, dev)[1] if exact else None
+    ecfg = dataclasses.replace(eng.ecfg, prefill_chunk=eng.prefill_chunk)
+    # the reference pads ring prompts as the served engine did (pages never)
+    kw = dict(kv=scfg.kv, slots=scfg.slots, cache_len=scfg.resolved_cache_len,
+              prefill_chunk=eng.prefill_chunk, device=dev,
+              bucket_prompts=eng.ecfg.bucket_prompts
+              and eng.ecfg.kv_layout != "paged")
+    checks: Dict[str, Any] = {}
+    for pid, rids in sorted(res["per_variant"].items()):
+        sub = [r for r in res["reqs"] if r.rid in set(rids)]
+        single = QuantizedSession(cfg, params, bank.policies[pid],
+                                  make_context(cfg), kv_quant=scfg.session_kv)
+        one = DecodeEngine(single.params, cfg, None, single.ctx,
+                           adapter=single, device=dev, ecfg=ecfg)
+        one.submit_all(sub)
+        one_out = one.run()
+        bad = [rid for rid in rids if one_out[rid].tokens != out[rid].tokens]
+        if bad:
+            raise SystemExit(
+                f"elastic variant {pid} diverged from its single-policy "
+                f"packed engine on rids {bad}")
+        ref, ref_out = reference_engine(cfg, params, bank.policies[pid], sub,
+                                        **kw)
+        bad = [rid for rid in rids
+               if dq_out and ref_out[rid].tokens != dq_out[rid].tokens]
+        if bad:
+            raise SystemExit(
+                f"elastic variant {pid} on the dequant-fp routes differs "
+                f"from its fake-quant reference on rids {bad}")
+        ctrl, ctrl_out = reference_engine(cfg, params, bank.policies[pid],
+                                          sub, compute_dtype=torch.float64,
+                                          **kw)
+        n, parted = compare_greedy({rid: out[rid] for rid in rids}, ref,
+                                   ref_out, ctrl, ctrl_out)
+        checks[pid] = dict(rids=sorted(rids), decisive=n, parted=parted)
+    also = (" and on the dequant-fp routes with its fake-quant reference"
+            if exact else "")
+    print(f"per-variant tokens identical with each generating variant's "
+          f"single-policy packed engine{also} ({len(out)} requests across "
+          f"{len(checks)} variant(s)); served vs the reference on decisive "
+          f"steps: " + "; ".join(
+              f"{pid} {c['decisive']} compared, parted on rids {c['parted']}"
+              for pid, c in checks.items()))
+    return checks
+
+
 def serve_fake_quant(args, scfg: ServeConfig, cfg, params, reqs, dev):
     """``--uniform-bits``: the fake-quant graph at uniform bits (fp KV), as
     the reference package serves without ``--policy``; with ``--compare``
@@ -812,6 +1040,15 @@ def main(argv=None):
     ap.add_argument("--draft-bits", type=int, default=2,
                     help="weight bits of the draft pack (--speculate); one "
                          "of the arch's searched widths")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic precision serving: pack a bank of policy "
+                         "variants (--policy-variants) and re-solve the ILP "
+                         "at every admission round against the live load, "
+                         "swapping the serving variant once the slots drain "
+                         "(needs --policy, --kv int8, a continuous schedule)")
+    ap.add_argument("--policy-variants", default="3,4,6", metavar="B,B,...",
+                    help="average weight-bit budgets of the --elastic bank "
+                         "(>= 2 distinct)")
     ap.add_argument("--no-bucket", action="store_true",
                     help="disable prompt-length bucketing (ring layout)")
     ap.add_argument("--chip-table", default=None, metavar="JSON",
@@ -873,7 +1110,9 @@ def main(argv=None):
                              "compares the engine against the fixed path")
         args.compare = True
         args.stagger = True
-        args.requests = min(args.requests, 6)
+        # the elastic smoke needs a queue deep enough to overload the
+        # slots (that is what triggers a downshift)
+        args.requests = min(args.requests, 12 if args.elastic else 6)
         args.prompt_len = min(args.prompt_len, 16)
         args.gen = min(args.gen, 8)
 
@@ -883,9 +1122,11 @@ def main(argv=None):
         check_kv_layout(cfg, scfg.kv_layout)
         check_spec(cfg, scfg.speculate, scfg.draft_bits, kv=scfg.kv,
                    policy_given=bool(args.policy) or args.smoke)
-        if args.uniform_bits is not None and (args.policy or scfg.speculate):
+        if args.uniform_bits is not None and (args.policy or scfg.speculate
+                                              or scfg.elastic):
             raise ValueError("--uniform-bits serves the fake-quant graph: "
-                             "it takes neither --policy nor --speculate")
+                             "it takes neither --policy, --speculate nor "
+                             "--elastic")
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
 
@@ -901,6 +1142,8 @@ def main(argv=None):
     with dispatch.force_route("decode_attn", forced):
         if args.uniform_bits is not None:
             return serve_fake_quant(args, scfg, cfg, params, reqs, dev)
+        if scfg.elastic:
+            return serve_elastic(args, scfg, cfg, params, reqs, dev)
         return serve_packed(args, scfg, cfg, params, reqs, dev)
 
 

@@ -6,8 +6,13 @@
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device and without ``--device cpu`` it raises rather than run on the CPU.
-The weights are the port's seeded random initialisation. Checkpointing and
-resume come with a later slice.
+The weights are the port's seeded random initialisation. With
+``--ckpt-dir`` the params are checkpointed every ``--ckpt-every`` steps and
+at the end (``checkpoint.CheckpointManager``, the reference's format), and
+a run resumes from the directory's latest step at the step after it. As in
+the reference, a resume restores the params only: the optimizer state and
+the learning-rate schedule start afresh. A step slower than twice the
+recent median prints a ``[watchdog]`` line (``checkpoint.StepWatchdog``).
 
 Examples:
   python -m repro_torch.launch.train --arch qwen3-0.6b --mode importance \
@@ -16,6 +21,8 @@ Examples:
       --policy searched.json --seq 2048 --batch 1 --steps 3
   python -m repro_torch.launch.train --smoke --device cpu --mode importance \
       --steps 2
+  python -m repro_torch.launch.train --smoke --device cpu --mode qat \
+      --steps 4 --ckpt-dir ckpt --ckpt-every 2
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import time
 import torch
 
 from repro_torch import optim, training
+from repro_torch.checkpoint import CheckpointManager, StepWatchdog
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import importance as imp
 from repro_torch.core.policy import MPQPolicy
@@ -55,6 +63,10 @@ def main(argv=None):
     ap.add_argument("--policy", default=None,
                     help="MPQPolicy json for qat mode (default: uniform bits)")
     ap.add_argument("--uniform-bits", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; a run resumes from its "
+                         "latest step")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--no-freeze-backbone", action="store_true")
@@ -89,9 +101,22 @@ def main(argv=None):
         step_fn = training.make_train_step(cfg, ctx, opt, bits, remat=False)
     opt_state = opt.init(params)
 
+    mgr = None
+    start = 0
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep_n=3)
+        latest = mgr.latest_step()
+        if latest is not None:
+            # params only, as the reference resumes: the optimizer state
+            # and the schedule restart
+            params = mgr.restore(latest, params, device=dev)
+            start = latest + 1
+            print(f"resumed from step {latest}")
+
+    wd = StepWatchdog()
     gen = torch.Generator().manual_seed(args.seed + 1)
     t_start = time.time()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch(step, args.batch, args.seq).items()}
         _sync(dev)
@@ -104,9 +129,16 @@ def main(argv=None):
             loss = float(m["loss"])
         _sync(dev)
         dt = time.perf_counter() - t0
+        if wd.observe(dt):
+            print(f"[watchdog] step {step} straggled: {dt:.2f}s")
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:7.1f} ms  "
                   f"{args.batch * args.seq / dt:.0f} tok/s on {dev}")
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step, params, meta={"arch": cfg.name, "mode": args.mode})
+    if mgr:
+        mgr.save(args.steps - 1, params,
+                 meta={"arch": cfg.name, "mode": args.mode}, blocking=True)
 
     if args.mode == "importance" and args.save_indicators:
         ind = imp.extract_indicators(params, cfg)

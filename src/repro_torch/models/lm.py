@@ -151,9 +151,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
                 ) -> Dict[str, Any]:
     """Seeded random params with the reference's tree layout (one explicit
     ``torch.Generator`` on ``device``; the values differ from JAX's, whose
-    PRNG differs -- carry JAX params across with ``interop`` instead)."""
+    PRNG differs -- carry JAX params across with ``interop`` instead). On
+    the ``meta`` device it gives the tree's shapes and dtypes only (a
+    checkpoint restore's template) and allocates nothing."""
     sched = build_schedule(cfg)
-    gen = torch.Generator(device=device or "cpu").manual_seed(int(seed))
+    meta = torch.device(device or "cpu").type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device or "cpu"
+                          ).manual_seed(int(seed))
     w = embed_init(gen, cfg.vocab, cfg.d_model, device=device)
     params: Dict[str, Any] = {"embed": {
         "w": w, "s_w8": init_scale_from_stats(w, bit_range(8, True)[1])}}

@@ -88,6 +88,10 @@ ROUTES = RouteTable({
     # self-speculative (the low-bit draft pack proposes, the searched
     # target verifies: launch/engine._spec_round)
     "spec": ("off", "self"),
+    # which policy serves: one policy per process, or a bank of pre-packed
+    # variants whose active member the admission-time ILP re-solve swaps
+    # between batches (launch/elastic.py)
+    "elastic": ("off", "bank"),
 })
 
 

@@ -32,6 +32,11 @@ bit-exact dequant-then-fp route on the CPU). The 8-bit fake-quantized
 embedding table -- read by the embedding lookup and by the tied head -- is a
 pure function of the weights and is computed once here.
 
+``QuantizedSession.from_checkpoint`` restores a serving bundle
+(``checkpoint.save_serving_bundle``: params + policy) and packs it;
+``ElasticSession`` packs N policy variants of one weight set for elastic
+precision serving (``launch.elastic``), keyed by ``bank_fingerprint``.
+
 Numerics: with per-tensor bank scales, the dequantized weights and the
 on-the-fly activation fake-quant reproduce the fake-quant graph *bitwise*
 on the dequant-fp route, so its greedy tokens equal an ``LMAdapter``
@@ -41,7 +46,8 @@ reference engine's -- with int8 KV slots too, whose reference is
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import hashlib
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -223,6 +229,29 @@ class QuantizedSession:
     def state_per_slot(self, row):
         return lm.decode_state_per_slot(row)
 
+    # -- persistence --------------------------------------------------------
+    @classmethod
+    def from_checkpoint(cls, directory: str, cfg: ModelConfig, *,
+                        step: Optional[int] = None,
+                        ctx: Optional[QuantContext] = None, device=None,
+                        **kwargs) -> "QuantizedSession":
+        """Restore a ``checkpoint.save_serving_bundle`` artifact (params +
+        policy) onto ``device`` and pack it there.
+
+        The bundled policy is validated against ``cfg``'s QLayer table
+        BEFORE any array is read: a stale or foreign bundle fails with the
+        ``MPQPolicy.validate`` message, not a missing-array or shape error
+        from the checkpoint reader. The restore's template is the param
+        tree's shapes alone (``lm.init_params`` on the ``meta`` device)."""
+        from repro_torch import checkpoint as ckpt
+
+        params, policy, _ = ckpt.load_serving_bundle(
+            directory, lm.init_params(cfg, device="meta"), step=step,
+            device=device,
+            validate=lambda p: p.validate(lm.enumerate_qlayers(cfg),
+                                          bits=cfg.bits))
+        return cls(cfg, params, policy, ctx, **kwargs)
+
 
 def draft_policy(policy: MPQPolicy, qlayers, bits,
                  draft_w_bits: int = 2) -> MPQPolicy:
@@ -271,6 +300,130 @@ class SpecSession(QuantizedSession):
         """Measured device bytes of the draft tree's packed codes: what a
         round reads k times."""
         return packing.tree_packed_bytes(self.draft_params)
+
+
+def bank_fingerprint(params) -> str:
+    """Fingerprint of the trained indicator-bank scales: every ``s_w`` /
+    ``s_a`` leaf in sorted "/"-path order, its path and then its float32
+    bytes, hashed -- the reference's bytes in the reference's order, so a
+    policy stamped by either package validates in the other. Policy
+    variants searched over the same banks carry this stamp in
+    ``meta["indicator_family"]``; ``MPQPolicy.validate(family=...)`` then
+    rejects a variant from another training, whose hot-swap would break
+    the shared activation-quantization contract."""
+    picked = []
+
+    def walk(node, keys):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, keys + (str(k),))
+        elif keys and keys[-1] in ("s_w", "s_a"):
+            picked.append((keys, node))
+
+    walk(params, ())
+    if not picked:
+        raise ValueError(
+            "no indicator-bank scale leaves (s_w/s_a) in params: cannot "
+            "fingerprint the bank family — was this checkpoint trained "
+            "with learned importance indicators?")
+    h = hashlib.sha1()
+    for keys, leaf in sorted(picked, key=lambda kv: kv[0]):
+        h.update("/".join(keys).encode())
+        h.update(np.asarray(leaf.detach().cpu().numpy(),
+                            np.float32).tobytes())
+    return h.hexdigest()[:16]
+
+
+class ElasticSession(QuantizedSession):
+    """A bank of policy variants for elastic precision serving: one set of
+    trained weights and indicator banks, one packed tree per ``MPQPolicy``
+    variant (e.g. 3/4/6-bit average budgets searched over the same banks,
+    ``launch.elastic.build_variant_bank``). Every variant packs once at
+    build, through the policy swap ``SpecSession`` packs its draft with;
+    ``set_active`` then hands the engine a resident pre-packed tree, so
+    nothing is packed on the serving path.
+
+    Per-variant state follows the active variant: ``policy``,
+    ``pack_health`` and ``route_counts`` (each variant tallies its own
+    routes: a swap moves sites between the int8, nib4 and sub-byte-unpack
+    matmul routes). The act-reuse groups live in each packed tree.
+
+    The build fails if a variant's ``meta["indicator_family"]`` stamp is
+    not ``bank_fingerprint(params)``."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 variants: Mapping[str, MPQPolicy],
+                 ctx: Optional[QuantContext] = None, *,
+                 active: Optional[str] = None, mode: str = "packed",
+                 kv_quant: str = "int8"):
+        if mode != "packed":
+            raise ValueError(
+                "ElasticSession packs N policy variants over one weight "
+                "set; mode='reference' keeps fake-quant params and has "
+                "nothing to swap — build a plain QuantizedSession instead")
+        items = [(str(pid), pol) for pid, pol in variants.items()]
+        if len(items) < 2:
+            raise ValueError(
+                "ElasticSession needs >= 2 policy variants; a single "
+                "policy is a plain QuantizedSession")
+        family = bank_fingerprint(params)
+        qlayers = lm.enumerate_qlayers(cfg)
+        for pid, pol in items:
+            try:
+                pol.validate(qlayers, bits=cfg.bits, family=family)
+            except ValueError as e:
+                raise ValueError(f"policy variant {pid!r}: {e}") from e
+        by_id = dict(items)
+        active = items[0][0] if active is None else str(active)
+        if active not in by_id:
+            raise ValueError(
+                f"active variant {active!r} not in bank {sorted(by_id)}")
+        super().__init__(cfg, params, by_id[active], ctx, kv_quant=kv_quant)
+        self.family = family
+        self.active_policy = active
+        self.variant_policies: Dict[str, MPQPolicy] = by_id
+        self.variants: Dict[str, Any] = {active: self.params}
+        self.variant_pack_health: Dict[str, Dict[str, Dict[str, float]]] = {
+            active: self.pack_health}
+        self.variant_route_counts: Dict[str, dispatch.Counts] = {
+            pid: (self.route_counts if pid == active else dispatch.Counts())
+            for pid, _ in items}
+        for pid, pol in items:
+            if pid == active:
+                continue
+            keep_policy, keep_health = self.policy, self.pack_health
+            self.policy, self.pack_health = pol, {}
+            try:
+                self.variants[pid] = self._build_params(params)
+                self.variant_pack_health[pid] = self.pack_health
+            finally:
+                self.policy, self.pack_health = keep_policy, keep_health
+
+    # -- variant bank -------------------------------------------------------
+    def params_for(self, pid: str):
+        """The pre-packed param tree of one variant (no packing here)."""
+        return self.variants[str(pid)]
+
+    def set_active(self, pid: str):
+        """Make ``pid`` the serving variant (``policy``, ``pack_health``,
+        ``route_counts`` and ``packed_bytes`` follow) and return its
+        resident pre-packed tree."""
+        pid = str(pid)
+        if pid not in self.variants:
+            raise KeyError(
+                f"unknown policy variant {pid!r}: {sorted(self.variants)}")
+        self.active_policy = pid
+        self.policy = self.variant_policies[pid]
+        self.pack_health = self.variant_pack_health[pid]
+        self.route_counts = self.variant_route_counts[pid]
+        self.params = self.variants[pid]
+        return self.params
+
+    def variant_bytes(self) -> Dict[str, int]:
+        """Measured device bytes of each resident variant's packed codes:
+        what keeping the whole bank on the card costs."""
+        return {pid: packing.tree_packed_bytes(tree)
+                for pid, tree in self.variants.items()}
 
 
 def _tag_act_groups(sp, packed_paths, site_key: str) -> None:

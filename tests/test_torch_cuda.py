@@ -1073,3 +1073,72 @@ def test_rwkv_engine_on_the_card_launches_wkv_in_prefill_only(dev,
     compared, bad, _ = tserve.check_greedy(cfg, params, policy, reqs, out,
                                            **kw)
     assert not bad and compared > 0
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_elastic_engine_on_the_card_swaps_without_packing(dev, monkeypatch,
+                                                          layout):
+    """The elastic engine at smoke size through the kernels: a ramp of
+    arrivals downshifts the bank once the slots drain, nothing is packed
+    after the bank is built, the matmul kernels and the layout's attention
+    kernel launch, no kernel-eligible matmul of any variant falls back to
+    dequant-fp, and every completion is bit for bit its variant's
+    single-policy packed engine on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import elastic
+    from repro_torch.launch import engine as teng
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.runtime import packing
+    from repro_torch.runtime.session import (ElasticSession,
+                                             QuantizedSession,
+                                             bank_fingerprint)
+    cfg = smoke_config("limpq-demo")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    bank = elastic.build_variant_bank(lm.enumerate_qlayers(cfg), cfg.bits,
+                                      (3.0, 4.0, 6.0),
+                                      family=bank_fingerprint(params))
+    sess = ElasticSession(cfg, params, bank.policies,
+                          tserve.make_context(cfg), active=bank.full)
+    reqs = tserve.build_requests(SyntheticLM(cfg), 8, 16, 6, stagger=True,
+                                 arrive_every=1,
+                                 share_prefix=8 if layout == "paged" else 0)
+    packs = []
+    real = packing.pack_linear
+    monkeypatch.setattr(packing, "pack_linear",
+                        lambda *a, **kw: packs.append(1) or real(*a, **kw))
+    ecfg = teng.EngineConfig(slots=2, cache_len=32, prefill_chunk=16,
+                             kv_quant="int8", kv_layout=layout)
+    eng = teng.DecodeEngine(sess.params, cfg, None, sess.ctx, adapter=sess,
+                            device=dev, ecfg=ecfg,
+                            elastic=elastic.ElasticController(
+                                cfg, bank, slots=2, cache_len=32))
+    eng.submit_all(reqs)
+    n0 = dict(ops.launches)
+    out = eng.run()
+    launched = {k: ops.launches[k] - n0[k] for k in n0}
+    assert not packs
+    st = eng.stats
+    assert st.policy_swaps_down >= 1 and st.admissions_deferred_swap >= 1
+    attn = "decode_attn_quant" + ("_paged" if layout == "paged" else "")
+    assert launched["quant_matmul"] > 0 and launched["quant_matmul_w4"] > 0
+    assert launched[attn] > 0
+    assert all(c.eligible_fp == 0 for c in sess.variant_route_counts.values())
+    assert obs_trace.reconcile(eng.trace, st.as_dict()) == []
+    per_variant = {}
+    for c in out.values():
+        per_variant.setdefault(c.policy_id, []).append(c.rid)
+    assert len(per_variant) >= 2
+    monkeypatch.setattr(packing, "pack_linear", real)
+    for pid, rids in per_variant.items():
+        one = QuantizedSession(cfg, params, bank.policies[pid],
+                               tserve.make_context(cfg))
+        e1 = teng.DecodeEngine(one.params, cfg, None, one.ctx, adapter=one,
+                               device=dev, ecfg=ecfg)
+        e1.submit_all([r for r in reqs if r.rid in set(rids)])
+        o1 = e1.run()
+        assert all(o1[r].tokens == out[r].tokens for r in rids), pid
+    if layout == "paged":
+        eng.pool.check()

@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.dist, repro_torch.dist.roofline, repro_torch.obs, "
             "repro_torch.obs.calibrate, repro_torch.obs.health, "
             "repro_torch.obs.trace, repro_torch.obs.export, "
-            "repro_torch.obs.monitor\n"
+            "repro_torch.obs.monitor, repro_torch.checkpoint, "
+            "repro_torch.launch.elastic\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.')))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
