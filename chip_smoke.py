@@ -12,18 +12,24 @@ In order:
    wkv kernels (wkv must not spill);
 2. kernel phases: hold each kernel against its plain PyTorch version on the
    card at the main paths' Qwen3-0.6B shapes -- both matmuls (int8 and
-   nib4 weights, at M = 4 and M = 128, also at the RWKV6-7B projection
-   shapes, each nib4 time printed beside the int8 one),
+   nib4 weights, at M = 4 and M = 128, also at the RWKV6-7B and
+   StarCoder2-7B projection shapes, bit for bit, each nib4 time printed
+   beside the int8 one),
    fake-quant forward and its dv bit for bit (atol 0), the fake-quant ds
    to rtol 1e-4 of |ds| plus 1e-6 of sum |g * dsd| (float32 sums in
    another order, over up to 155M terms), int8 decode attention on the ring
    and on pooled pages (permuted page ids, pages shared between slots,
    unmapped table entries, evicted rows, a slot at query position -1) to
    rtol 2e-5 / atol 2e-6 (and, on the ring, bit for bit a launch on q
-   pre-scaled on the card: the kernel's own q scale), the S-query verify
+   pre-scaled on the card: the kernel's own q scale; on pages, bit for bit
+   the ring kernel on the gathered view), the S-query verify
    attention on both layouts to rtol 2e-5 / atol 2e-6 and bit for bit
    against S one-token launches, each attention row with its split over
-   cache rows (rows per block, splits, blocks); flash forward to 2e-5
+   cache rows (rows per block, splits, query groups, blocks); all four
+   attention launches also past 8 query heads per kv head, at
+   StarCoder2-7B's shape (KV 4, G 9, its 4096-row window, and a 48-row
+   window that masks rows of the 320-row ring) and Granite-20B's (KV 1,
+   G 48), timed beside the G = 2 rows; flash forward to 2e-5
    (out) / 1e-5 (lse) -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
@@ -36,7 +42,18 @@ In order:
    launches exactly as the schedule implies (per pass 394 / 394 / 28);
    (b) every loss and gradient norm finite; (c) the backbone bit for bit
    unchanged by the importance steps, every bank moved; (d) the searched
-   policy valid and within its budget;
+   policy valid and within its budget; (f) one QAT step's loss and
+   gradients with ``remat=False`` and ``remat=True`` bit for bit, each with
+   the launches its schedule implies (with remat each body unit's
+   fake-quant and flash forwards run twice: 786 / 394 / 56), their peak
+   device memory and ms printed; (g) the HAWQ baseline
+   (``core.hessian``, 4 probes) on the trained params at 28 layers and the
+   first batch cut to ``HAWQ_S`` = 1024 tokens: every trace finite, the
+   table non-increasing in bits, the ILP on it a valid policy within the
+   same budget, its time beside the importance steps'; (h) its
+   Hessian-vector product at 2 layers and S = 2048 (the plain flash
+   baseline's second derivative) within 1e-3 (relative L2) of a float64
+   central difference of gradients;
 4. serve phase: Qwen3-0.6B at full width (28 layers, seeded random
    weights) under ``demo_mixed_policy`` (w-bits cycle 2..6, so both matmul
    kernels serve), 8 requests with staggered 128-256-token prompts and 32
@@ -160,6 +177,23 @@ In order:
     layers, 2048 bins, on the host), the decode-step p50 of each variant
     (from the trace's swap epochs) and each variant's kernel launches in one
     decode step.
+12. starcoder phase: starcoder2-7b at its published widths and depth (32
+    layers, d_model 4608, 36 / 4 heads of 128 -- 9 query heads per kv head,
+    two query groups of the attention kernel --, d_ff 18432, its 4096-row
+    sliding window, vocab 49152; seeded random weights, 7.40 B parameters,
+    29.6 GB in float32) under ``demo_mixed_policy``, the serve phase's 8
+    requests over 4 slots and a 320-row ring. Gates: (a) every ring kernel
+    launched, no kernel-eligible projection on dequant-fp, the attention
+    route fused; one decode step launches ``decode_attn_quant`` once per
+    layer (32); (c) packed bytes within 5%; (b) at the same widths with 2
+    layers: the run through every kernel token for token the same packed
+    session with both matmuls on their plain versions (exact integer sums),
+    and greedy tokens equal to the fake-quant reference's on every decisive
+    step in the run whose attention is the kernel and whose matmuls take
+    the dequant-fp route. The exact-sum runs (every kernel, the plain
+    matmuls, the dequant-fp route with float64 sums) against that
+    reference are printed, not gated: at these widths the reference's
+    float32 sums part from exact ones on near-ties (ROADMAP 3).
 
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
@@ -190,6 +224,10 @@ QWEN3_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
 # (K, N) of the RWKV6-7B projections: the time mix and channel-mix
 # receptance, channel-mix key, channel-mix value
 RWKV6_KN = [(4096, 4096), (4096, 14336), (14336, 4096)]
+# (K, N) of the StarCoder2-7B projections: wq and wo, wk/wv (4 kv heads),
+# the MLP's up and down projections
+STARCODER2_KN = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
+MATMUL_KN = QWEN3_KN + RWKV6_KN + STARCODER2_KN
 MAIN_KN = (1024, 3072)      # the summary row of each matmul: a decode GEMV
 PREFILL_M = 128             # the matmuls' prefill rows (M > 16: tensor cores)
 MAIN_SC = 320               # the summary row of decode attention: the serve ring
@@ -266,6 +304,12 @@ WKV_MAIN, WKV_TOL = WKV_CASES[0], 2e-4
 # RWKV serve phase prompts: seven multiples of the wkv chunk, one not
 RWKV_PROMPTS = [256, 128, 224, 160, 200, 192, 256, 128]
 RWKV_CHUNK = 32
+# attention past 8 query heads per kv head: (arch, KV, G, window) of
+# StarCoder2-7B (36 / 4 heads; its 4096-row window, which masks no row of
+# these caches, and a 48-row window that does) and Granite-20B (48 / 1),
+# each beside the Qwen3-0.6B rows (KV 8, G 2) at B = 4, hd 128
+WIDE_GQA = [("starcoder2-7b", 4, 9, 4096), ("starcoder2-7b", 4, 9, 48),
+            ("granite-20b", 1, 48, None)]
 ATTN_KERNELS = ("decode_attn_quant", "decode_attn_quant_paged",
                 "verify_attn_quant", "verify_attn_quant_paged", "flash_fwd")
 TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
@@ -281,6 +325,13 @@ SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # grid moves the gradients by a few percent. So the flash kernel runs on
 # both sides of the pass with activations quantized
 TRAIN_TOL = dict(loss_rtol=1e-5, grad_rel=1e-3)
+# the HAWQ baseline: Rademacher probes per trace (benchmarks/
+# hessian_baseline.py's n_samples), its sequence length at 28 layers (cut
+# below the flash threshold: at S = 2048 the double backward through the
+# plain flash baseline keeps every block's probabilities and their
+# gradients' graph, over the card's 80 GB), and its Hessian-vector product
+# against a float64 finite difference at 2 layers and S = 2048: relative L2
+HAWQ_SAMPLES, HAWQ_S, HVP_RTOL = 4, 1024, 1e-3
 
 
 class GateError(RuntimeError):
@@ -331,17 +382,21 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
                                         else "operations")
 
 
-def attn_split(ops, B: int, KV: int, Sc: int, S: int = 1) -> dict:
+def attn_split(ops, B: int, KV: int, Sc: int, S: int = 1, G: int = 2
+               ) -> dict:
     """The attention kernels' split of an Sc-row cache: rows per block (L),
-    splits per (slot, kv head, query) and the launch's blocks."""
+    splits per (slot, kv head, query), query groups (blocks per split,
+    each holding at most 8 of the G query rows) and the launch's blocks."""
     L = ops.attn_split_rows(B, KV, Sc)
     n = max(1, -(-Sc // L))
-    return dict(rows_per_split=L, n_split=n, blocks=B * KV * n * S)
+    n_grp = ops.attn_query_groups(G)[0]
+    return dict(rows_per_split=L, n_split=n, query_groups=n_grp,
+                blocks=B * KV * n * S * n_grp)
 
 
 def split_str(sp: dict) -> str:
     return (f"L={sp['rows_per_split']} splits={sp['n_split']} "
-            f"blocks={sp['blocks']}")
+            f"groups={sp['query_groups']} blocks={sp['blocks']}")
 
 
 def print_kernel_resources(_build, ops) -> None:
@@ -376,14 +431,15 @@ def print_kernel_resources(_build, ops) -> None:
 
 def matmul_phase(torch, ops, ref, flush, dev):
     """Both matmul kernels at M = 4 (decode: ``qmm_int8``'s split-K route)
-    and M = 128 (prefill: its tensor-core route) over the Qwen3-0.6B and
-    RWKV6-7B projection shapes, bit for bit their plain versions; the plain
-    versions run fewer timed reps at the RWKV6-7B shapes."""
+    and M = 128 (prefill: its tensor-core route) over the Qwen3-0.6B,
+    RWKV6-7B and StarCoder2-7B projection shapes, bit for bit their plain
+    versions; the plain versions run fewer timed reps at the shapes of 2**24
+    weights or more."""
     rows = []
     for w4 in (False, True):
         name = "quant_matmul_w4" if w4 else "quant_matmul"
         for M in (4, PREFILL_M):
-            for K, N in QWEN3_KN + RWKV6_KN:
+            for K, N in MATMUL_KN:
                 g = torch.Generator(device=dev).manual_seed(K * 31 + N + M)
                 x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                                   dtype=torch.int8)
@@ -438,7 +494,7 @@ def matmul_phase(torch, ops, ref, flush, dev):
     by_shape = {(r["name"], r["shape"]): r for r in rows}
     not_slower = 0
     for M in (4, PREFILL_M):
-        for K, N in QWEN3_KN + RWKV6_KN:
+        for K, N in MATMUL_KN:
             sh = f"M={M} K={K} N={N}"
             w4_ms = by_shape[("quant_matmul_w4", sh)]["ms"]
             i8_ms = by_shape[("quant_matmul", sh)]["ms"]
@@ -446,7 +502,7 @@ def matmul_phase(torch, ops, ref, flush, dev):
             print(f"[kernel] qmm_w4 vs qmm_int8 {sh}: {w4_ms:.4f} / "
                   f"{i8_ms:.4f} ms (x{w4_ms / i8_ms:.2f})", flush=True)
     print(f"[kernel] qmm_w4 no slower than qmm_int8 at {not_slower} of "
-          f"{2 * len(QWEN3_KN + RWKV6_KN)} shapes", flush=True)
+          f"{2 * len(MATMUL_KN)} shapes", flush=True)
     tiny = torch.empty(1024, device=dev)
     floor = cuda_ms(torch, tiny.zero_, flush)
     print(f"[kernel] timing floor: one 4 KB fill kernel {floor:.4f} ms under "
@@ -463,17 +519,21 @@ def matmul_phase(torch, ops, ref, flush, dev):
 def attn_phase(torch, ops, ref, flush, dev):
     import torch.nn.functional as F
     rows = []
-    B, KV, G, hd = 4, 8, 2, 128
-    H = KV * G
-    for Sc in (320, 4096):
-        r = np.random.default_rng(Sc)
+    B, hd = 4, 128
+    cases = [("qwen3-0.6b", 8, 2, None, Sc) for Sc in (320, 4096)] + \
+        [(arch, KV, G, w, Sc) for arch, KV, G, w in WIDE_GQA
+         for Sc in (320, 4096)]
+    for arch, KV, G, window, Sc in cases:
+        H = KV * G
+        r = np.random.default_rng(Sc + (G if G > 2 else 0))
         q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, 3 * Sc], np.int32)
         pos = np.full((B, Sc), -1, np.int32)
         for b in range(B):                     # wrapped ring: slot t % Sc
             for t in range(max(0, q_pos[b] + 1 - Sc), q_pos[b] + 1):
                 pos[b, t % Sc] = t
         pos[1, r.integers(0, Sc, Sc // 5)] = -1          # evicted slots
-        g = torch.Generator(device=dev).manual_seed(Sc)
+        g = torch.Generator(device=dev).manual_seed(
+            Sc + (G if G > 2 else 0))
         kc = torch.randint(-127, 128, (B, Sc, KV, hd), generator=g,
                            device=dev, dtype=torch.int8)
         vc = torch.randint(-127, 128, (B, Sc, KV, hd), generator=g,
@@ -484,30 +544,35 @@ def attn_phase(torch, ops, ref, flush, dev):
         pos_t = torch.from_numpy(pos).to(dev)
         qp = torch.from_numpy(q_pos).to(dev)
         args = (q, kc, ks, vc, vs, pos_t, qp)
-        out = ops.decode_attn_quant(*args)
+        out = ops.decode_attn_quant(*args, window=window)
+        tag = f"{arch} Sc={Sc} KV={KV} G={G} window={window}"
 
         def plain():
             qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
-            return ref.decode_attn_quant_ref(qf, kc, ks, vc, vs, pos_t, qp)
+            return ref.decode_attn_quant_ref(qf, kc, ks, vc, vs, pos_t, qp,
+                                             window)
 
         want = plain().reshape(out.shape)
         # the kernel's own q * hd**-0.5 gives the bits of the pre-scale the
         # wrapper launched before: a launch on the pre-scaled q with scale 1
         prescaled = ops._quant_attn("decode_attn_quant", q * (hd ** -0.5),
-                                    kc, ks, vc, vs, pos_t, qp, None, None,
+                                    kc, ks, vc, vs, pos_t, qp, None, window,
                                     q_scale=1.0)
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
         gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
-             f"decode_attn_quant Sc={Sc} differs from its plain version "
+             f"decode_attn_quant {tag} differs from its plain version "
              f"(max |err| {err})")
         gate(bool(torch.equal(out, prescaled)),
-             f"decode_attn_quant Sc={Sc}: the in-kernel q scale differs from "
+             f"decode_attn_quant {tag}: the in-kernel q scale differs from "
              "the pre-scaled launch")
         # yardstick: SDPA on the dequantized cache under the same mask
         kd = (kc.float() * ks[..., None]).permute(0, 2, 1, 3).contiguous()
         vd = (vc.float() * vs[..., None]).permute(0, 2, 1, 3).contiguous()
-        mask = ((pos_t >= 0) & (pos_t <= qp[:, None]))[:, None, None, :]
+        valid = (pos_t >= 0) & (pos_t <= qp[:, None])
+        if window is not None:
+            valid &= qp[:, None] - pos_t < window
+        mask = valid[:, None, None, :]
         qh = q.permute(0, 2, 1, 3).contiguous()
 
         def sdpa():
@@ -521,14 +586,15 @@ def attn_phase(torch, ops, ref, flush, dev):
                    + B * H * hd * 4 + B * 4 + B * H * hd * 4)
         b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * Sc * hd, F32_OPS_PER_S)
         rows.append(dict(
-            name="decode_attn_quant", shape=f"B={B} Sc={Sc} KV={KV} G={G} "
-            f"hd={hd}", max_abs_err=err,
-            ms=cuda_ms(torch, lambda: ops.decode_attn_quant(*args), flush),
+            name="decode_attn_quant", shape=f"B={B} {tag} hd={hd}",
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: ops.decode_attn_quant(
+                *args, window=window), flush),
             plain_ms=cuda_ms(torch, plain, flush),
             library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
-            bound_by=b_by, main=Sc == MAIN_SC, q_scale_bitwise=True,
-            split=attn_split(ops, B, KV, Sc)))
-        print(f"[kernel] decode_attn_quant Sc={Sc:<5d} err={err:.1e} "
+            bound_by=b_by, main=Sc == MAIN_SC and G == 2,
+            q_scale_bitwise=True, split=attn_split(ops, B, KV, Sc, G=G)))
+        print(f"[kernel] decode_attn_quant {tag} err={err:.1e} "
               f"{split_str(rows[-1]['split'])} "
               f"ms={rows[-1]['ms']:.4f} plain={rows[-1]['plain_ms']:.4f} "
               f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
@@ -569,14 +635,17 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
     import torch.nn.functional as F
     from repro_torch.runtime.kv_cache import PagedKVCache
     rows_out = []
-    B, KV, G, hd = 4, 8, 2, 128
-    H = KV * G
-    for ps, rows in PAGED_CASES:
+    B, hd = 4, 128
+    cases = [("qwen3-0.6b", 8, 2, None, ps, rows) for ps, rows in PAGED_CASES] \
+        + [(arch, KV, G, w) + PAGED_MAIN for arch, KV, G, w in WIDE_GQA]
+    for arch, KV, G, window, ps, rows in cases:
+        H = KV * G
         P = rows // ps
-        r = np.random.default_rng(rows + ps)
+        seed = rows + ps + (G if G > 2 else 0)
+        r = np.random.default_rng(seed)
         table, pos, q_pos = _paged_pool(r, B, P, ps)
         n_pages = pos.shape[0]
-        g = torch.Generator(device=dev).manual_seed(rows + ps)
+        g = torch.Generator(device=dev).manual_seed(seed)
         kp = torch.randint(-127, 128, (n_pages, ps, KV, hd), generator=g,
                            device=dev, dtype=torch.int8)
         vp = torch.randint(-127, 128, (n_pages, ps, KV, hd), generator=g,
@@ -588,12 +657,12 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
         tbl = torch.from_numpy(table).to(dev)
         qp = torch.from_numpy(q_pos).to(dev)
         args = (q, kp, ks, vp, vs, pos_t, tbl, qp)
-        out = ops.decode_attn_quant_paged(*args)
+        out = ops.decode_attn_quant_paged(*args, window=window)
 
         def plain():
             qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
             return ref.decode_attn_quant_paged_ref(qf, kp, ks, vp, vs, pos_t,
-                                                   tbl, qp)
+                                                   tbl, qp, window)
 
         want = plain().reshape(out.shape)
         # the ring kernel on the dense view PagedKVCache.gather() builds
@@ -602,21 +671,29 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
                                      dense.k_scale.contiguous(),
                                      dense.v.contiguous(),
                                      dense.v_scale.contiguous(),
-                                     dense.pos.contiguous(), qp)
+                                     dense.pos.contiguous(), qp,
+                                     window=window)
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
-        tag = f"ps={ps} rows={rows}"
+        tag = (f"ps={ps} rows={rows}" if G == 2 else
+               f"{arch} ps={ps} rows={rows} KV={KV} G={G} window={window}")
         gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
              f"decode_attn_quant_paged {tag} differs from its plain version "
              f"(max |err| {err})")
         bitwise = bool(torch.equal(out, ring))
+        gate(bitwise,
+             f"decode_attn_quant_paged {tag} differs from the ring kernel on "
+             "the gathered view")
         # yardstick: SDPA on the dequantized gathered cache under the same
         # mask; the gather and dequantization stay outside the timed call
         kd = (dense.k.float() * dense.k_scale[..., None]).permute(0, 2, 1, 3) \
             .contiguous()
         vd = (dense.v.float() * dense.v_scale[..., None]).permute(0, 2, 1, 3) \
             .contiguous()
-        mask = ((dense.pos >= 0) & (dense.pos <= qp[:, None]))[:, None, None, :]
+        valid = (dense.pos >= 0) & (dense.pos <= qp[:, None])
+        if window is not None:
+            valid &= qp[:, None] - dense.pos < window
+        mask = valid[:, None, None, :]
         qh = q.permute(0, 2, 1, 3).contiguous()
 
         def sdpa():
@@ -639,12 +716,12 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
             name="decode_attn_quant_paged", shape=f"B={B} P={P} {tag} "
             f"KV={KV} G={G} hd={hd}", max_abs_err=err,
             equals_ring_kernel_on_gathered_view=bitwise,
-            ms=cuda_ms(torch, lambda: ops.decode_attn_quant_paged(*args),
-                       flush),
+            ms=cuda_ms(torch, lambda: ops.decode_attn_quant_paged(
+                *args, window=window), flush),
             plain_ms=cuda_ms(torch, plain, flush),
             library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
-            bound_by=b_by, main=(ps, rows) == PAGED_MAIN,
-            split=attn_split(ops, B, KV, rows)))
+            bound_by=b_by, main=(ps, rows) == PAGED_MAIN and G == 2,
+            split=attn_split(ops, B, KV, rows, G=G)))
         print(f"[kernel] decode_attn_quant_paged {tag:16s} err={err:.1e} "
               f"ring-kernel-on-gathered-view bitwise={bitwise} "
               f"{split_str(rows_out[-1]['split'])} "
@@ -670,11 +747,14 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
     import torch.nn.functional as F
     from repro_torch.runtime.kv_cache import PagedKVCache
     rows_out = []
-    B, KV, hd, Sc = 4, 8, 128, MAIN_SC
-    cases = [("ring", S, G, w, None) for S, G, w in VERIFY_CASES] + \
-        [("paged", S, 2, None, (ps, rows)) for ps, rows, S in
-         VERIFY_PAGED_CASES]
-    for kind, S, G, window, pr in cases:
+    B, hd, Sc = 4, 128, MAIN_SC
+    cases = [("ring", S, G, w, None, 8, None) for S, G, w in VERIFY_CASES] + \
+        [("paged", S, 2, None, (ps, rows), 8, None) for ps, rows, S in
+         VERIFY_PAGED_CASES] + \
+        [(kind, SPEC_K + 1, G, w, PAGED_MAIN if kind == "paged" else None,
+          KV, arch) for arch, KV, G, w in WIDE_GQA
+         for kind in ("ring", "paged")]
+    for kind, S, G, window, pr, KV, arch in cases:
         H = KV * G
         r = np.random.default_rng(S * 100 + G * 10 + (window or 0)
                                   + (pr[0] * 7 + pr[1] if pr else 0))
@@ -723,7 +803,8 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
         ones = unrolled()
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
-        tag = (f"{kind} S={S} G={G} window={window}"
+        tag = ((f"{arch} " if arch else "")
+               + f"{kind} S={S} G={G} window={window}"
                + (f" ps={pr[0]} rows={pr[1]}" if paged else f" Sc={Sc}"))
         gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
              f"verify {tag} differs from its plain version (max |err| {err})")
@@ -734,8 +815,9 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
         row = dict(name=kern.__name__, shape=f"B={B} {tag} KV={KV} hd={hd}",
                    max_abs_err=err, equals_one_token_launches=True,
                    main=main, split=attn_split(ops, B, KV,
-                                               pr[1] if paged else Sc, S))
-        if main:
+                                               pr[1] if paged else Sc, S,
+                                               G=G))
+        if main or arch:
             # this run's work: the cache (each distinct mapped page once),
             # q, positions and out; every query attends every row
             if paged:
@@ -757,8 +839,10 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
             # per-query mask; dequantization stays outside the timed call
             kd = (kd_.float() * ks_[..., None]).permute(0, 2, 1, 3).contiguous()
             vd = (vd_.float() * vs_[..., None]).permute(0, 2, 1, 3).contiguous()
-            mask = ((p_[:, None, :] >= 0)
-                    & (p_[:, None, :] <= qp[:, :, None]))[:, None]
+            valid = (p_[:, None, :] >= 0) & (p_[:, None, :] <= qp[:, :, None])
+            if window is not None:
+                valid &= qp[:, :, None] - p_[:, None, :] < window
+            mask = valid[:, None]
             qh = q.permute(0, 2, 1, 3).contiguous()
 
             def sdpa():
@@ -1163,7 +1247,170 @@ def train_phase(torch, ops, dev):
                ilp_ms=sr.elapsed_s * 1e3, ilp_solver=sr.solver,
                avg_bits=[w_avg, a_avg], bitops=sr.bitops,
                bitops_budget=budget, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # 6. remat: the QAT step's loss and gradients with and without it
+    res["remat"] = remat_check(torch, ops, cfg, ctx, bits, params,
+                               batch(IMP_STEPS), n_proj)
+    # 7. the HAWQ baseline on the trained params and the first batch, its
+    # table through the same ILP; the indicators' cost beside it
+    res["hawq"] = hawq_check(torch, ops, dev, cfg, ql, params, batch(0),
+                             budget, sum(imp_ms))
     return total, res, params, sr.policy
+
+
+def remat_check(torch, ops, cfg, ctx, bits, params, batch, n_proj):
+    """(f) one QAT step's loss and gradients (forward + backward) with
+    ``remat=False`` and with ``remat=True`` on the same params and batch:
+    equal bit for bit (the recompute runs the same deterministic kernels on
+    the same inputs); the launches the schedule implies (each body unit's
+    forward runs again in the backward: its fake-quant forwards -- two per
+    projection -- and its flash forward; the pinned table's two stay
+    outside the units); the peak device memory and ms of both."""
+    from repro_torch.models import lm
+    from repro_torch.training import value_and_grad
+    expect = {False: dict(fake_quant_fwd=2 * n_proj + 2,
+                          fake_quant_bwd=2 * n_proj + 2,
+                          flash_fwd=cfg.n_layers),
+              True: dict(fake_quant_fwd=4 * n_proj + 2,
+                         fake_quant_bwd=2 * n_proj + 2,
+                         flash_fwd=2 * cfg.n_layers)}
+    runs, res = {}, {}
+    # twice each, in turns; the second of each is kept (the first call
+    # through torch.utils.checkpoint pays a one-time set-up of seconds)
+    for remat in (False, True, False, True):
+        runs.pop(remat, None)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _, g = value_and_grad(lambda p: lm.loss_fn(
+            p, cfg, batch, bits, ctx, remat=remat), params)
+        ms = sync_ms(torch, t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k: ops.launches[k] for k in TRAIN_KERNELS}
+        gate(got == expect[remat], f"[remat={remat}] launches {got}, "
+             f"expected {expect[remat]}")
+        runs[remat] = (loss, dict(_tree_leaves(g)))
+        res[f"remat_{remat}"] = dict(ms=ms, peak_mem_gb=peak,
+                                     above_start_gb=peak - base,
+                                     launches=got, loss=float(loss))
+        print(f"[train] remat={remat}: QAT loss and gradients in {ms:.0f} ms, "
+              f"peak device memory {peak:.2f} GiB ({peak - base:.2f} GiB "
+              f"above the {base:.2f} GiB held before it), launches {got}",
+              flush=True)
+    (l0, g0), (l1, g1) = runs[False], runs[True]
+    differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    gate(torch.equal(l0, l1) and not differ,
+         f"remat changed the loss ({float(l0)!r} vs {float(l1)!r}) or "
+         f"{len(differ)} gradients: {differ[:4]}")
+    print(f"[train] remat on and off: loss and all {len(g0)} gradients bit "
+          f"for bit", flush=True)
+    return res
+
+
+def hawq_check(torch, ops, dev, cfg, ql, params, batch, budget, ind_ms):
+    """(g) ``hessian.hawq_sensitivities``' two halves on the trained params
+    at full width and depth (``HAWQ_SAMPLES`` Rademacher probes, the
+    batch's first ``HAWQ_S`` tokens): every trace finite,
+    every layer's sensitivity non-increasing in bits, the ILP on the table
+    under the uniform-3-bit BitOps budget a valid policy within it; the
+    time beside the indicators' (the importance steps), as
+    ``benchmarks/hessian_baseline.py`` prints ``ours`` against ``hawq``.
+    Then (h) the Hessian-vector product against a float64 central finite
+    difference of gradients at 2 layers."""
+    from repro_torch.core import hessian, search
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cut = {"tokens": batch["tokens"][:, :HAWQ_S].contiguous()}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traces = hessian.hutchinson_traces(params, cfg, cut, ql, gen,
+                                       n_samples=HAWQ_SAMPLES)
+    trace_ms = sync_ms(torch, t0)
+    t0 = time.perf_counter()
+    perturb = hessian.quantization_perturbations(params, cfg, ql)
+    perturb_ms = sync_ms(torch, t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gate(ops.launches["flash_fwd"] == 0,
+         "the Hessian's loss reached the flash kernel")
+    bad = [n for n, t in traces.items() if not math.isfinite(t)]
+    gate(not bad, f"non-finite traces: {bad[:4]}")
+    table = hessian.sensitivity_table(ql, traces, perturb)
+    rising = [n for n, t in table.items()
+              if not (np.all(np.isfinite(t["w"]))
+                      and np.all(np.diff(t["w"]) <= 0))]
+    gate(not rising, f"HAWQ sensitivities not non-increasing in bits: "
+         f"{rising[:4]}")
+    sr = search.search_policy(ql, table, cfg.bits, alpha=1.0,
+                              bitops_budget=budget)
+    sr.policy.validate(ql, bits=cfg.bits)
+    gate(sr.bitops <= budget * (1 + 1e-6),
+         f"HAWQ policy BitOps {sr.bitops} over budget {budget}")
+    t = np.array(list(traces.values()))
+    print(f"[train] HAWQ ({HAWQ_SAMPLES} probes, {cfg.n_layers} layers, "
+          f"S={HAWQ_S}): traces {trace_ms:.0f} ms + "
+          f"perturbations {perturb_ms:.0f} ms, peak device memory "
+          f"{peak:.2f} GiB; traces min {t.min():.4g} median "
+          f"{np.median(t):.4g} max {t.max():.4g}; ILP on its table: avg "
+          f"bits w={sr.policy.avg_bits()[0]:.3f}, BitOps {sr.bitops:.4g} <= "
+          f"{budget:.4g}; criterion cost ours (the importance steps, "
+          f"S={batch['tokens'].shape[1]}) {ind_ms:.0f} ms vs hawq "
+          f"{trace_ms + perturb_ms:.0f} ms",
+          flush=True)
+    res = dict(trace_ms=trace_ms, perturb_ms=perturb_ms, S=HAWQ_S,
+               peak_mem_gb=peak, samples=HAWQ_SAMPLES,
+               trace_min=float(t.min()), trace_max=float(t.max()),
+               avg_bits=list(sr.policy.avg_bits()), bitops=sr.bitops,
+               indicators_ms=ind_ms)
+    res["hvp_vs_fd"] = hvp_fd_check(torch, dev, cfg.scaled(n_layers=2),
+                                    batch)
+    return res
+
+
+def hvp_fd_check(torch, dev, cfg, batch, eps: float = 1e-4):
+    """(h) the float32 reverse-over-reverse Hessian-vector product of
+    ``hessian.full_precision_loss`` against a float64 central difference
+    of its gradients, (g(w + eps v) - g(w - eps v)) / (2 eps), on one
+    Rademacher probe over every QLayer weight: relative L2 within
+    ``HVP_RTOL``. At S = 2048 the attention is the plain flash baseline,
+    so this holds its second derivative."""
+    from repro_torch.core import hessian
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, seed=0, device=dev)
+    ql = lm.enumerate_qlayers(cfg)
+    loss, w = hessian.full_precision_loss(params, cfg, batch, ql)
+    keys = list(w)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    v = [hessian.rademacher(w[k].shape, gen, dev) for k in keys]
+    (_, hv), = hessian.hessian_vector_products(loss, [w[k] for k in keys],
+                                               [v])
+    del loss
+
+    def grad64(sign):
+        moved = hessian.with_weights(params, ql, {
+            k: w[k].detach().double() + sign * eps * p.double()
+            for k, p in zip(keys, v)})
+        loss64, w64 = hessian.full_precision_loss(moved, cfg, batch, ql,
+                                                  torch.float64)
+        return torch.autograd.grad(loss64, [w64[k] for k in keys])
+
+    gp = grad64(1.0)
+    gm = grad64(-1.0)
+    fd = [(a - b) / (2 * eps) for a, b in zip(gp, gm)]
+    num = sum(float(((h.double() - f) ** 2).sum()) for h, f in zip(hv, fd))
+    den = sum(float((f ** 2).sum()) for f in fd)
+    rel = (num / den) ** 0.5
+    vhv = [(float((p.double() * h.double()).sum()),
+            float((p.double() * f).sum())) for p, h, f in zip(v, hv, fd)]
+    print(f"[train] HVP at {cfg.n_layers} layers, S={batch['tokens'].shape[1]}:"
+          f" float32 reverse-over-reverse vs float64 central difference "
+          f"(eps {eps}) relative L2 {rel:.2e} over {len(keys)} weight leaves; "
+          f"<v, Hv> first leaf {vhv[0][0]:.6g} vs {vhv[0][1]:.6g}", flush=True)
+    gate(rel <= HVP_RTOL, f"the HVP differs from the float64 finite "
+         f"difference by {rel:.3e} relative L2")
+    return dict(rel_l2=rel, eps=eps, layers=cfg.n_layers, vhv=vhv)
 
 
 def profile_device(torch, fn, top: int = 8, watch=()):
@@ -1260,7 +1507,8 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
     def once():
         ops.reset_launches()
         loss, _, g = value_and_grad(
-            lambda p: lm.loss_fn(p, cfg, batch, bits, ctx), params)
+            lambda p: lm.loss_fn(p, cfg, batch, bits, ctx, remat=False),
+            params)
         torch.cuda.synchronize()
         return float(loss), dict(_tree_leaves(g)), dict(ops.launches)
 
@@ -2323,6 +2571,204 @@ def serve_cli_phase(torch, ops, dev, card):
     return res
 
 
+@contextlib.contextmanager
+def plain_matmuls(ops):
+    """Both matmul wrappers replaced by their plain versions for the scope
+    (the packed dispatch looks them up on ``ops`` at each call); nothing
+    is launched or counted."""
+    from repro_torch.kernels import ref
+    saved = ops.quant_matmul, ops.quant_matmul_w4
+    ops.quant_matmul, ops.quant_matmul_w4 = (ref.quant_matmul_ref,
+                                             ref.quant_matmul_w4_ref)
+    try:
+        yield
+    finally:
+        ops.quant_matmul, ops.quant_matmul_w4 = saved
+
+
+@contextlib.contextmanager
+def float64_sums(torch, dispatch):
+    """The dequant-fp route's einsum over float64 operands for the scope,
+    cast back to the compute dtype: the fake-quant graph's op chain with
+    the sums exact to float64."""
+    saved = dispatch.REGISTRY["dequant-fp"]
+
+    def f64(eqn, x, pl, ctx):
+        xq = dispatch.act_fake_quant(x, pl, ctx).to(torch.float64)
+        return torch.einsum(eqn, xq, pl.dequant(torch.float64)).to(
+            ctx.compute_dtype)
+
+    dispatch.REGISTRY["dequant-fp"] = f64
+    try:
+        yield
+    finally:
+        dispatch.REGISTRY["dequant-fp"] = saved
+
+
+def starcoder_serve_phase(torch, ops, dev):
+    """starcoder2-7b at full width and depth over the ring: 9 query heads
+    per kv head, past one query group of the attention kernel (module
+    docstring, phase 12); the weights are freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.session import summarize
+
+    cfg = get_config("starcoder2-7b")
+    G = cfg.n_heads // cfg.n_kv_heads
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    n_params = lm.param_count(params)
+    policy = serve.demo_mixed_policy(cfg)
+    reqs = serve_requests(cfg)
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev)
+    torch.cuda.synchronize()
+    print(f"[starcoder] {cfg.name}: {cfg.n_layers} layers "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"(G={G}, {ops.attn_query_groups(G)[0]} query groups) "
+          f"head_dim={cfg.hd} d_ff={cfg.d_ff} window={cfg.sliding_window} "
+          f"vocab={cfg.vocab}, {n_params} parameters "
+          f"({4 * n_params / 1e9:.1f} GB f32), init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    sess, eng, out = serve.serve_quantized(cfg, params, policy, reqs, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    print(f"[starcoder] ring KV: {len(out)} requests in {wall:.2f}s wall "
+          f"(packing included): prefill p50 {d['prefill_p50_ms']:.2f} ms, "
+          f"decode step p50 {d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens); peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(f"[starcoder] launches {launches}; routes "
+          f"{sess.route_counts.routes}", flush=True)
+    # (a) every serving kernel of the ring launched, none fell back
+    gate(all(launches[k] > 0 for k in RING_KERNELS)
+         and launches["decode_attn_quant_paged"] == 0,
+         f"starcoder2 serving launched {launches}")
+    gate(sess.route_counts.eligible_fp == 0,
+         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
+         "dequant-fp")
+    gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    # one decode step: the attention kernel once per layer
+    step = step_launches(torch, ops, sess, dev)
+    gate(step.get("decode_attn_quant") == cfg.n_layers,
+         f"one starcoder2 decode step launched {step}, expected "
+         f"{cfg.n_layers} decode_attn_quant")
+    print(f"[starcoder] one decode step launches {step}", flush=True)
+    # (c) packed bytes vs the policy's accounting
+    s = summarize(sess)
+    print(f"[starcoder] packed weights {s['packed_bytes']} B vs policy "
+          f"{s['policy_bytes']:.0f} B (x{s['packed_vs_policy']:.4f})",
+          flush=True)
+    gate(abs(s["packed_vs_policy"] - 1.0) <= 0.05,
+         f"packed bytes off the policy accounting by x{s['packed_vs_policy']}")
+    # (b) greedy tokens at the same widths with 2 layers (as the rwkv
+    # phase; the full-depth reference engines would add about a minute).
+    # The run through every kernel is held token for token to the same
+    # packed session with both matmuls on their plain versions (exact
+    # integer sums in float64, ``ref.quant_matmul_ref``): a kernel fault at
+    # any shape or row count of this path parts the two. The fake-quant
+    # reference's decisive steps (serve.check_greedy's rule) gate the run
+    # whose attention is the kernel under repair (G = 9, two query groups)
+    # and whose matmuls take the dequant-fp route, the fake-quant graph's
+    # own op chain. Against that reference the exact-sum runs are printed:
+    # at StarCoder2's widths (K up to 18432) the float32 sums of the
+    # reference part from exact ones by enough to flip activation codes,
+    # so every exact-sum evaluation -- the kernels, their plain versions,
+    # and the dequant-fp graph with float64 sums -- parts from it on
+    # near-ties (ROADMAP 3)
+    n_tok = sum(len(c.tokens) for c in out.values())
+    del sess, eng, params
+    torch.cuda.empty_cache()
+    cut = cfg.scaled(n_layers=2)
+    params = lm.init_params(cut, seed=0, device=dev)
+    policy_cut = serve.demo_mixed_policy(cut)
+    mm = ("quant_matmul", "quant_matmul_w4")
+
+    def served(label):
+        n0 = {k: ops.launches[k] for k in mm + ("decode_attn_quant",)}
+        s_, _, o = serve.serve_quantized(cut, params, policy_cut, reqs, **kw)
+        n = {k: ops.launches[k] - n0[k] for k in n0}
+        print(f"[starcoder] {cut.n_layers} layers, {label}: launches {n}, "
+              f"routes {s_.route_counts.routes}", flush=True)
+        gate(n["decode_attn_quant"] > 0
+             and set(s_.route_counts.routes["decode_attn"]) == {"fused"},
+             f"{label}: attention launched {n}, routes "
+             f"{s_.route_counts.routes}")
+        return o, n
+
+    out_kern, n_kern = served("every kernel")
+    with plain_matmuls(ops):
+        out_plain, n_plain = served("matmuls on their plain versions")
+    with dispatch.force_route("matmul", "dequant-fp"):
+        out_attn, n_attn = served("matmuls dequant-fp")
+        with float64_sums(torch, dispatch):
+            out_f64, n_f64 = served("matmuls dequant-fp, float64 sums")
+    gate(all(n_kern[k] > 0 for k in mm)
+         and not any(n[k] for n in (n_plain, n_attn, n_f64) for k in mm),
+         f"matmul launches: every kernel {n_kern}, controls {n_plain} / "
+         f"{n_attn} / {n_f64}")
+    same_plain = [r.rid for r in reqs
+                  if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
+    print(f"[starcoder] {cut.n_layers} layers: every kernel vs the matmuls' "
+          f"plain versions: {len(same_plain)} of {len(reqs)} requests token "
+          f"for token", flush=True)
+    gate(len(same_plain) == len(reqs),
+         f"{cut.n_layers} layers: the matmul kernels' served tokens differ "
+         f"from their plain versions' in rids "
+         f"{sorted(set(r.rid for r in reqs) - set(same_plain))}")
+    ref, ref_out = serve.reference_engine(cut, params, policy_cut, reqs, **kw)
+    ctrl, ctrl_out = serve.reference_engine(cut, params, policy_cut, reqs,
+                                            compute_dtype=torch.float64, **kw)
+    greedy = {}
+    for label, o in (("attention kernel, matmuls dequant-fp", out_attn),
+                     ("every kernel", out_kern),
+                     ("matmuls plain", out_plain),
+                     ("matmuls dequant-fp, float64 sums", out_f64)):
+        compared, bad = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
+        same = sum(o[r.rid].tokens == ref_out[r.rid].tokens for r in reqs)
+        greedy[label] = dict(compared=compared, diverged=bad, identical=same)
+        print(f"[starcoder] {cut.n_layers} layers, full width, {label}: "
+              f"greedy tokens vs fake-quant reference: {compared} of {n_tok} "
+              f"steps decisive and compared, diverged rids {bad}; {same} of "
+              f"{len(reqs)} requests token for token the reference's",
+              flush=True)
+    _, unstable = serve.compare_greedy(ctrl_out, ref, ref_out)
+    print(f"[starcoder] the reference's float32 and float64 evaluations part "
+          f"on a confident step in rids {unstable}", flush=True)
+    g = greedy["attention kernel, matmuls dequant-fp"]
+    gate(not g["diverged"] and g["compared"] > 0,
+         f"{cut.n_layers} layers, attention kernel: greedy tokens diverged "
+         f"on decisive steps (rids {g['diverged']}) or none compared")
+    del params, ref, ctrl
+    torch.cuda.empty_cache()
+    return launches, dict(
+        params=n_params, wall_s=wall, G=G, peak_mem_gb=peak_gb,
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, decode_step_launches=step,
+        cut_layers=cut.n_layers, cut_greedy=greedy,
+        cut_reference_unstable_rids=unstable,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
+
+
 def rwkv_serve_phase(torch, ops, dev):
     """rwkv6-7b at full width and depth over the ring (module docstring,
     phase 8); the weights are freed before it returns."""
@@ -2577,6 +3023,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_launches, rwkv_res = rwkv_serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
+    starcoder_launches, starcoder_res = starcoder_serve_phase(torch, ops, dev)
+    starcoder_res["launches"] = starcoder_launches
+    torch.cuda.empty_cache()
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -2611,7 +3060,8 @@ def main() -> int:
         {"card": card, "cases": rows, "train": train_res,
          "serve": serve_res, "paged_serve": paged_res,
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
-         "serve_cli": cli_res, "rwkv_serve": rwkv_res, "bundle": bundle_res,
+         "serve_cli": cli_res, "rwkv_serve": rwkv_res,
+         "starcoder_serve": starcoder_res, "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -28,15 +28,31 @@
 // trips to device memory a block waits for, and how many blocks share them.
 //
 // Design (split over cache rows, "flash-decoding"):
-// - Grid (B * KV * n_split, S). A block owns one (slot, kv head, split,
-//   query) and L consecutive logical cache rows of the slot, L a multiple of
-//   the 64-row tile. The wrapper (ops.attn_split_rows) picks L from
+// - Grid (B * KV * n_split, S, n_grp). A block owns one (slot, kv head,
+//   split, query), one group of at most 8 of the kv head's G query rows and
+//   L consecutive logical cache rows of the slot, L a multiple of the 64-row
+//   tile. The wrapper (ops.attn_split_rows) picks L from
 //   (B, KV, Sc) alone: a slot's tiles spread evenly over at most as many
 //   splits as bring B * KV * n_split to four blocks on each of the card's
 //   132 SMs, and at least one tile per split.
 //   At B=4, KV=8, Sc=320 that is L=64, 160 blocks (the undivided design ran
 //   32); at Sc=4096, L=256, 512 blocks. L never depends on S or on the
 //   layout: that keeps the two bitwise contracts below.
+// - Query groups. G query heads share a kv head (GQA): 2 at Qwen3-0.6B, 9
+//   at StarCoder2-7B, 48 at Granite-20B (MQA). A block holds at most
+//   MAX_G = 8 query rows, because its shared arrays and its registers are
+//   sized for 8 (a warp per row in the softmax step, acc[GM][4] a thread in
+//   PV), so the kv head's rows split into n_grp = ceil(G / 8) groups of
+//   gb = ceil(G / n_grp) rows (the last may hold fewer): 1 group of 2 at
+//   Qwen, 2 of 5 and 4 at StarCoder2, 6 of 8 at Granite. Every row's
+//   arithmetic is the same whichever group holds it and whoever else is in
+//   it -- rows never mix until the output -- so a row's bits do not depend
+//   on G's grouping, and the split (L) stays a function of (B, KV, Sc)
+//   alone. The cost: each group reads the split's cache rows again (twice at
+//   G = 9, six times at G = 48). A loop over the groups inside the block
+//   would read them once, but it would have to hold every row's acc (192
+//   registers a thread at G = 48) or make a second pass over the tiles;
+//   that is later work.
 // - Loads before math. The block copies its rows' K codes, V codes,
 //   k_scale, v_scale and pos into shared memory with cp.async (16-byte
 //   copies of a code row where hd and the pointers allow, else 8 or 4),
@@ -46,7 +62,7 @@
 //   bytes apart beyond hd, so the four threads that dot one row and the
 //   eight rows of a warp fall in distinct banks.
 // - The math stays float32 on the CUDA cores. Tensor cores do not serve
-//   here: a kv head has G <= 8 query rows (2 at Qwen3-0.6B) where wgmma
+//   here: a block has at most 8 query rows (2 at Qwen3-0.6B) where wgmma
 //   takes 64; bf16, tf32 or int8 operands would change the function under
 //   its rtol 2e-5 contract; and the bound is bytes, not operations. Per
 //   tile: four threads dot each row against the G queries (explicit fma,
@@ -56,9 +72,10 @@
 //   The row groups combine in a fixed order at the end of the split.
 // - Partials and the combine, in the same launch. With one split the block
 //   writes acc / max(l, 1e-30) itself. Otherwise each split writes (m_i,
-//   l_i, acc_i[G][hd]) to scratch the wrapper allocates, fences, and takes a
-//   ticket per (b, h, j) with atomicAdd; the block that takes the last ticket
-//   combines all splits in split order (so the result does not depend on
+//   l_i, acc_i[gb][hd]) to its group's rows of the scratch the wrapper
+//   allocates, fences, and takes a ticket per (b, h, j, group) with
+//   atomicAdd; the block that takes the last ticket combines all splits of
+//   its group's rows in split order (so the result does not depend on
 //   which block came last): m = max m_i,
 //   out = sum e^(m_i - m) acc_i / max(sum e^(m_i - m) l_i, 1e-30),
 //   and resets the ticket to 0 for the next launch on the stream. Masked rows
@@ -95,7 +112,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 64;          // cache rows per pipeline stage
 constexpr int STAGES = 2;
 constexpr int ROW_PAD = 16;       // bytes between code rows in shared memory
-constexpr int MAX_G = 8;          // query rows per kv head
+constexpr int MAX_G = 8;          // query rows per block (a group)
 constexpr int MAX_RG = 8;         // row groups of the PV step
 constexpr float NEG_INF = -1e30f;
 
@@ -184,9 +201,10 @@ __device__ __forceinline__ size_t cache_row(int b, int s, int Sc,
 // Ring: codes (B, Sc, KV, hd), scales (B, Sc, KV), pos (B, Sc), no table.
 // Paged: codes (n_pages, ps, KV, hd), scales (n_pages, ps, KV), pos
 // (n_pages, ps), table (B, P) and Sc = P * ps logical rows per slot.
-// part: (B * S * KV, n_split, G, hd) f32 then (B * S * KV, n_split, 2, G)
-// f32 of (m, l), null with one split; tickets: (B * S * KV,) int32, 0
-// between launches. GM >= G sizes the per-thread registers (2, 4 or 8).
+// part: (B * S * KV, n_split, GT, hd) f32 then (B * S * KV, n_split, 2, GT)
+// f32 of (m, l), null with one split; tickets: (B * S * KV, n_grp) int32, 0
+// between launches. GT is the kv head's query rows, gb the rows of a group
+// (blockIdx.z); GM >= gb sizes the per-thread registers (2, 4 or 8).
 template <bool PAGED, int GM>
 __global__ void __launch_bounds__(THREADS, GM <= 2 ? 4 : 2)
 decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
@@ -199,14 +217,16 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
                          const int* __restrict__ table,    // (B, P) or null
                          float* __restrict__ out,          // (B, S, KV, G, hd)
                          float* __restrict__ part, int* __restrict__ tickets,
-                         int S, int Sc, int KV, int G, int hd, int window,
-                         int P, int ps, int L, int n_split, int n_tbl,
-                         int vec, float q_scale) {
+                         int S, int Sc, int KV, int GT, int gb, int hd,
+                         int window, int P, int ps, int L, int n_split,
+                         int n_tbl, int vec, float q_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float m_s[MAX_G], l_s[MAX_G], alpha_s[MAX_G];
   __shared__ int last_s;
 
-  const Layout lay = layout(G, hd, n_tbl, n_split);
+  const int g0 = blockIdx.z * gb;          // the group's first query row
+  const int G = min(gb, GT - g0);           // and its rows
+  const Layout lay = layout(gb, hd, n_tbl, n_split);
   float* qs = reinterpret_cast<float*>(smem + lay.q);
   int8_t* k_t = reinterpret_cast<int8_t*>(smem + lay.k);
   int8_t* v_t = reinterpret_cast<int8_t*>(smem + lay.v);
@@ -224,7 +244,7 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
   const int h = bh % KV;
   const int j = blockIdx.y;                 // query index within the slot
   const int bhj = (b * S + j) * KV + h;
-  const size_t qrow = (size_t)bhj * G * hd;
+  const size_t qrow = ((size_t)bhj * GT + g0) * hd;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -420,20 +440,21 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
     if (n_split == 1)
       out[qrow + i] = a / fmaxf(l_s[i / hd], 1e-30f);
     else
-      part[(slot + split) * G * hd + i] = a;
+      part[((slot + split) * GT + g0) * hd + i] = a;
   }
   if (n_split == 1) return;
   const float* part_acc = part;
-  float* part_ml = part + (size_t)gridDim.x * gridDim.y * G * hd;
+  float* part_ml = part + (size_t)gridDim.x * gridDim.y * GT * hd;
   if (tid < G) {
-    part_ml[(slot + split) * 2 * G + tid] = m_s[tid];
-    part_ml[(slot + split) * 2 * G + G + tid] = l_s[tid];
+    part_ml[(slot + split) * 2 * GT + g0 + tid] = m_s[tid];
+    part_ml[(slot + split) * 2 * GT + GT + g0 + tid] = l_s[tid];
   }
 
-  // ---- the last split of (b, h, j) to finish combines all of them
+  // ---- the last split of (b, h, j, group) to finish combines all of them
+  const int ticket = bhj * gridDim.z + blockIdx.z;
   __threadfence();
   __syncthreads();
-  if (tid == 0) last_s = atomicAdd(tickets + bhj, 1) == n_split - 1;
+  if (tid == 0) last_s = atomicAdd(tickets + ticket, 1) == n_split - 1;
   __syncthreads();
   if (!last_s) return;
   __threadfence();
@@ -442,11 +463,11 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
   // the weighted l_i (in an order fixed by n_split alone)
   float* w_c = comb;                     // (n_split, G)
   float* l_c = comb + n_split * G;       // (n_split, G)
-  const float* ml = part_ml + slot * 2 * G;
+  const float* ml = part_ml + slot * 2 * GT + g0;
   for (int k = tid; k < n_split * G; k += THREADS) {
     const int sp = k / G, g = k % G;
-    w_c[k] = __ldcg(ml + sp * 2 * G + g);
-    l_c[k] = __ldcg(ml + sp * 2 * G + G + g);
+    w_c[k] = __ldcg(ml + sp * 2 * GT + g);
+    l_c[k] = __ldcg(ml + sp * 2 * GT + GT + g);
   }
   __syncthreads();
   for (int g = warp; g < G; g += WARPS) {
@@ -468,33 +489,41 @@ decode_attn_quant_kernel(const float* __restrict__ q,      // (B, S, KV, G, hd)
     float num = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < n_split; ++sp)
-      num = fmaf(w_c[sp * G + g], __ldcg(part_acc + (slot + sp) * G * hd + i),
-                 num);
+      num = fmaf(w_c[sp * G + g],
+                 __ldcg(part_acc + ((slot + sp) * GT + g0) * hd + i), num);
     out[qrow + i] = num / fmaxf(l_s[g], 1e-30f);
   }
-  if (tid == 0) tickets[bhj] = 0;
+  if (tid == 0) tickets[ticket] = 0;
+}
+
+// The kv head's G query rows in n_grp groups of at most MAX_G, balanced:
+// gb rows each, the last group the rest (ops.attn_query_groups mirrors it).
+__host__ __device__ inline int query_groups(int G) {
+  return (G + MAX_G - 1) / MAX_G;
 }
 
 template <bool PAGED, int GM>
 int launch_g(const void* q, const void* kc, const void* ks, const void* vc,
            const void* vs, const void* pos, const void* table,
            const void* qpos, void* out, void* part, void* tickets, int B,
-           int S, int Sc, int P, int ps, int KV, int G, int hd, int window,
-           int L, float q_scale, void* stream) {
+           int S, int Sc, int P, int ps, int KV, int G, int gb, int hd,
+           int window, int L, float q_scale, void* stream) {
   const int n_split = Sc > 0 ? (Sc + L - 1) / L : 1;
+  const int n_grp = query_groups(G);
   const uintptr_t align = reinterpret_cast<uintptr_t>(kc) |
                           reinterpret_cast<uintptr_t>(vc) | (uintptr_t)hd;
   const int vec = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : 4;
   // table entries a split of L rows spans, at most
   const int n_tbl = PAGED ? min(P, L / ps + 2) : 0;
-  const int smem = layout(G, hd, n_tbl, n_split).total;
+  const int smem = layout(gb, hd, n_tbl, n_split).total;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attn_quant_kernel<PAGED, GM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_attn_quant_kernel<PAGED, GM><<<dim3(B * KV * n_split, S), THREADS,
+  decode_attn_quant_kernel<PAGED, GM><<<dim3(B * KV * n_split, S, n_grp),
+                                        THREADS,
                                         smem,
                                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(kc),
@@ -502,31 +531,34 @@ int launch_g(const void* q, const void* kc, const void* ks, const void* vc,
       static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<const int*>(qpos), static_cast<const int*>(table),
       static_cast<float*>(out), static_cast<float*>(part),
-      static_cast<int*>(tickets), S, Sc, KV, G, hd, window, P, ps, L, n_split,
-      n_tbl, vec, q_scale);
+      static_cast<int*>(tickets), S, Sc, KV, G, gb, hd, window, P, ps, L,
+      n_split, n_tbl, vec, q_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance whose registers hold G query rows (G <= 8).
+// The instance whose registers hold a group's gb query rows (gb <= 8).
 template <bool PAGED>
 int launch(const void* q, const void* kc, const void* ks, const void* vc,
            const void* vs, const void* pos, const void* table,
            const void* qpos, void* out, void* part, void* tickets, int B,
            int S, int Sc, int P, int ps, int KV, int G, int hd, int window,
            int L, float q_scale, void* stream) {
-  auto* fn = G <= 2 ? launch_g<PAGED, 2>
-             : G <= 4 ? launch_g<PAGED, 4> : launch_g<PAGED, MAX_G>;
+  const int n_grp = query_groups(G);
+  const int gb = (G + n_grp - 1) / n_grp;
+  auto* fn = gb <= 2 ? launch_g<PAGED, 2>
+             : gb <= 4 ? launch_g<PAGED, 4> : launch_g<PAGED, MAX_G>;
   return fn(q, kc, ks, vc, vs, pos, table, qpos, out, part, tickets, B, S, Sc,
-            P, ps, KV, G, hd, window, L, q_scale, stream);
+            P, ps, KV, G, gb, hd, window, L, q_scale, stream);
 }
 
 }  // namespace
 
-// Shapes as in the comments of the kernel's arguments; G <= 8, hd <= 256,
-// hd % 4 == 0, 4-byte aligned codes, S <= 65535 and L a positive multiple
-// of 64 (the wrapper checks). window <= 0 means no window. part holds
-// B * S * KV * ceil(Sc / L) * G * (hd + 2) floats (null when Sc <= L);
-// tickets B * S * KV zeroed ints, which every launch leaves zeroed. The
+// Shapes as in the comments of the kernel's arguments; any G >= 1, hd <=
+// 256, hd % 4 == 0, 4-byte aligned codes, S <= 65535 and L a positive
+// multiple of 64 (the wrapper checks). window <= 0 means no window. part
+// holds B * S * KV * ceil(Sc / L) * G * (hd + 2) floats (null when Sc <=
+// L); tickets B * S * KV * ceil(G / 8) zeroed ints, which every launch
+// leaves zeroed. The
 // one-token entry points are the S = 1 launch of the verify ones: one
 // compiled kernel serves both.
 extern "C" int verify_attn_quant(const void* q, const void* kc, const void* ks,

@@ -39,8 +39,8 @@ QMM_TARGET_BLOCKS = 2 * 132
 FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
 MAX_TABLE = 4096                        # page-table entries of a slot
 # csrc/decode_attn_quant.cu: cache rows per pipeline tile; the blocks a
-# launch aims for, four on each of the H100's 132 SMs
-ATTN_TILE, ATTN_TARGET_BLOCKS = 64, 4 * 132
+# launch aims for, four on each of the H100's 132 SMs; query rows per block
+ATTN_TILE, ATTN_TARGET_BLOCKS, ATTN_MAX_G = 64, 4 * 132, 8
 WKV_CHUNKS, WKV_HEAD_DIMS = (16, 32), (8, 16, 32, 64)  # csrc/wkv.cu instances
 TRAIN_KERNELS = ("fake_quant_fwd", "fake_quant_bwd", "flash_fwd")
 # the kernels whose plain versions ``plain_on_cuda`` can run on the card
@@ -200,9 +200,9 @@ def quant_matmul_w4(x_q: torch.Tensor, w_p: torch.Tensor, s_x: torch.Tensor,
 
 def _check_attn_shape(name: str, G: int, hd: int,
                       window: Optional[int]) -> None:
-    """The launch shape the decode-attention kernels take."""
-    if G > 8 or hd > 256 or hd % 4:
-        raise ValueError(f"{name}: needs G <= 8, hd <= 256 and hd % 4 == 0, "
+    """The launch shape the decode-attention kernels take (any G)."""
+    if hd > 256 or hd % 4:
+        raise ValueError(f"{name}: needs hd <= 256 and hd % 4 == 0, "
                          f"got G={G} hd={hd}")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window must be > 0, got {window}")
@@ -220,6 +220,15 @@ def attn_split_rows(B: int, KV: int, Sc: int) -> int:
     n_tiles = max(1, -(-Sc // ATTN_TILE))
     want = -(-ATTN_TARGET_BLOCKS // max(1, B * KV))
     return ATTN_TILE * -(-n_tiles // min(n_tiles, want))
+
+
+def attn_query_groups(G: int) -> Tuple[int, int]:
+    """(groups, rows per group) of a kv head's G query rows in the
+    decode-attention kernels: ``ceil(G / ATTN_MAX_G)`` blocks share each
+    (slot, kv head, split, query), balanced (the last group may hold
+    fewer rows). A row's arithmetic does not depend on its group."""
+    n = -(-G // ATTN_MAX_G)
+    return n, -(-G // n)
 
 
 def _cached(cache: Dict[Tuple[int, int], torch.Tensor], dev: torch.device,
@@ -312,7 +321,8 @@ def _quant_attn(name: str, q: torch.Tensor, kc: torch.Tensor,
     part = torch.empty((B * S * KV * n_split * G * (hd + 2),),
                        dtype=torch.float32, device=dev) if n_split > 1 else None
     stream = _stream()
-    tickets = _tickets(dev, B * S * KV, stream.value)
+    tickets = _tickets(dev, B * S * KV * attn_query_groups(G)[0],
+                       stream.value)
     ptrs = [t.data_ptr() for t in (qf, kc, ks, vc, vs, pos)]
     ptrs += [table.data_ptr()] if paged else []
     ptrs += [q_pos.data_ptr(), out.data_ptr(),

@@ -5,9 +5,13 @@ caches and the paged int8 layout, the S-token speculative verify pass
 (``append_attention``).
 
 ``self_attention`` switches as the reference does: from 2048 tokens on
-(S a multiple of the 512-row q block) it takes ``flash_attention_cv`` --
-the ``flash_fwd`` CUDA kernel forward (its plain blockwise version on the
-CPU) and a recompute backward in PyTorch that saves only (out, lse) --
+(S a multiple of the 512-row q block) it takes the flash path named by
+``FLASH_IMPL`` -- ``"custom_vjp"``, ``flash_attention_cv``: the
+``flash_fwd`` CUDA kernel forward (its plain blockwise version on the CPU)
+and a recompute backward in PyTorch that saves only (out, lse); or
+``"xla_scan"``, ``flash_attention``: the reference's plain blockwise
+online softmax differentiated by autograd, a baseline that nothing on the
+main path selects (``core.hessian`` takes it for its second derivative) --
 and below that ``direct_attention``, which materializes the (B, KV, G, Sq,
 Sk) logits. Decode over an int8 cache routes through
 ``runtime.dispatch.resolve_decode_attn``: the ``decode_attn_quant`` CUDA
@@ -19,6 +23,7 @@ ring's arrays.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -29,6 +34,8 @@ from repro_torch.runtime.kv_cache import (FpKVCache, PagedKVCache,
                                          QuantKVCache)
 
 NEG_INF = -1e30
+FLASH_IMPLS = ("custom_vjp", "xla_scan")
+FLASH_IMPL = "custom_vjp"        # "custom_vjp" | "xla_scan" (baseline)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -127,6 +134,63 @@ class _FlashCV(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: Optional[int], q_block: int = 512,
+                    kv_block: int = 512) -> torch.Tensor:
+    """The reference's ``xla_scan`` baseline: per q block, an online
+    softmax over the kv blocks of its kv slice (a window shorter than S
+    bounds the slice), in plain PyTorch ops that autograd differentiates
+    -- to any order, since nothing is saved as a constant, at the memory
+    cost of every block's probabilities. q (B, S, H, hd), k/v (B, S, KV,
+    hd); S a multiple of ``q_block``."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    if S % q_block:
+        raise ValueError(f"flash_attention: S={S} is not a multiple of "
+                         f"q_block={q_block}")
+    qr = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
+    Lkv, kvb = _kv_slice_len(S, window, q_block, kv_block)
+    dt = torch.promote_types(q.dtype, torch.float32)
+    outs = []
+    for qs in range(0, S, q_block):
+        q_blk = qr[:, qs:qs + q_block]
+        qpos = torch.arange(qs, qs + q_block, device=q.device)
+        start = min(max(qs + q_block - Lkv, 0), S - Lkv)
+        m = torch.full((B, KV, G, q_block), NEG_INF, dtype=dt, device=q.device)
+        l = torch.zeros((B, KV, G, q_block), dtype=dt, device=q.device)
+        acc = torch.zeros((B, KV, G, q_block, hd), dtype=dt, device=q.device)
+        for s0 in range(start, start + Lkv, kvb):
+            k_blk, v_blk = k[:, s0:s0 + kvb], v[:, s0:s0 + kvb]
+            kpos = torch.arange(s0, s0 + kvb, device=q.device)
+            logits = _gqa_logits(q_blk, k_blk) + _mask_bias(qpos, kpos,
+                                                            causal, window)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(v.dtype), v_blk).to(dt)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)      # (B,S,KV,G,hd)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+@contextlib.contextmanager
+def flash_impl(impl: str):
+    """``FLASH_IMPL`` set to ``impl`` for the scope (the reference sets its
+    module global)."""
+    global FLASH_IMPL
+    if impl not in FLASH_IMPLS:
+        raise ValueError(f"flash_impl: {impl!r} is not one of {FLASH_IMPLS}")
+    prev, FLASH_IMPL = FLASH_IMPL, impl
+    try:
+        yield
+    finally:
+        FLASH_IMPL = prev
+
+
 def flash_attention_cv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool, window: Optional[int], q_block: int = 512,
                        kv_block: int = 512) -> torch.Tensor:
@@ -142,13 +206,16 @@ def flash_attention_cv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def self_attention(q, k, v, *, causal: bool, window: Optional[int],
                    flash_threshold: int = 2048, q_block: int = 512,
                    kv_block: int = 512):
-    """Training and prefill attention: the flash path from
-    ``flash_threshold`` tokens on (when S is a multiple of ``q_block``), as
-    the reference switches, else the direct masked softmax."""
+    """Training and prefill attention: the flash path that ``FLASH_IMPL``
+    names (set through :func:`flash_impl`) from ``flash_threshold`` tokens
+    on (when S is a multiple of ``q_block``), as the reference switches,
+    else the direct masked softmax."""
     S = q.shape[1]
     if S >= flash_threshold and S % q_block == 0:
-        return flash_attention_cv(q, k, v, causal=causal, window=window,
-                                  q_block=q_block, kv_block=kv_block)
+        fn = flash_attention_cv if FLASH_IMPL == "custom_vjp" \
+            else flash_attention
+        return fn(q, k, v, causal=causal, window=window, q_block=q_block,
+                  kv_block=kv_block)
     pos = torch.arange(S, device=q.device)
     return direct_attention(q, k, v, pos, pos, causal=causal, window=window)
 

@@ -29,6 +29,7 @@ and ``append`` (a prefill chunk of one paged slot); an RWKV6 layer runs
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -547,17 +548,49 @@ def reference_sites(params, bits, cfg: ModelConfig):
     return out
 
 
+def run_sites_remat(x, sites, cfg: ModelConfig, ctx: QuantContext):
+    """``run_sites`` in ``train`` mode with each body unit's sites under
+    activation checkpointing, the reference's granularity (it wraps each
+    ``lax.scan`` step of the body in ``jax.checkpoint``): the backward
+    recomputes a unit's forward from its input, so only the units' inputs
+    stay alive between the passes. Prefix and suffix sites run as they are.
+    The recompute runs the same deterministic ops on the same inputs, so
+    loss and gradients are the ones without it, bit for bit; the kernels
+    inside a unit (fake-quant forward, flash forward) launch twice. The
+    forward draws no random numbers, so no RNG state is stashed."""
+    from torch.utils.checkpoint import checkpoint
+
+    def unit(group):
+        def run(h):
+            return run_sites(h, group, cfg, ctx, mode="train")[0]
+        return run
+
+    def key(site):
+        return site[0].segment.startswith("body."), site[0].unit
+
+    for (body, _), group in itertools.groupby(sites, key):
+        group = list(group)
+        if body:
+            x = checkpoint(unit(group), x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = run_sites(x, group, cfg, ctx, mode="train")[0]
+    return x
+
+
 def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
                 remat: bool = True):
     """Full-sequence logits. Returns (logits (B, S, V) f32, aux loss).
-    ``remat`` is accepted for the reference's signature and unused: the
-    port keeps every activation for the backward (no activation
-    checkpointing yet)."""
+    ``remat`` recomputes each body unit in the backward
+    (``run_sites_remat``), as the reference checkpoints its scan body."""
     tokens = torch.as_tensor(inputs["tokens"],
                              device=params["embed"]["w"].device)
     x = embed_inputs(params, cfg, tokens, ctx)
-    x, _ = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
-                     mode="train")
+    sites = reference_sites(params, bits, cfg)
+    if remat:
+        x = run_sites_remat(x, sites, cfg, ctx)
+    else:
+        x, _ = run_sites(x, sites, cfg, ctx, mode="train")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_head(x, params, cfg, ctx), aux
 

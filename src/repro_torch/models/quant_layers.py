@@ -171,7 +171,10 @@ def pinned_table(p, ctx: QuantContext, pinned_bits: int = 8) -> torch.Tensor:
 def embed_lookup_pinned(tokens: torch.Tensor, p, ctx: QuantContext,
                         table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Embedding lookup in the 8-bit fake-quantized table (``table`` is a
-    precomputed :func:`pinned_table`)."""
+    precomputed :func:`pinned_table`). ``F.embedding``, whose backward sums
+    a row's repeated tokens in a fixed order: the backward of an indexing
+    lookup accumulates them with atomics on the CPU, so two equal passes
+    could part in the last bit of the table's gradient."""
     if table is None:
         table = pinned_table(p, ctx)
-    return table[tokens.long()]
+    return torch.nn.functional.embedding(tokens.long(), table)

@@ -137,6 +137,50 @@ def test_wrappers_launch_one_split_for_every_S_and_layout(monkeypatch, P, ps):
             assert int(t.abs().sum()) == 0
 
 
+@pytest.mark.parametrize("G,want", [(1, (1, 1)), (2, (1, 2)), (8, (1, 8)),
+                                    (9, (2, 5)), (10, (2, 5)), (36, (5, 8)),
+                                    (48, (6, 8)), (17, (3, 6))])
+def test_query_groups_cover_every_row(G, want):
+    """A kv head's G query rows in ceil(G / 8) balanced groups of at most 8
+    rows (csrc/decode_attn_quant.cu's blockIdx.z): every group holds at
+    least one row and together they hold G."""
+    n, gb = ops.attn_query_groups(G)
+    assert (n, gb) == want
+    assert gb <= ops.ATTN_MAX_G and (n - 1) * gb < G <= n * gb
+
+
+@pytest.mark.parametrize("KV,G", [(4, 9), (1, 48), (8, 2)])
+def test_wrappers_take_any_query_group_and_ticket_each(monkeypatch, KV, G):
+    """Past 8 query heads per kv head the wrappers launch (no refusal on a
+    CUDA tensor), hand the kernel G and the split of (B, KV, Sc) alone, and
+    give it a zeroed ticket for every (slot, query, kv head, query group)."""
+    lib = _Lib()
+    monkeypatch.setattr(ops, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(ops, "_stream", lambda: ctypes.c_void_p(0))
+    monkeypatch.setattr(ops, "_TICKETS", {})
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    B, hd, P, ps, S = 4, 128, 40, 8, 5
+    rng = np.random.default_rng(KV * G)
+    paged, ring, q, qp = _inputs(rng, B, S, KV, G, hd, P, ps)
+    n_grp = ops.attn_query_groups(G)[0]
+    for fn, args in [(ops.verify_attn_quant, (q, *ring, qp)),
+                     (ops.verify_attn_quant_paged, (q, *paged, qp)),
+                     (ops.decode_attn_quant, (q[:, :1].contiguous(), *ring,
+                                              qp[:, 0].contiguous())),
+                     (ops.decode_attn_quant_paged,
+                      (q[:, :1].contiguous(), *paged, qp[:, 0].contiguous()))]:
+        lib.calls.clear()
+        fn(*args, window=4096)
+        (name, a), = lib.calls
+        assert name == fn.__name__
+        assert tuple(a[-7:-2]) == (KV, G, hd, 4096,
+                                   ops.attn_split_rows(B, KV, P * ps))
+        t = ops._TICKETS[(None, None)]
+        n_q = S if name.startswith("verify") else 1
+        assert t.numel() >= B * n_q * KV * n_grp
+        assert int(t.abs().sum()) == 0
+
+
 @pytest.mark.parametrize("name", ["decode_attn_quant", "decode_attn_quant_paged",
                                   "verify_attn_quant", "verify_attn_quant_paged"])
 def test_cpu_route_is_the_plain_version_on_prescaled_q(name):

@@ -361,3 +361,39 @@ def test_train_cli_resumes_at_latest_plus_one_with_the_saved_params(
     assert "resumed from step 2" in out
     assert "step     3" in out and "step     2" not in out
     assert mgr.all_steps() == [1, 2, 3]
+
+
+def test_train_e2e_example_resumes_after_its_checkpoint(tmp_path, capsys):
+    """``examples/train_e2e_torch.py`` on the CPU: importance, search and 4
+    QAT steps with a checkpoint every 2; run again to 6 steps, it reads the
+    searched policy back, restores step 3 and runs steps 4-5 only."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "examples" / \
+        "train_e2e_torch.py"
+    spec = importlib.util.spec_from_file_location("train_e2e_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ckpt = str(tmp_path / "ckpt")
+    common = ["--device", "cpu", "--batch", "2", "--seq", "16", "--ckpt",
+              ckpt, "--ckpt-every", "2", "--log-every", "1"]
+    mod.main(common + ["--steps", "4"])
+    first = capsys.readouterr().out
+    assert "phase 2: ILP" in first and "resumed" not in first
+    assert all(f"step {s:4d} loss" in first for s in range(4))
+    mgr = tckpt.CheckpointManager(ckpt)
+    assert mgr.all_steps() == [1, 3]
+    saved = tckpt._flatten(mgr.restore(3, tlm.init_params(
+        t_smoke("qwen3-0.6b"), seed=1)))
+    mod.main(common + ["--steps", "6"])
+    second = capsys.readouterr().out
+    assert "phases 1-2: the searched policy" in second
+    assert "phase 2: ILP" not in second
+    assert "resumed from step 3" in second
+    assert [f"step {s:4d} loss" in second for s in range(6)] == \
+        [False] * 4 + [True] * 2
+    assert mgr.all_steps() == [3, 5]
+    resumed = tckpt._flatten(mgr.restore(3, tlm.init_params(
+        t_smoke("qwen3-0.6b"), seed=1)))
+    assert all(np.array_equal(saved[k], resumed[k]) for k in saved)

@@ -245,7 +245,7 @@ def _ring(rng, B, Sc, KV, hd, dev, q_pos):
 
 
 @pytest.mark.parametrize("Sc", [320, 4096, 100, 1, 63, 65, 4097])
-@pytest.mark.parametrize("G", [2, 1, 4])
+@pytest.mark.parametrize("G", [2, 1, 4, 9, 48])
 def test_decode_attn_quant_allclose(dev, Sc, G):
     B, KV, hd = 4, 8, 128
     rng = np.random.default_rng(Sc + G)
@@ -308,7 +308,7 @@ def _paged(rng, B, P, ps, KV, hd, dev):
 @pytest.mark.parametrize("ps,rows", [(8, 320), (16, 320), (8, 4096),
                                      (16, 4096), (3, 30), (64, 128),
                                      (3, 99), (7, 70), (5, 4095)])
-@pytest.mark.parametrize("G", [2, 1, 4])
+@pytest.mark.parametrize("G", [2, 1, 4, 9, 48])
 def test_decode_attn_quant_paged_allclose_and_equals_ring(dev, ps, rows, G):
     """The paged kernel against its plain version (the reference contract)
     and against the ring kernel on the gathered dense view (bit for bit:
@@ -443,7 +443,7 @@ def _check_verify(out, S, one, tag):
 
 
 @pytest.mark.parametrize("S", [1, 2, 5, 8])
-@pytest.mark.parametrize("G", [2, 1, 4])
+@pytest.mark.parametrize("G", [2, 1, 4, 9, 48])
 @pytest.mark.parametrize("window", [None, 48])
 def test_verify_attn_quant_kernel(dev, S, G, window):
     """The verify kernel against its plain version, and bit for bit
@@ -471,7 +471,7 @@ def test_verify_attn_quant_kernel(dev, S, G, window):
 @pytest.mark.parametrize("ps,rows", [(3, 30), (8, 320), (16, 320),
                                      (64, 128), (8, 4096)])
 @pytest.mark.parametrize("S", [1, 2, 5, 8])
-@pytest.mark.parametrize("G", [2, 1, 4])
+@pytest.mark.parametrize("G", [2, 1, 4, 9, 48])
 def test_verify_attn_quant_paged_kernel(dev, ps, rows, S, G):
     """The paged verify kernel against its plain version and, bit for bit,
     against S launches of the one-token paged kernel, on permuted, shared
@@ -641,6 +641,62 @@ def test_kernel_scales_q_as_the_wrapper_did(dev, name):
     assert torch.equal(out, pre)
 
 
+# the GQA shapes past 8 query heads per kv head: StarCoder2-7B (36 / 4 heads,
+# its 4096-row window) and Granite-20B (48 / 1, multi-query)
+WIDE_GQA = [("starcoder2-7b", 4, 9, 4096), ("granite-20b", 1, 48, None)]
+
+
+@pytest.mark.parametrize("arch,KV,G,window", WIDE_GQA)
+@pytest.mark.parametrize("Sc", [320, 4096])
+def test_attention_past_eight_query_heads_per_kv_head(dev, arch, KV, G,
+                                                      window, Sc):
+    """All four launches at G > 8 (query rows in groups of at most 8, a
+    block per group): within rtol 2e-5 / atol 2e-6 of the plain versions,
+    the paged kernels bit for bit the ring kernels on the gathered view,
+    verify bit for bit S one-token launches, the in-kernel q scale bit for
+    bit a launch on pre-scaled q; one launch each, the tickets left zero."""
+    B, hd, S = 4, 128, 5
+    assert ops.attn_query_groups(G)[0] > 1
+    rng = np.random.default_rng(G * 1000 + Sc)
+    q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, -1], np.int32)
+    ring = _ring(rng, B, Sc, KV, hd, dev, np.maximum(q_pos, 0))
+    pages = _ring_to_pages(rng, ring, 16)
+    q1 = _q(rng, B, 1, KV * G, hd, dev)
+    qs = _q(rng, B, S, KV * G, hd, dev)
+    qp1 = torch.from_numpy(q_pos).to(dev)
+    qp = _verify_positions(torch.from_numpy(q_pos), S).to(dev)
+    n0 = dict(ops.launches)
+    out = ops.decode_attn_quant(q1, *ring, qp1, window=window)
+    out_p = ops.decode_attn_quant_paged(q1, *pages, qp1, window=window)
+    ver = ops.verify_attn_quant(qs, *ring, qp, window=window)
+    ver_p = ops.verify_attn_quant_paged(qs, *pages, qp, window=window)
+    torch.cuda.synchronize()
+    for name in ("decode_attn_quant", "decode_attn_quant_paged",
+                 "verify_attn_quant", "verify_attn_quant_paged"):
+        assert ops.launches[name] == n0[name] + 1, name
+    torch.testing.assert_close(
+        out, _plain_ring(q1, *ring, qp1[:, None], window), rtol=2e-5,
+        atol=2e-6)
+    torch.testing.assert_close(ver, _plain_ring(qs, *ring, qp, window),
+                               rtol=2e-5, atol=2e-6)
+    qf = q1.reshape(B, KV, G, hd) * (hd ** -0.5)
+    want_p = ref.decode_attn_quant_paged_ref(qf, *pages, qp1, window)
+    torch.testing.assert_close(out_p, want_p.reshape(out_p.shape),
+                               rtol=2e-5, atol=2e-6)
+    assert torch.equal(out_p, out)         # the gathered view is the ring
+    assert torch.equal(ver_p, ver)
+    _check_verify(ver, S, lambda j: ops.decode_attn_quant(
+        qs[:, j:j + 1].contiguous(), *ring, qp[:, j].contiguous(),
+        window=window), (arch, Sc, "ring"))
+    _check_verify(ver_p, S, lambda j: ops.decode_attn_quant_paged(
+        qs[:, j:j + 1].contiguous(), *pages, qp[:, j].contiguous(),
+        window=window), (arch, Sc, "paged"))
+    pre = ops._quant_attn("decode_attn_quant", q1 * (hd ** -0.5), *ring, qp1,
+                          None, window, q_scale=1.0)
+    assert torch.equal(pre, out)
+    assert all(int(t.abs().sum()) == 0 for t in ops._TICKETS.values())
+
+
 @pytest.mark.parametrize("G,hd,offset", [(3, 100, 0), (8, 72, 0), (8, 256, 0),
                                          (5, 4, 0), (2, 128, 4), (1, 64, 8)])
 def test_decode_attn_quant_other_widths(dev, G, hd, offset):
@@ -680,8 +736,8 @@ def test_verify_wrappers_reject_bad_operands(dev):
         ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp[:, 0].contiguous())
     with pytest.raises(TypeError):                      # q_pos not int32
         ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp.long())
-    with pytest.raises(ValueError):                     # G > 8
-        ops.verify_attn_quant(torch.zeros((2, 3, 36, 64), device=dev), kc, ks,
+    with pytest.raises(ValueError):                     # H % KV != 0
+        ops.verify_attn_quant(torch.zeros((2, 3, 35, 64), device=dev), kc, ks,
                               vc, vs, pos, qp)
     with pytest.raises(ValueError):                     # mixed devices
         ops.verify_attn_quant(q, kc, ks, vc, vs, pos, qp.cpu())

@@ -212,6 +212,46 @@ def test_self_attention_switches_to_flash_at_the_threshold(monkeypatch):
                                    rtol=2e-5)
 
 
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 256)])
+def test_flash_xla_scan_matches_jax(causal, window, monkeypatch):
+    """The plain ``"xla_scan"`` baseline against the reference's
+    ``flash_attention`` at S=1024 in 512-row blocks (with a 256-row window
+    the kv slice of a q block is cut to 768 rows): out within 2e-5, the
+    gradients (autograd through the scan's ops on both sides) within 2e-5
+    of each gradient's largest entry; ``self_attention`` takes it when
+    ``FLASH_IMPL`` names it."""
+    q, k, v = _qkv(4, B=1, S=1024, H=4, KV=2, hd=16)
+    dout = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_block=512, kv_block=512)
+
+    def f_j(q_, k_, v_):
+        return jnp.sum(jattn.flash_attention(q_, k_, v_, **kw)
+                       * jnp.asarray(dout))
+
+    qkv_j = tuple(map(jnp.asarray, (q, k, v)))
+    out_j = jax.jit(lambda *a: jattn.flash_attention(*a, **kw))(*qkv_j)
+    grads_j = jax.jit(jax.grad(f_j, argnums=(0, 1, 2)))(*qkv_j)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out_t = tattn.flash_attention(*ts, **kw)
+    (out_t * torch.from_numpy(dout)).sum().backward()
+    np.testing.assert_allclose(_np(out_t), np.asarray(out_j), atol=2e-5,
+                               rtol=2e-5)
+    for t, gj in zip(ts, grads_j):
+        gj = np.asarray(gj)
+        np.testing.assert_allclose(_np(t.grad), gj, rtol=0,
+                                   atol=2e-5 * np.abs(gj).max())
+    taken = []
+    real = tattn.flash_attention
+    monkeypatch.setattr(tattn, "flash_attention", lambda *a, **kw_: (
+        taken.append(1) or real(*a, **kw_)))
+    with tattn.flash_impl("xla_scan"):
+        via = tattn.self_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, window=window,
+                                   flash_threshold=1024)
+    assert taken and tattn.FLASH_IMPL == "custom_vjp"
+    assert torch.equal(via, out_t.detach())
+
+
 # ---------------------------------------------------------------------------
 # the model: loss and gradients, one importance step
 # ---------------------------------------------------------------------------
@@ -286,6 +326,36 @@ def test_loss_and_grads_match_jax(world):
         assert dl <= LOOSE[0] and dg <= LOOSE[1], (dl, dg)
         tight += dl <= TIGHT[0] and dg <= TIGHT[1]
     assert tight >= 4, tight
+
+
+def test_remat_path_matches(world, monkeypatch):
+    """``remat`` recomputes each body unit in the backward (every site's
+    forward runs twice) and changes nothing: loss and every gradient bit
+    for bit the run without it (the reference holds its loss to rtol
+    1e-5)."""
+    tcfg, toks = world["tcfg"], world["tokens"]
+    bits = tlm.bits_uniform(tcfg, 3)
+    calls = []
+    real = tlm.apply_layer
+
+    def counting(*a, **kw):
+        calls.append(kw["mode"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tlm, "apply_layer", counting)
+    out = {}
+    for remat in (False, True):
+        calls.clear()
+        out[remat] = value_and_grad(lambda p: tlm.loss_fn(
+            p, tcfg, {"tokens": toks}, bits, world["tctx"], remat=remat),
+            world["tparams"])
+        assert len(calls) == tcfg.n_layers * (2 if remat else 1), remat
+    (l0, _, g0), (l1, _, g1) = out[False], out[True]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
+    assert torch.equal(l1, l0)
+    f0, f1 = _flat(g0), _flat(g1)
+    assert f0.keys() == f1.keys()
+    assert all(np.array_equal(f0[k], f1[k]) for k in f0)
 
 
 def test_importance_step_matches_jax(world, monkeypatch):
