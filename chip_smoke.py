@@ -8,13 +8,14 @@ In order:
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
    at once); print the registers, spills, shared memory and blocks per SM
-   of every instance of the flash, matmul (int8 and nib4, both routes) and
+   of every instance of the flash (hd 32, 64, 128 with one or two query
+   heads a block; hd 256 with one), matmul (int8 and nib4, both routes) and
    wkv kernels (wkv must not spill);
 2. kernel phases: hold each kernel against its plain PyTorch version on the
    card at the main paths' Qwen3-0.6B shapes -- both matmuls (int8 and
-   nib4 weights, at M = 4 and M = 128, also at the RWKV6-7B and
-   StarCoder2-7B projection shapes, bit for bit, each nib4 time printed
-   beside the int8 one),
+   nib4 weights, at M = 4 and M = 128, also at the RWKV6-7B,
+   StarCoder2-7B and RecurrentGemma-2B projection shapes, bit for bit, each
+   nib4 time printed beside the int8 one),
    fake-quant forward and its dv bit for bit (atol 0), the fake-quant ds
    to rtol 1e-4 of |ds| plus 1e-6 of sum |g * dsd| (float32 sums in
    another order, over up to 155M terms), int8 decode attention on the ring
@@ -29,8 +30,11 @@ In order:
    attention launches also past 8 query heads per kv head, at
    StarCoder2-7B's shape (KV 4, G 9, its 4096-row window, and a 48-row
    window that masks rows of the 320-row ring) and Granite-20B's (KV 1,
-   G 48), timed beside the G = 2 rows; flash forward to 2e-5
-   (out) / 1e-5 (lse) -- and time
+   G 48), timed beside the G = 2 rows, and the one-token launch at
+   RecurrentGemma-2B's (KV 1, G 10, hd 256, a 2048-row ring under its
+   2048-row window and under a 48-row one that masks); flash forward to
+   2e-5 (out) / 1e-5 (lse), also at hd 256 (RecurrentGemma-2B's 2560-token
+   prefill: KV 1, G 10, causal, window 2048) -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -194,6 +198,36 @@ In order:
     matmuls, the dequant-fp route with float64 sums) against that
     reference are printed, not gated: at these widths the reference's
     float32 sums part from exact ones on near-ties (ROADMAP 3).
+13. hybrid phase: recurrentgemma-2b at its published widths and depth (26
+    layers: 8 x (rec, rec, attn) and a (rec, rec) suffix; d_model 2560,
+    RG-LRU width 2560, conv1d width 4, 10 query heads on one kv head of
+    256, a 2048-row local window, gated-gelu d_ff 7680, tied vocab 256000;
+    seeded random weights, 2.68 B parameters, 10.7 GB in float32) under
+    ``demo_mixed_policy`` (164 projections), the serve phase's 8 requests
+    and a 9th of 2560 prompt tokens (its prefill takes the flash kernel at
+    hd 256 with a window that masks; its decode wraps the ring) with 32 new
+    tokens each, 4 slots of 2048 rows, a prefill budget of 2560 tokens.
+    Gates: (a) every ring kernel launched and no other layout's,
+    ``flash_fwd`` once per attention layer (8, the long prefill alone), no
+    kernel-eligible projection on dequant-fp; one decode step launches the
+    attention kernel 8 times and 164 matmuls; (c) packed bytes within 5%;
+    (d) no host synchronisation inside a decode step
+    (``set_sync_debug_mode("error")``), and a profiled decode step launches
+    3495 kernels (its attention and split-K matmul kernels' device time
+    printed, its slots of 2048 rows at positions past the window; step
+    p50, tok/s, prefill p50 and peak memory printed, and one profiled
+    2560-token prefill with its 8 flash launches); (b) at 3 layers, one
+    (rec, rec, attn) repeat at full width: the run through every kernel
+    token for token the same session on the matmuls' plain versions; the
+    run on the dequant-fp matmul route equal to the fake-quant reference on
+    every decisive step (``serve.compare_greedy`` with the float64
+    control); and the logits of the session through every kernel, at the
+    prefill and 6 decode steps of two short prompts and the long one (each
+    side carrying its own state; the long one decodes past the window),
+    within max(2 x the float32 reference's distance from its float64
+    evaluation, 0.05 x the logits' std) of the float32 reference. At 26
+    layers the served tokens against the reference are printed, with the
+    count of decisive steps.
 
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
@@ -227,7 +261,10 @@ RWKV6_KN = [(4096, 4096), (4096, 14336), (14336, 4096)]
 # (K, N) of the StarCoder2-7B projections: wq and wo, wk/wv (4 kv heads),
 # the MLP's up and down projections
 STARCODER2_KN = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
-MATMUL_KN = QWEN3_KN + RWKV6_KN + STARCODER2_KN
+# (K, N) of the RecurrentGemma-2B projections: wq, wo and the RG-LRU's wx,
+# wgate and wo; wk/wv (one kv head of 256); mlp_wi/wg; mlp_wo
+RGEMMA_KN = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)]
+MATMUL_KN = QWEN3_KN + RWKV6_KN + STARCODER2_KN + RGEMMA_KN
 MAIN_KN = (1024, 3072)      # the summary row of each matmul: a decode GEMV
 PREFILL_M = 128             # the matmuls' prefill rows (M > 16: tensor cores)
 MAIN_SC = 320               # the summary row of decode attention: the serve ring
@@ -291,10 +328,13 @@ FQ_SHAPES = [(1024, 3072), (3072, 1024), (2048, 3072), (151936, 1024),
              (37, 1000)]
 FQ_BITS = (2, 4, 6, 8)
 FQ_MAIN = ((2048, 3072), 4)
-# flash: (S, causal, window); summary row S=2048 causal
-FLASH_CASES = [(2048, True, None), (4096, True, None), (2048, True, 512),
-               (2048, False, None)]
-FLASH_MAIN = (2048, True, None)
+# flash: (S, causal, window, KV, G, hd) at B = 1: Qwen3-0.6B's heads (summary
+# row S=2048 causal), then RecurrentGemma-2B's long-prompt prefill (one kv
+# head, G = 10, hd 256, its 2048-row local window over 2560 tokens)
+FLASH_CASES = [(2048, True, None, 8, 2, 128), (4096, True, None, 8, 2, 128),
+               (2048, True, 512, 8, 2, 128), (2048, False, None, 8, 2, 128),
+               (2560, True, 2048, 1, 10, 256)]
+FLASH_MAIN = FLASH_CASES[0]
 # wkv: (B, S, H, hd, chunk); summary row one 256-token rwkv6-7b prefill;
 # tolerance (y and state, atol and rtol): the reference's wkv_pallas
 # contract (tests/test_kernels.py)
@@ -310,12 +350,28 @@ RWKV_CHUNK = 32
 # each beside the Qwen3-0.6B rows (KV 8, G 2) at B = 4, hd 128
 WIDE_GQA = [("starcoder2-7b", 4, 9, 4096), ("starcoder2-7b", 4, 9, 48),
             ("granite-20b", 1, 48, None)]
+# RecurrentGemma-2B's local attention in decode: (arch, KV, G, window, Sc,
+# hd), one kv head, G = 10 (two query groups of 5), hd 256, a ring of its
+# 2048-row window, and a 48-row window that masks rows of it
+RGEMMA_ATTN = [("recurrentgemma-2b", 1, 10, 2048, 2048, 256),
+               ("recurrentgemma-2b", 1, 10, 48, 2048, 256)]
+# hybrid serve phase: the serve phase's 8 requests and one long one whose
+# prefill takes the flash kernel at hd 256 (2560 tokens: a multiple of the
+# 512-row q block past the 2048-token threshold, past the window), over
+# 4 slots of the 2048-row window; the prefill budget admits it; the token
+# gates at one (rec, rec, attn) repeat
+HYBRID_LONG, HYBRID_CUT = 2560, 3
+# the hybrid's logit gate at its 3-layer cut, as a share of the logits' std:
+# one activation code step moves them by ~1e-2 there, the float32 and
+# float64 references' own distance when they part (the rest is a last bit)
+HYBRID_LOGIT_FLOOR = 0.05
 ATTN_KERNELS = ("decode_attn_quant", "decode_attn_quant_paged",
                 "verify_attn_quant", "verify_attn_quant_paged", "flash_fwd")
 TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
 # kernel launches of one profiled Qwen3-0.6B decode step over the ring and
-# over pages: one launch per matmul and attention call, no more
-DECODE_STEP_LAUNCHES = {"serve": 4650, "paged": 5182}
+# over pages, and of one RecurrentGemma-2B step over the ring: one launch
+# per matmul and attention call, no more
+DECODE_STEP_LAUNCHES = {"serve": 4650, "paged": 5182, "hybrid": 3495}
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
 # layers: loss rtol, and per-gradient-leaf relative L2, the reference's ds
@@ -382,6 +438,26 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
                                         else "operations")
 
 
+def attn_work(pos, q_pos, window, table=None):
+    """This run's attention work: (rows whose K and V must be read, the
+    (query, row) pairs attended). A row counts where its position is
+    written, not past the query's and, with a window, inside it; rows
+    shared by slots through the page table count once. pos (B, Sc) or,
+    paged, (n_pages, ps) through table (B, P); q_pos (B,) or (B, S)."""
+    q_pos = np.asarray(q_pos).reshape(len(q_pos), -1)
+    if table is None:
+        p, rid = pos, np.arange(pos.size).reshape(pos.shape)
+    else:
+        ps = pos.shape[1]
+        t = np.maximum(table, 0)
+        p = np.where(table[..., None] >= 0, pos[t], -1).reshape(len(t), -1)
+        rid = (t[..., None] * ps + np.arange(ps)).reshape(len(t), -1)
+    valid = (p[:, None, :] >= 0) & (p[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        valid &= q_pos[:, :, None] - p[:, None, :] < window
+    return len(np.unique(rid[valid.any(1)])), int(valid.sum())
+
+
 def attn_split(ops, B: int, KV: int, Sc: int, S: int = 1, G: int = 2
                ) -> dict:
     """The attention kernels' split of an Sc-row cache: rows per block (L),
@@ -412,6 +488,8 @@ def print_kernel_resources(_build, ops) -> None:
     wkv = _build.load("wkv")
     occ = [(f"flash_fwd_kernel<hd={hd}, heads={gb}>", flash.flash_fwd_occupancy,
             (hd, gb)) for hd in (128, 64, 32) for gb in (2, 1)]
+    occ.append(("flash_fwd_kernel<hd=256, heads=1>",
+                flash.flash_fwd_occupancy, (256, 1)))
     for route, fmt in ((0, ""), (2, "w4_")):
         occ += [(f"qmm_{fmt}splitk_kernel<rows={mr}>", qmm.qmm_occupancy,
                  (route, mr)) for mr in ops.QMM_ROWS]
@@ -432,9 +510,9 @@ def print_kernel_resources(_build, ops) -> None:
 def matmul_phase(torch, ops, ref, flush, dev):
     """Both matmul kernels at M = 4 (decode: ``qmm_int8``'s split-K route)
     and M = 128 (prefill: its tensor-core route) over the Qwen3-0.6B,
-    RWKV6-7B and StarCoder2-7B projection shapes, bit for bit their plain
-    versions; the plain versions run fewer timed reps at the shapes of 2**24
-    weights or more."""
+    RWKV6-7B, StarCoder2-7B and RecurrentGemma-2B projection shapes, bit
+    for bit their plain versions; the plain versions run fewer timed reps
+    at the shapes of 2**24 weights or more."""
     rows = []
     for w4 in (False, True):
         name = "quant_matmul_w4" if w4 else "quant_matmul"
@@ -519,11 +597,11 @@ def matmul_phase(torch, ops, ref, flush, dev):
 def attn_phase(torch, ops, ref, flush, dev):
     import torch.nn.functional as F
     rows = []
-    B, hd = 4, 128
-    cases = [("qwen3-0.6b", 8, 2, None, Sc) for Sc in (320, 4096)] + \
-        [(arch, KV, G, w, Sc) for arch, KV, G, w in WIDE_GQA
-         for Sc in (320, 4096)]
-    for arch, KV, G, window, Sc in cases:
+    B = 4
+    cases = [("qwen3-0.6b", 8, 2, None, Sc, 128) for Sc in (320, 4096)] + \
+        [(arch, KV, G, w, Sc, 128) for arch, KV, G, w in WIDE_GQA
+         for Sc in (320, 4096)] + RGEMMA_ATTN
+    for arch, KV, G, window, Sc, hd in cases:
         H = KV * G
         r = np.random.default_rng(Sc + (G if G > 2 else 0))
         q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, 3 * Sc], np.int32)
@@ -545,7 +623,7 @@ def attn_phase(torch, ops, ref, flush, dev):
         qp = torch.from_numpy(q_pos).to(dev)
         args = (q, kc, ks, vc, vs, pos_t, qp)
         out = ops.decode_attn_quant(*args, window=window)
-        tag = f"{arch} Sc={Sc} KV={KV} G={G} window={window}"
+        tag = f"{arch} Sc={Sc} KV={KV} G={G} window={window} hd={hd}"
 
         def plain():
             qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
@@ -582,11 +660,14 @@ def attn_phase(torch, ops, ref, flush, dev):
         lib = sdpa().permute(0, 2, 1, 3)
         gate(bool(torch.allclose(lib, out, rtol=1e-3, atol=1e-4)),
              "SDPA yardstick disagrees with the kernel")
-        n_bytes = (2 * B * Sc * KV * hd + 2 * B * Sc * KV * 4 + B * Sc * 4
+        # this run's work: positions read in full, then only the rows that
+        # each slot's query position and window admit
+        n_rows, att = attn_work(pos, q_pos, window)
+        n_bytes = (B * Sc * 4 + n_rows * (2 * KV * hd + 2 * KV * 4)
                    + B * H * hd * 4 + B * 4 + B * H * hd * 4)
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * Sc * hd, F32_OPS_PER_S)
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att, F32_OPS_PER_S)
         rows.append(dict(
-            name="decode_attn_quant", shape=f"B={B} {tag} hd={hd}",
+            name="decode_attn_quant", shape=f"B={B} {tag}",
             max_abs_err=err,
             ms=cuda_ms(torch, lambda: ops.decode_attn_quant(
                 *args, window=window), flush),
@@ -704,14 +785,15 @@ def paged_attn_phase(torch, ops, ref, flush, dev):
         lib = sdpa().permute(0, 2, 1, 3)
         gate(bool(torch.allclose(lib[live], out[live], rtol=1e-3, atol=1e-4)),
              f"SDPA yardstick disagrees with decode_attn_quant_paged {tag}")
-        # this run's work: every mapped page read once, each slot's mapped
-        # rows attended
-        mapped = table >= 0
-        n_unique = len(np.unique(table[mapped]))
-        n_bytes = (n_unique * ps * (2 * KV * hd + 2 * KV * 4 + 4)
-                   + table.size * 4 + 2 * B * H * hd * 4 + B * 4)
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * ps * mapped.sum(),
-                              F32_OPS_PER_S)
+        # this run's work: the table and the mapped pages' positions read
+        # in full, then each row admitted by some slot's query position and
+        # window once
+        n_unique = len(np.unique(table[table >= 0]))
+        n_rows, att = attn_work(pos, q_pos, window, table)
+        n_bytes = (table.size * 4 + n_unique * ps * 4
+                   + n_rows * (2 * KV * hd + 2 * KV * 4)
+                   + 2 * B * H * hd * 4 + B * 4)
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att, F32_OPS_PER_S)
         rows_out.append(dict(
             name="decode_attn_quant_paged", shape=f"B={B} P={P} {tag} "
             f"KV={KV} G={G} hd={hd}", max_abs_err=err,
@@ -818,22 +900,24 @@ def verify_attn_phase(torch, ops, ref, flush, dev):
                                                pr[1] if paged else Sc, S,
                                                G=G))
         if main or arch:
-            # this run's work: the cache (each distinct mapped page once),
-            # q, positions and out; every query attends every row
+            # this run's work: positions (and the table) read in full, the
+            # rows some query admits once, q and out; each query attends the
+            # rows its position and the window admit
+            vpos = _verify_pos(q_pos, S)
             if paged:
-                mapped = table >= 0
-                n_rows = len(np.unique(table[mapped])) * pr[0]
-                att = mapped.sum() * pr[0]
+                n_rows, att = attn_work(pos, vpos, window, table)
+                n_pos = len(np.unique(table[table >= 0])) * pr[0]
                 dense = PagedKVCache(kc, vc, ks, vs, pos_t, tbl[0]).gather()
                 kd_, vd_, ks_, vs_, p_ = (dense.k, dense.v, dense.k_scale,
                                           dense.v_scale, dense.pos)
             else:
-                n_rows, att = B * Sc, B * Sc
+                n_rows, att = attn_work(pos, vpos, window)
+                n_pos = B * Sc
                 kd_, vd_, ks_, vs_, p_ = kc, vc, ks, vs, pos_t
-            n_bytes = (n_rows * (2 * KV * hd + 2 * KV * 4 + 4)
+            n_bytes = (n_pos * 4 + n_rows * (2 * KV * hd + 2 * KV * 4)
                        + (table.size * 4 if paged else 0)
                        + 2 * B * S * H * hd * 4 + B * S * 4)
-            b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att * S,
+            b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att,
                                   F32_OPS_PER_S)
             # yardstick: SDPA on the dequantized (gathered) cache with a
             # per-query mask; dequantization stays outside the timed call
@@ -977,9 +1061,9 @@ def _attended_pairs(S: int, causal: bool, window) -> int:
 def flash_phase(torch, ops, ref, flush, dev):
     import torch.nn.functional as F
     rows = []
-    B, KV, G, hd = 1, 8, 2, 128
-    H = KV * G
-    for S, causal, window in FLASH_CASES:
+    B = 1
+    for S, causal, window, KV, G, hd in FLASH_CASES:
+        H = KV * G
         g_ = torch.Generator(device=dev).manual_seed(S + (window or 0)
                                                      + causal)
         q = torch.randn((B, S, KV, G, hd), generator=g_,
@@ -1027,8 +1111,9 @@ def flash_phase(torch, ops, ref, flush, dev):
             plain_ms=cuda_ms(torch, lambda: ref.flash_fwd_ref(q, k, v, **kw),
                              flush, reps=10),
             library_ms=cuda_ms(torch, sdpa, flush, reps=20), bound_ms=b_ms,
-            bound_by=b_by, main=(S, causal, window) == FLASH_MAIN))
-        print(f"[kernel] flash_fwd {tag:32s} err={err:.1e}/{err_lse:.1e} "
+            bound_by=b_by, main=(S, causal, window, KV, G, hd) == FLASH_MAIN))
+        print(f"[kernel] flash_fwd {tag:32s} KV={KV} G={G} hd={hd} "
+              f"err={err:.1e}/{err_lse:.1e} "
               f"ms={rows[-1]['ms']:.4f} plain={rows[-1]['plain_ms']:.4f} "
               f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
               flush=True)
@@ -1537,11 +1622,15 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
     return d
 
 
-def prefill_noise(torch, cfg, params, policy, sess, reqs, dev):
-    """Max |logit difference| over the vocabulary at prefill, per prompt:
-    served path vs the float32 fake-quant reference, and that reference vs
-    its float64 evaluation."""
+def prefill_noise(torch, cfg, params, policy, sess, reqs, dev,
+                  cap=CACHE_LEN, n_dec=0, label="serve"):
+    """Max |logit difference| over the vocabulary, per prompt, at prefill
+    and at each of ``n_dec`` decode steps after it (every side fed the
+    float32 reference's greedy token, the state each side's own): served
+    path vs the float32 fake-quant reference, and that reference vs its
+    float64 evaluation. The references run the kernels' plain versions."""
     import dataclasses
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.launch.engine import LMAdapter
     from repro_torch.models import lm
@@ -1553,14 +1642,30 @@ def prefill_noise(torch, cfg, params, policy, sess, reqs, dev):
     rows = []
     for r in reqs:
         t = torch.as_tensor(r.tokens, device=dev)[None]
-        lk, _ = sess.prefill(sess.params, t, prefill_cap=CACHE_LEN)
-        l32, _ = r32.prefill(params, t, prefill_cap=CACHE_LEN)
-        l64, _ = r64.prefill(params, t, prefill_cap=CACHE_LEN)
+        lk, sk = sess.prefill(sess.params, t, prefill_cap=cap)
+        with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+            l32, s32 = r32.prefill(params, t, prefill_cap=cap)
+            l64, s64 = r64.prefill(params, t, prefill_cap=cap)
+        served, ctrl = [], []
+        for i in range(n_dec + 1):
+            served.append(float((lk - l32).abs().max()))
+            ctrl.append(float((l32 - l64.float()).abs().max()))
+            if i == n_dec:
+                break
+            tok = l32.reshape(1, -1).argmax(-1).to(torch.int32)[:, None]
+            p = torch.full((1,), t.shape[1] + i, dtype=torch.int32,
+                           device=dev)
+            lk, sk = sess.decode(sess.params, tok, p, sk)
+            with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+                l32, s32 = r32.decode(params, tok, p, s32)
+                l64, s64 = r64.decode(params, tok, p, s64)
         rows.append(dict(
-            rid=r.rid, served_vs_ref32=float((lk - l32).abs().max()),
-            ref32_vs_ref64=float((l32 - l64.float()).abs().max()),
+            rid=r.rid, prompt=t.shape[1], served_vs_ref32=max(served),
+            ref32_vs_ref64=max(ctrl), served_steps=served, ref_steps=ctrl,
             logit_std=float(l32.std())))
-    print("[serve] prefill max|logit diff| served-vs-ref32 / ref32-vs-ref64: "
+    print(f"[{label}] " + ("prefill" if not n_dec else
+                            f"prefill + {n_dec} decode steps")
+          + " max|logit diff| served-vs-ref32 / ref32-vs-ref64: "
           + " ".join(f"{x['served_vs_ref32']:.3f}/{x['ref32_vs_ref64']:.3f}"
                      for x in rows)
           + f" (logit std {rows[0]['logit_std']:.3f})", flush=True)
@@ -1568,21 +1673,24 @@ def prefill_noise(torch, cfg, params, policy, sess, reqs, dev):
 
 
 def profile_decode_step(torch, sess, dev, label="serve", layout=None,
-                        watch=("decode_attn_quant_kernel",)):
-    """One decode step of the served model (4 slots) under torch.profiler:
-    kernel launches, host time, device time and that of the kernels named
-    in ``watch``. With a paged ``layout`` each slot maps pages of its own. The
-    Qwen3-0.6B steps (labels of ``DECODE_STEP_LAUNCHES``) launch exactly
-    that many kernels: one launch per matmul and attention call."""
-    st = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev,
+                        watch=("decode_attn_quant_kernel",),
+                        cache_len=CACHE_LEN, pos0=200):
+    """One decode step of the served model (4 slots of ``cache_len`` rows,
+    at positions ``pos0`` on) under torch.profiler: kernel launches, host
+    time, device time and that of the kernels named in ``watch``. With a
+    paged ``layout`` each slot maps pages of its own. The
+    steps labelled in ``DECODE_STEP_LAUNCHES`` (Qwen3-0.6B's, ring and
+    pages; RecurrentGemma-2B's) launch exactly that many kernels: one
+    launch per matmul and attention call."""
+    st = sess.init_state(SLOTS, cache_len, torch.float32, device=dev,
                          layout=layout)
     if layout is not None:
-        P = layout.pages_per_slot(CACHE_LEN)
+        P = layout.pages_per_slot(cache_len)
         tbl = torch.arange(SLOTS * P, dtype=torch.int32, device=dev)
         st = {"sites": {k: c._replace(page_table=tbl.reshape(SLOTS, P))
                         for k, c in st["sites"].items()}}
     tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
-    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + pos0
     for _ in range(2):
         sess.decode(sess.params, tok, pos, st)
     res = profile_device(torch, lambda: sess.decode(sess.params, tok, pos,
@@ -2940,6 +3048,258 @@ def rwkv_serve_phase(torch, ops, dev):
         packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
 
 
+def hybrid_serve_phase(torch, ops, dev, card):
+    """recurrentgemma-2b at full width and depth over the ring: RG-LRU
+    blocks beside local multi-query attention at hd 256, and one long
+    prompt through the flash kernel (module docstring, phase 13); the
+    weights are freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import Request
+    from repro_torch.models import lm
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.session import summarize
+
+    cfg = get_config("recurrentgemma-2b")
+    G = cfg.n_heads // cfg.n_kv_heads
+    window = lm.attn_window(cfg)
+    sched = lm.build_schedule(cfg)
+    n_attn = sum(s.kind == "attn" for s in lm.iter_sites(cfg))
+    n_proj = len(lm.enumerate_qlayers(cfg))
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    n_params = lm.param_count(params)
+    policy = serve.demo_mixed_policy(cfg)
+
+    def requests(c):
+        long_ = SyntheticLM(c).batch(len(PROMPTS), 1, HYBRID_LONG)
+        return serve_requests(c) + [Request(
+            rid=len(PROMPTS), tokens=long_["tokens"][0], max_new=GEN)]
+
+    reqs = requests(cfg)
+    kw = dict(slots=SLOTS, cache_len=window, prefill_chunk=HYBRID_LONG,
+              device=dev)
+    torch.cuda.synchronize()
+    print(f"[hybrid] {cfg.name}: {cfg.n_layers} layers {sched.pattern} x "
+          f"{sched.repeats} + {sched.suffix}, d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} (G={G}, "
+          f"{ops.attn_query_groups(G)[0]} query groups) head_dim={cfg.hd} "
+          f"d_ff={cfg.d_ff} lru_width={cfg.lru_width} "
+          f"conv1d={cfg.conv1d_width} local window={window} "
+          f"vocab={cfg.vocab}, {n_proj} projections, {n_params} parameters "
+          f"({4 * n_params / 1e9:.1f} GB f32), init "
+          f"{time.perf_counter() - t0:.1f}s; {card}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    sess, eng, out = serve.serve_quantized(cfg, params, policy, reqs, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS + ("flash_fwd",)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    print(f"[hybrid] ring KV of {window} rows a slot: {len(out)} requests in "
+          f"{wall:.2f}s wall (packing included): prefill p50 "
+          f"{d['prefill_p50_ms']:.2f} ms, decode step p50 "
+          f"{d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens, {st.prefill_tokens} prompt "
+          f"tokens); peak device memory {peak_gb:.2f} GB; {card}", flush=True)
+    print(f"[hybrid] launches {launches}; routes {sess.route_counts.routes}",
+          flush=True)
+    # (a) every ring kernel launched and none of the other layouts'; flash
+    # once per attention layer, in the long prompt's prefill alone; no
+    # kernel-eligible projection on dequant-fp
+    gate(all(launches[k] > 0 for k in RING_KERNELS)
+         and not any(launches[k] for k in SERVE_KERNELS
+                     if k not in RING_KERNELS),
+         f"hybrid serving launched {launches}")
+    gate(launches["flash_fwd"] == n_attn,
+         f"flash_fwd launched {launches['flash_fwd']} times, expected "
+         f"{n_attn} (one per attention layer in the {HYBRID_LONG}-token "
+         "prefill)")
+    gate(sess.route_counts.eligible_fp == 0,
+         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
+         "dequant-fp")
+    gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    step = step_launches(torch, ops, sess, dev)
+    gate(step.get("decode_attn_quant") == n_attn
+         and step.get("quant_matmul", 0) + step.get("quant_matmul_w4", 0)
+         == n_proj,
+         f"one hybrid decode step launched {step}, expected {n_attn} "
+         f"decode_attn_quant and {n_proj} matmuls")
+    print(f"[hybrid] one decode step launches {step}", flush=True)
+    # (c) packed bytes vs the policy's accounting
+    s = summarize(sess)
+    print(f"[hybrid] packed weights {s['packed_bytes']} B vs policy "
+          f"{s['policy_bytes']:.0f} B (x{s['packed_vs_policy']:.4f})",
+          flush=True)
+    gate(abs(s["packed_vs_policy"] - 1.0) <= 0.05,
+         f"packed bytes off the policy accounting by x{s['packed_vs_policy']}")
+    # (d) one decode step: no host sync inside it (sync-debug "error"), and
+    # under the profiler the attention and matmul kernels it runs are the
+    # launches the wrappers counted
+    state = sess.init_state(SLOTS, window, torch.float32, device=dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 2100
+    sess.decode(sess.params, tok, pos, state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.decode(sess.params, tok, pos, state)
+    except RuntimeError as e:
+        raise GateError(f"a hybrid decode step synchronised the host: {e}") \
+            from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[hybrid] one decode step under sync-debug 'error': no host sync",
+          flush=True)
+    # the profiled step's launches are gated on the host's launch calls; the
+    # kernels' device records are printed (the profiler may drop a few of
+    # a step's ~3500 device records). Its slots hold the window's rows and
+    # sit past it, as the sync-debug step's do
+    prof = profile_decode_step(
+        torch, sess, dev, "hybrid",
+        watch=("decode_attn_quant_kernel", "qmm_splitk_kernel",
+               "qmm_w4_splitk_kernel"), cache_len=window, pos0=2100)
+    # the long prompt's prefill under the profiler: flash once per
+    # attention layer
+    t_long = torch.as_tensor(reqs[-1].tokens, device=dev)[None]
+    n0 = ops.launches["flash_fwd"]
+    pre = profile_device(torch, lambda: sess.prefill(
+        sess.params, t_long, prefill_cap=window), top=4,
+        watch=("flash_fwd_kernel", "qmm_mma_kernel", "qmm_w4_mma_kernel"))
+    print_profile("hybrid", f"one {HYBRID_LONG}-token prefill", pre)
+    gate(ops.launches["flash_fwd"] - n0 == n_attn,
+         f"a {HYBRID_LONG}-token prefill launched "
+         f"{ops.launches['flash_fwd'] - n0} flash kernels, expected {n_attn}")
+    # 26 layers against the fake-quant reference engine (printed): the
+    # kernels' exact integer sums part from its float32 ones on near-ties
+    # (ROADMAP 3), and so may its float64 control
+    t1 = time.perf_counter()
+    compared, bad, unstable = serve.check_greedy(cfg, params, policy, reqs,
+                                                 out, **kw)
+    n_tok = sum(len(c.tokens) for c in out.values())
+    print(f"[hybrid] {cfg.n_layers} layers, every kernel: greedy tokens vs "
+          f"fake-quant reference: {compared} of {n_tok} steps decisive and "
+          f"compared" + ("" if compared else " (none to compare)")
+          + f", diverged rids {bad}; the reference's float32 and float64 "
+          f"evaluations part on a confident step in rids {unstable} "
+          f"(reference engines {time.perf_counter() - t1:.1f}s)", flush=True)
+    del sess, eng, params
+    torch.cuda.empty_cache()
+
+    # (b) at one (rec, rec, attn) repeat, full width: the run through every
+    # kernel token for token the same session with both matmuls on their
+    # plain versions; the run whose matmuls take the dequant-fp route (the
+    # fake-quant graph's op chain; attention and flash the kernels) equal
+    # to the fake-quant reference on every decisive step
+    cut = cfg.scaled(n_layers=HYBRID_CUT)
+    params = lm.init_params(cut, seed=0, device=dev)
+    policy_cut = serve.demo_mixed_policy(cut)
+    reqs_cut = requests(cut)
+    mm = ("quant_matmul", "quant_matmul_w4")
+    n_attn_cut = sum(s.kind == "attn" for s in lm.iter_sites(cut))
+
+    def served(label):
+        n0 = {k: ops.launches[k] for k in mm + ("decode_attn_quant",
+                                                 "flash_fwd")}
+        s_, _, o = serve.serve_quantized(cut, params, policy_cut, reqs_cut,
+                                         **kw)
+        n = {k: ops.launches[k] - n0[k] for k in n0}
+        print(f"[hybrid] {cut.n_layers} layers, {label}: launches {n}, "
+              f"routes {s_.route_counts.routes}", flush=True)
+        gate(n["decode_attn_quant"] > 0 and n["flash_fwd"] == n_attn_cut
+             and set(s_.route_counts.routes["decode_attn"]) == {"fused"},
+             f"{label}: attention launched {n}, routes "
+             f"{s_.route_counts.routes}")
+        return o, n
+
+    out_kern, n_kern = served("every kernel")
+    with plain_matmuls(ops):
+        out_plain, n_plain = served("matmuls on their plain versions")
+    with dispatch.force_route("matmul", "dequant-fp"):
+        out_fp, n_fp = served("matmuls dequant-fp")
+    gate(all(n_kern[k] > 0 for k in mm)
+         and not any(n[k] for n in (n_plain, n_fp) for k in mm),
+         f"matmul launches: every kernel {n_kern}, controls {n_plain} / "
+         f"{n_fp}")
+    same_plain = [r.rid for r in reqs_cut
+                  if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
+    print(f"[hybrid] {cut.n_layers} layers: every kernel vs the matmuls' "
+          f"plain versions: {len(same_plain)} of {len(reqs_cut)} requests "
+          f"token for token", flush=True)
+    gate(len(same_plain) == len(reqs_cut),
+         f"{cut.n_layers} layers: the matmul kernels' served tokens differ "
+         f"from their plain versions' in rids "
+         f"{sorted(set(r.rid for r in reqs_cut) - set(same_plain))}")
+    ref, ref_out = serve.reference_engine(cut, params, policy_cut, reqs_cut,
+                                          **kw)
+    ctrl, ctrl_out = serve.reference_engine(cut, params, policy_cut,
+                                            reqs_cut,
+                                            compute_dtype=torch.float64, **kw)
+    greedy = {}
+    for label, o in (("matmuls dequant-fp", out_fp),
+                     ("every kernel", out_kern)):
+        c_, bad_ = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
+        same = sum(o[r.rid].tokens == ref_out[r.rid].tokens
+                   for r in reqs_cut)
+        greedy[label] = dict(compared=c_, diverged=bad_, identical=same)
+        print(f"[hybrid] {cut.n_layers} layers, full width, {label}: greedy "
+              f"tokens vs fake-quant reference: {c_} of {n_tok} steps "
+              f"decisive and compared, diverged rids {bad_}; {same} of "
+              f"{len(reqs_cut)} requests token for token the reference's",
+              flush=True)
+    _, unstable_cut = serve.compare_greedy(ctrl_out, ref, ref_out)
+    print(f"[hybrid] {cut.n_layers} layers: the reference's float32 and "
+          f"float64 evaluations part on a confident step in rids "
+          f"{unstable_cut}", flush=True)
+    g = greedy["matmuls dequant-fp"]
+    gate(not g["diverged"] and g["compared"] > 0,
+         f"{cut.n_layers} layers, dequant-fp matmuls: greedy tokens diverged "
+         f"on decisive steps (rids {g['diverged']}) or none compared")
+    # (b) logits, which a degenerate token stream does not test: the
+    # session through every kernel against the float32 reference at the
+    # prefill and 6 decode steps of two short prompts and the long one (its
+    # decode past the window over the wrapped ring), each side carrying its
+    # own RG-LRU, conv and ring state; held to the reference's own distance
+    # from float64, or to a few activation code steps where neither parted
+    # by more than a last bit
+    sess_cut = serve.build_session(cut, params, policy_cut)
+    noise = prefill_noise(torch, cut, params, policy_cut, sess_cut,
+                          [reqs_cut[0], reqs_cut[1], reqs_cut[-1]], dev,
+                          cap=window, n_dec=6, label="hybrid")
+    worst = max(x["served_vs_ref32"] for x in noise)
+    limit = max(2 * max(x["ref32_vs_ref64"] for x in noise),
+                HYBRID_LOGIT_FLOOR * noise[0]["logit_std"])
+    gate(worst <= limit,
+         f"{cut.n_layers} layers: served logits {worst:.4f} from the float32 "
+         f"reference, beyond {limit:.4f}")
+    del params, ref, ctrl, sess_cut
+    torch.cuda.empty_cache()
+    return launches, dict(
+        params=n_params, projections=n_proj, wall_s=wall, G=G, window=window,
+        peak_mem_gb=peak_gb, prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, decode_step_launches=step,
+        decode_step_profile=prof, long_prefill_profile=pre,
+        decisive_compared=compared, diverged_rids=bad,
+        reference_unstable_rids=unstable, cut_layers=cut.n_layers,
+        cut_greedy=greedy, cut_reference_unstable_rids=unstable_cut,
+        cut_logits=noise, cut_logit_limit=limit,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3026,6 +3386,9 @@ def main() -> int:
     starcoder_launches, starcoder_res = starcoder_serve_phase(torch, ops, dev)
     starcoder_res["launches"] = starcoder_launches
     torch.cuda.empty_cache()
+    hybrid_launches, hybrid_res = hybrid_serve_phase(torch, ops, dev, card)
+    hybrid_res["launches"] = hybrid_launches
+    torch.cuda.empty_cache()
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -3061,7 +3424,8 @@ def main() -> int:
          "serve": serve_res, "paged_serve": paged_res,
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
          "serve_cli": cli_res, "rwkv_serve": rwkv_res,
-         "starcoder_serve": starcoder_res, "bundle": bundle_res,
+         "starcoder_serve": starcoder_res, "hybrid_serve": hybrid_res,
+         "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

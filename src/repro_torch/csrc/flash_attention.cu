@@ -54,6 +54,12 @@
 // - expf / logf as before: the exponentials are 32 per thread and tile
 //   against 8192 FMAs, so exp2f with log2(e) folded in would save nothing
 //   measurable.
+// - hd = 256 (recurrentgemma's local attention): one query head per block
+//   and 32-row K/V tiles, so Q, the two K and two V buffers and P take
+//   205,312 B; 64-row tiles would take 345,088 B and two heads more, over
+//   the 227 KB a block may hold. A thread then holds 4 rows x 16 output
+//   columns and 4 x 2 logits; the swizzle and the output chunks tx + 16 c
+//   (c < 4) are those of hd = 128, twice over.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,11 +67,13 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int BQ = 64;   // q positions per block
-constexpr int BKV = 64;  // kv rows per loop step
 constexpr float NEG_INF = -1e30f;
 
 template <int HD, int GB>
 struct Shape {
+  // kv rows per loop step: 32 at hd = 256, where 64 would not fit
+  static constexpr int BKV = HD >= 256 ? 32 : 64;
+  static constexpr int NJ = BKV / 16;    // logit columns per thread
   static constexpr int R = BQ * GB;      // query rows per block
   static constexpr int TM = R / 16;      // rows per thread
   static constexpr int CH = HD / 4;      // float4 chunks per row
@@ -120,7 +128,7 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 }
 
 // one K or V tile: BKV rows of HD floats, row stride `stride` in device memory
-template <int HD>
+template <int HD, int BKV>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t stride) {
   constexpr int CH = HD / 4;
@@ -138,7 +146,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int window) {
   using P = Shape<HD, GB>;
   constexpr int R = P::R, TM = P::TM, CH = P::CH, OC = P::OC, OV = P::OV;
-  constexpr int PP = P::PP;
+  constexpr int PP = P::PP, BKV = P::BKV, NJ = P::NJ;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                 // R x HD, swizzled
   float* ks0 = qs + R * HD;         // two K buffers, BKV x HD, swizzled
@@ -177,8 +185,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        (size_t)(gbase + r / BQ) * HD + ch * 4;
     cp_async16(qs + at<HD>(r, ch, (r / TM) & 7), src);
   }
-  load_tile<HD>(ks0, kb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
-  load_tile<HD>(vs0, vb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
+  load_tile<HD, BKV>(ks0, kb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
+  load_tile<HD, BKV>(vs0, vb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
   cp_async_commit();
 
   float m[TM], l[TM], o[TM][OC][OV];
@@ -205,32 +213,32 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // done with the other buffers (the previous tile) and with P
     __syncthreads();
     if (kt < kt_hi) {
-      load_tile<HD>(ks0 + (buf ^ 1) * BKV * HD,
-                    kb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
-      load_tile<HD>(vs0 + (buf ^ 1) * BKV * HD,
-                    vb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
+      load_tile<HD, BKV>(ks0 + (buf ^ 1) * BKV * HD,
+                         kb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
+      load_tile<HD, BKV>(vs0 + (buf ^ 1) * BKV * HD,
+                         vb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
     }
     cp_async_commit();
 
     // ---- S = Q K^T for rows ty * TM + i, columns tx + 16 j
-    float s[TM][4];
+    float s[TM][NJ];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.0f;
     const float* krow = ks + tx * HD;
 #pragma unroll 4
     for (int ch = 0; ch < CH; ++ch) {
       const int oq = (ch ^ sq) << 2, ok = (ch ^ sk) << 2;
-      float4 a[TM], kk[4];
+      float4 a[TM], kk[NJ];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = lds4(qrow + i * HD + oq);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = lds4(krow + 16 * j * HD + ok);
+      for (int j = 0; j < NJ; ++j) kk[j] = lds4(krow + 16 * j * HD + ok);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           s[i][j] = fmaf(a[i].x, kk[j].x, s[i][j]);
           s[i][j] = fmaf(a[i].y, kk[j].y, s[i][j]);
           s[i][j] = fmaf(a[i].z, kk[j].z, s[i][j]);
@@ -247,20 +255,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (masked) {
         const int qpos = q0 + (ty * TM + i) % BQ;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const int kpos = k0 + tx + 16 * j;
           const bool valid = (!causal || kpos <= qpos) &&
                              (window <= 0 || qpos - kpos < window);
           s[i][j] += valid ? 0.0f : NEG_INF;
         }
       }
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < NJ; ++j) mx = fmaxf(mx, s[i][j]);
       mx = row_max16(mx);
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       float rs = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         rs += s[i][j];
       }
@@ -273,7 +283,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < OV; ++e) o[i][c][e] *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int i4 = 0; i4 < TM / 4; ++i4)
         *reinterpret_cast<float4*>(ps + (tx + 16 * j) * PP + ty * TM + 4 * i4) =
@@ -360,6 +370,8 @@ int launch_hd(const float* q, const float* k, const float* v, float* out,
               float* lse, int B, int S, int KV, int G, int hd, int causal,
               int window, cudaStream_t st) {
   switch (hd) {
+    case 256:   // one query head per block at any G (shared memory)
+      return launch<256, 1>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
     case 32:
       return launch<32, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
     case 64:
@@ -374,8 +386,8 @@ int launch_hd(const float* q, const float* k, const float* v, float* out,
 }  // namespace
 
 // q, out: (B, S, KV, G, hd) f32; k, v: (B, S, KV, hd) f32; lse: (B, KV, G, S)
-// f32. S % 64 == 0, hd in {32, 64, 128}, 16-byte aligned rows; window <= 0 means
-// none. Returns cudaErrorInvalidValue for a shape it does not take.
+// f32. S % 64 == 0, hd in {32, 64, 128, 256}, 16-byte aligned rows; window <= 0
+// means none. Returns cudaErrorInvalidValue for a shape it does not take.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int S, int KV, int G,
                          int hd, int causal, int window, void* stream) {
@@ -385,7 +397,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   auto of = static_cast<float*>(out);
   auto lf = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
-  if (S % BQ != 0 || S % BKV != 0 || S / BQ > 65535 || B * KV * G > 65535)
+  if (S % BQ != 0 || S / BQ > 65535 || B * KV * G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (G % 2 == 0)
     return launch_hd<2>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal, window, st);
@@ -407,7 +419,7 @@ extern "C" int flash_fwd_occupancy(int hd, int gb, void* info) {
     bytes = Shape<HD, GB>::SMEM;                                         \
     break;
     FA_CASE(32, 1) FA_CASE(32, 2) FA_CASE(64, 1) FA_CASE(64, 2)
-    FA_CASE(128, 1) FA_CASE(128, 2)
+    FA_CASE(128, 1) FA_CASE(128, 2) FA_CASE(256, 1)
 #undef FA_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -195,7 +195,7 @@ def decode_step_cost(cfg: ModelConfig, n_slots: int, *,
     # window caps the rows a cache can hold
     n_kv_layers = sum(1 for s in lm.iter_sites(cfg)
                       if s.kind in ("attn", "dense", "moe"))
-    window = cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
+    window = lm.attn_window(cfg)
     kv_rows = min(cache_tokens, window) if window else cache_tokens
 
     tp = max(tp_size, 1)

@@ -36,7 +36,8 @@ FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
 QMM_ROWS = (1, 2, 3, 4, 8, 16)
 QMM_TILE_N, QMM_STEP_K = 64, 32
 QMM_TARGET_BLOCKS = 2 * 132
-FLASH_TILE = 64                         # csrc/flash_attention.cu q/kv tile
+FLASH_TILE = 64                         # csrc/flash_attention.cu q tile
+FLASH_HEAD_DIMS = (32, 64, 128, 256)    # the kernel's instances
 MAX_TABLE = 4096                        # page-table entries of a slot
 # csrc/decode_attn_quant.cu: cache rows per pipeline tile; the blocks a
 # launch aims for, four on each of the H100's 132 SMs; query rows per block
@@ -499,9 +500,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not t.is_contiguous():
             raise ValueError(f"flash_fwd: {name} must be contiguous")
     q, k, v = (t.to(torch.float32) for t in (q, k, v))
-    if S % FLASH_TILE or hd not in (32, 64, 128) or B * KV * G > 65535:
+    if S % FLASH_TILE or hd not in FLASH_HEAD_DIMS or B * KV * G > 65535:
         raise ValueError(f"flash_fwd: needs S % {FLASH_TILE} == 0, hd in "
-                         f"(32, 64, 128) and B*KV*G <= 65535, got S={S} "
+                         f"{FLASH_HEAD_DIMS} and B*KV*G <= 65535, got S={S} "
                          f"hd={hd} B*KV*G={B * KV * G}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_aligned(t, name)

@@ -111,8 +111,13 @@ from repro_torch.runtime import kv_cache as qkv
 
 def check_kv_layout(cfg: ModelConfig, kv_layout: str) -> None:
     """Whether ``cfg``'s schedule can serve over ``kv_layout``: the paged
-    layout serves attention-only schedules in the port so far."""
+    layout serves attention-only schedules without a window (as the
+    reference, which refuses windowed archs on pages)."""
     dispatch.ROUTES.validate("kv_layout", kv_layout)
+    if kv_layout == "paged" and lm.attn_window(cfg):
+        raise ValueError(
+            "kv_layout='paged' does not support sliding-window "
+            "archs: a window evicts mid-page, breaking page sharing")
     bad = {s.kind for s in lm.iter_sites(cfg)} - set(lm.ATTN_KINDS)
     if kv_layout == "paged" and bad:
         raise NotImplementedError(
@@ -136,7 +141,7 @@ def check_speculate(cfg: ModelConfig, k: int) -> None:
             f"speculate > 0 requires an attention-only schedule: "
             f"{sorted(bad)} state is sequential and cannot roll back "
             "past a rejected draft token")
-    if cfg.sliding_window or cfg.local_window:
+    if lm.attn_window(cfg):
         raise ValueError(
             "speculate > 0 does not support sliding-window archs: "
             "the ring window overwrites rows a rollback would need")
@@ -360,10 +365,6 @@ class DecodeEngine:
                     "kv_layout='paged' needs an append-capable adapter "
                     "(QuantizedSession); the fake-quant LMAdapter serves "
                     "through the ring layout")
-            if cfg.sliding_window:
-                raise ValueError(
-                    "kv_layout='paged' does not support sliding-window "
-                    "archs: a window evicts mid-page, breaking page sharing")
             self.layout = qkv.KVCacheLayout(kind="paged", quant="int8",
                                             page_size=self.ecfg.page_size,
                                             n_pages=self.ecfg.n_pages)
@@ -426,7 +427,7 @@ class DecodeEngine:
         kinds = {s.kind for s in lm.iter_sites(cfg)}
         self._bucket = (bool(self.ecfg.bucket_prompts) and not self._paged
                         and not kinds & {"rwkv", "rec"}
-                        and not (cfg.sliding_window or cfg.local_window))
+                        and not lm.attn_window(cfg))
         self.on_step = None  # per-iteration callback (serve --metrics-stream)
         self.reset()
 
@@ -581,7 +582,8 @@ class DecodeEngine:
         if req.rid in taken:
             raise ValueError(
                 f"request id {req.rid} already queued, running, or completed")
-        if not self.cfg.sliding_window and \
+        windowed = bool(lm.attn_window(self.cfg))
+        if not windowed and \
                 req.prompt_len + req.max_new > self.ecfg.cache_len:
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + max_new "

@@ -1,5 +1,6 @@
-"""Config-driven LM: dense attention layers (serving and training) and RWKV6
-layers (serving).
+"""Config-driven LM: dense attention layers (serving and training), RWKV6
+layers (serving) and the hybrid family's RG-LRU layers beside local
+attention (recurrentgemma; serving).
 
 A config expands into a *schedule*: ``prefix`` layers, a repeating
 ``pattern`` whose params are stacked ``repeats`` times on a leading axis
@@ -21,11 +22,13 @@ Modes: ``train`` (full-sequence logits, no state: ``apply_train`` /
 ``loss_fn``), ``prefill`` (logits at the last position + decode state),
 ``decode`` (one token per batch row with state), ``verify`` (S tokens per
 slot at per-slot positions, the speculative verify pass: ``apply_verify``)
-and ``append`` (a prefill chunk of one paged slot); an RWKV6 layer runs
-``prefill`` and ``decode`` (``train`` without state). Decode state is
-``{"sites": {"<gidx>": state}}``: a KV cache per attention site, the tuple
-``(x_prev time-mix, wkv, x_prev channel-mix)`` per rwkv site;
-``rollback_decode_state`` rewinds the caches past a rejected draft.
+and ``append`` (a prefill chunk of one paged slot); an RWKV6 or RG-LRU
+layer runs ``prefill`` and ``decode`` (``train`` without state). Decode
+state is ``{"sites": {"<gidx>": state}}``: a KV cache per attention site,
+the tuple ``(x_prev time-mix, wkv, x_prev channel-mix)`` per rwkv site,
+``(conv_buf, h)`` per rec site; ``rollback_decode_state`` rewinds the
+caches past a rejected draft. A hybrid config's attention is local: its
+window is ``local_window`` (``attn_window``).
 """
 from __future__ import annotations
 
@@ -64,20 +67,25 @@ class Schedule(NamedTuple):
 
 
 class LayerSite(NamedTuple):
-    kind: str          # attn | dense | rwkv
+    kind: str          # attn | dense | rwkv | rec
     segment: str       # "prefix.0" | "body.2" | "suffix.1"
     unit: int          # repeat index within body, else 0
     gidx: int          # global execution index
 
 
 def build_schedule(cfg: ModelConfig) -> Schedule:
-    if cfg.family in ("moe", "vlm", "hybrid") or cfg.encoder_only:
+    if cfg.family in ("moe", "vlm") or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoder and rwkv (ssm) "
-            f"families only (family {cfg.family!r} comes with a later slice)")
+            f"{cfg.name}: the port runs the dense decoder, rwkv (ssm) and "
+            f"hybrid families only (family {cfg.family!r} comes with a "
+            "later slice)")
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        bp = tuple(cfg.block_pattern)
+        return Schedule((), bp, L // len(bp), bp[:L % len(bp)])
     if cfg.family == "ssm":
-        return Schedule((), ("rwkv",), cfg.n_layers, ())
-    return Schedule((), ("attn",), cfg.n_layers, ())
+        return Schedule((), ("rwkv",), L, ())
+    return Schedule((), ("attn",), L, ())
 
 
 def iter_sites(cfg: ModelConfig) -> List[LayerSite]:
@@ -129,16 +137,22 @@ def _layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
         p.update(rec.rwkv_init(gen, d, cfg.n_heads, cfg.rwkv_head_dim, ff,
                                cfg.bits, stacked=stacked, device=device))
         return p
-    if kind not in ATTN_KINDS:
+    if kind not in ATTN_KINDS + ("rec",):
         raise NotImplementedError(f"layer kind {kind!r}")
 
     def qd_(i, o):
         return qdense_init(gen, i, o, cfg.bits, stacked=stacked, device=device)
 
-    p = {"norm1": nrm(), "norm2": nrm(),
-         "wq": qd_(d, qd), "wk": qd_(d, kvd), "wv": qd_(d, kvd),
-         "wo": qd_(qd, d)}
-    if cfg.qk_norm:
+    if kind == "rec":
+        p = {"norm1": nrm(), "norm2": nrm(),
+             "rg": rec.rglru_init(gen, d, cfg.lru_width, cfg.n_heads,
+                                  cfg.conv1d_width, cfg.bits,
+                                  stacked=stacked, device=device)}
+    else:
+        p = {"norm1": nrm(), "norm2": nrm(),
+             "wq": qd_(d, qd), "wk": qd_(d, kvd), "wv": qd_(d, kvd),
+             "wo": qd_(qd, d)}
+    if cfg.qk_norm and kind != "rec":
         p["q_norm"] = torch.ones(tuple(stacked) + (cfg.hd,), device=device)
         p["k_norm"] = torch.ones(tuple(stacked) + (cfg.hd,), device=device)
     p["mlp_wi"] = qd_(d, ff)
@@ -200,13 +214,20 @@ def _kind_qdefs(cfg: ModelConfig, kind: str):
             ("wr", d, d), ("wk", d, d), ("wv", d, d), ("wg", d, d),
             ("wo", d, d), ("cm_wk", d, ff), ("cm_wv", ff, d),
             ("cm_wr", d, d))]
-    if kind not in ATTN_KINDS:
+    if kind == "rec":
+        W = cfg.lru_width or d
+        defs = [(("rg", name), i, o, 1, i * o, i * o, "rec")
+                for name, i, o in (("wx", d, W), ("wgate", d, W),
+                                   ("wo", W, d))]
+    elif kind in ATTN_KINDS:
+        defs = [
+            (("wq",), d, qd, 1, d * qd, d * qd, "attn"),
+            (("wk",), d, kvd, 1, d * kvd, d * kvd, "attn"),
+            (("wv",), d, kvd, 1, d * kvd, d * kvd, "attn"),
+            (("wo",), qd, d, 1, qd * d, qd * d, "attn")]
+    else:
         raise NotImplementedError(f"layer kind {kind!r}")
-    defs = [
-        (("wq",), d, qd, 1, d * qd, d * qd, "attn"),
-        (("wk",), d, kvd, 1, d * kvd, d * kvd, "attn"),
-        (("wv",), d, kvd, 1, d * kvd, d * kvd, "attn"),
-        (("wo",), qd, d, 1, qd * d, qd * d, "attn"),
+    defs += [
         (("mlp_wi",), d, ff, 1, d * ff, d * ff, "mlp"),
         (("mlp_wo",), ff, d, 1, ff * d, ff * d, "mlp"),
     ]
@@ -301,8 +322,13 @@ def bits_from_policy(cfg: ModelConfig, policy: MPQPolicy,
 def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                  ctx: QuantContext, table: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """Token embeddings (B, S, D) from the 8-bit pinned table."""
-    return embed_lookup_pinned(tokens, params["embed"], ctx, table)
+    """Token embeddings (B, S, D) from the 8-bit pinned table; the hybrid
+    family scales them by sqrt(d_model) (gemma), the factor first rounded
+    to the activation dtype as the reference rounds it."""
+    x = embed_lookup_pinned(tokens, params["embed"], ctx, table)
+    if cfg.family == "hybrid":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
 
 
 def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
@@ -324,6 +350,14 @@ def _qk_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _bget(bits, key):
     return None if bits is None else bits[key]
+
+
+def attn_window(cfg: ModelConfig) -> Optional[int]:
+    """The attention window of ``cfg``'s self-attention sites: the hybrid
+    family's local window, else the sliding window (None: full)."""
+    if cfg.family == "hybrid":
+        return cfg.local_window or None
+    return cfg.sliding_window
 
 
 def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
@@ -366,7 +400,7 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
         cos, sin = cos.reshape(B, S, 1, -1), sin.reshape(B, S, 1, -1)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin).to(ctx.compute_dtype)
-    window = cfg.sliding_window
+    window = attn_window(cfg)
     if mode == "train":
         out = attn.self_attention(q.to(ctx.compute_dtype), k, v,
                                   causal=cfg.causal, window=window)
@@ -439,11 +473,29 @@ def _rwkv_layer(x, p, bits, cfg: ModelConfig, ctx: QuantContext, mode: str,
     return x + out2, new_st
 
 
+def _rec_layer(x, p, bits, cfg: ModelConfig, ctx: QuantContext, mode: str,
+               state):
+    """Griffin residual layer: the RG-LRU block, then the MLP, each
+    pre-norm. ``state`` (conv_buf, h) or None (zero). Returns (x,
+    new_state), no state in ``train`` mode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(
+            f"rec layers run train, prefill and decode; mode {mode!r} "
+            "(speculative verify, paged append) is refused by the engine")
+    h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
+    out, st = rec.rglru_block(h, p["rg"], _bget(bits, "rg"), ctx,
+                              cfg.n_heads, state=state)
+    x = _mlp_sublayer(x + out, p, bits, cfg, ctx)
+    return x, st if mode != "train" else None
+
+
 def apply_layer(kind: str, x, p, bits, cfg: ModelConfig, ctx: QuantContext, *,
                 mode: str, state=None, pos=None, prefill_cap=None, slot=None):
     """One residual layer. Returns (x, new_state)."""
     if kind == "rwkv":
         return _rwkv_layer(x, p, bits, cfg, ctx, mode, state)
+    if kind == "rec":
+        return _rec_layer(x, p, bits, cfg, ctx, mode, state)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     x, st = _attn_sublayer(x, p, bits, cfg, ctx, mode, state, pos, prefill_cap,
@@ -654,7 +706,8 @@ def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
     ``runtime.kv_cache.KVCacheLayout``) overrides both -- it is how the
     paged pool layout is selected. An rwkv site gets zeros ``(x_prev (B, 1,
     D), wkv (B, H, hd, hd), x_prev (B, 1, D))`` in ``rec_dtype`` (default
-    ``dtype``), the wkv state in float32 or wider."""
+    ``dtype``), the wkv state in float32 or wider; a rec site ``(conv_buf
+    (B, cw-1, W), h (B, W))``, h in float32 or wider."""
     if kind == "rwkv":
         dt = rec_dtype or dtype
         hd, D = cfg.rwkv_head_dim, cfg.d_model
@@ -663,9 +716,17 @@ def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
                             dtype=torch.promote_types(dt, torch.float32),
                             device=device),
                 torch.zeros((batch, 1, D), dtype=dt, device=device))
+    if kind == "rec":
+        dt = rec_dtype or dtype
+        W = cfg.lru_width or cfg.d_model
+        return (torch.zeros((batch, cfg.conv1d_width - 1, W), dtype=dt,
+                            device=device),
+                torch.zeros((batch, W),
+                            dtype=torch.promote_types(dt, torch.float32),
+                            device=device))
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
-    window = cfg.sliding_window
+    window = attn_window(cfg)
     cap = min(capacity, window) if window else capacity
     layout = layout or qkv.KVCacheLayout(
         quant="int8" if kv_quant == "int8" else "none")

@@ -20,6 +20,9 @@ QWEN3_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
 # (K, N) of the RWKV6-7B projections: time-mix and channel-mix receptance,
 # channel-mix key, channel-mix value
 RWKV6_KN = [(4096, 4096), (4096, 14336), (14336, 4096)]
+# (K, N) of the RecurrentGemma-2B projections: wq, rg/wx, rg/wgate, rg/wo and
+# wo; wk/wv (one kv head); mlp_wi/wg; mlp_wo
+RGEMMA_KN = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)]
 
 
 @pytest.fixture
@@ -36,7 +39,8 @@ def _codes(rng, shape, lo, hi, dev):
 
 
 @pytest.mark.parametrize("M", [1, 4, 128, 37, 2, 8, 16, 17])
-@pytest.mark.parametrize("KN", QWEN3_KN + [(200, 72), (130, 33)] + RWKV6_KN)
+@pytest.mark.parametrize("KN", QWEN3_KN + [(200, 72), (130, 33)] + RWKV6_KN
+                         + RGEMMA_KN)
 def test_quant_matmul_bitwise(dev, M, KN):
     """Both routes (split-K for M <= 16, tensor cores above) at every
     row instance and its neighbours, bit for bit the plain version."""
@@ -104,15 +108,21 @@ def test_quant_matmul_at_byte_offsets(dev, x_off, w_off, M):
 
 def _device_kernels(fn):
     """The names of what the device ran (kernels, copies, memsets) for one
-    call of ``fn``."""
+    call of ``fn``. A profiler's first session can come back with no
+    device event at all while CUPTI attaches, so one profiled call of
+    ``fn`` runs first and the second session is the one read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    names = []
+    for _ in range(2):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    return names
 
 
 @pytest.mark.parametrize("what", ["qmm_split", "qmm_mma", "w4_split",
@@ -156,12 +166,12 @@ def test_one_device_kernel_per_call(dev, what):
     call()
     n0 = ops.launches[name]
     names = _device_kernels(call)
-    assert ops.launches[name] == n0 + 1
+    assert ops.launches[name] == n0 + 2       # the warm-up session's and ours
     assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 16, 17, 128])
-@pytest.mark.parametrize("KN", QWEN3_KN + RWKV6_KN + [(202, 40)])
+@pytest.mark.parametrize("KN", QWEN3_KN + RWKV6_KN + [(202, 40)] + RGEMMA_KN)
 def test_quant_matmul_w4_bitwise(dev, M, KN):
     """Both nib4 routes (split-K for M <= 16 at every row instance and its
     neighbours, tensor cores above) bit for bit the plain version, at the
@@ -727,6 +737,28 @@ def test_decode_attn_quant_other_widths(dev, G, hd, offset):
     assert torch.equal(ops.decode_attn_quant_paged(q, *pages, qp), out)
 
 
+@pytest.mark.parametrize("Sc,window", [(2048, 2048), (2048, 48), (320, 48)])
+def test_decode_attn_quant_recurrentgemma_shape(dev, Sc, window):
+    """recurrentgemma-2b's local attention: one kv head, G = 10 (two query
+    groups of 5), hd 256, a ring of its 2048-row window (which masks no
+    row of a full ring) and a 48-row window that masks; within rtol 2e-5 /
+    atol 2e-6 of the plain version, one launch."""
+    B, KV, G, hd = 4, 1, 10, 256
+    assert ops.attn_query_groups(G) == (2, 5)
+    rng = np.random.default_rng(Sc + window)
+    q_pos = np.array([Sc + 600, Sc - 1, Sc // 2, 3], np.int32)
+    kc, ks, vc, vs, pos = _ring(rng, B, Sc, KV, hd, dev, q_pos)
+    q = _q(rng, B, 1, KV * G, hd, dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    n0 = ops.launches["decode_attn_quant"]
+    out = ops.decode_attn_quant(q, kc, ks, vc, vs, pos, qp, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attn_quant"] == n0 + 1
+    torch.testing.assert_close(
+        out, _plain_ring(q, kc, ks, vc, vs, pos, qp[:, None], window),
+        rtol=2e-5, atol=2e-6)
+
+
 def test_verify_wrappers_reject_bad_operands(dev):
     rng = np.random.default_rng(6)
     kc, ks, vc, vs, pos = _ring(rng, 2, 64, 2, 64, dev, np.array([10, 20]))
@@ -908,14 +940,22 @@ FLASH_CASES = [(hd, S, causal, window, G) for hd in (32, 64, 128)
                for G in (1, 2, 4)] + \
     [(128, S, causal, window, G) for S in (320, 2048)
      for causal, window in ((True, None), (True, 512), (False, None))
-     for G in (1, 2, 4)]
+     for G in (1, 2, 4)] + \
+    [(256, S, causal, window, G) for S in (64, 192)
+     for causal, window in ((True, None), (True, 40), (False, None),
+                            (False, 100))
+     for G in (1, 2, 10)] + \
+    [(256, 2560, True, 2048, G) for G in (1, 2, 10)] + \
+    [(256, 2048, True, None, 10)]
 
 
 @pytest.mark.parametrize("hd,S,causal,window,G", FLASH_CASES)
 def test_flash_fwd_kernel_against_plain(dev, hd, S, causal, window, G):
     """Every instance (hd 32/64/128; one or two query heads per block, G
-    odd or even), tiles that the window leaves wholly or partly masked, and
-    the causal schedule's long rows at S = 2048."""
+    odd or even; hd 256, one query head per block over 32-row kv tiles, at
+    recurrentgemma-2b's G = 10 and its 2048-row local window over a
+    2560-token prompt), tiles that the window leaves wholly or partly
+    masked, and the causal schedule's long rows at S = 2048."""
     B, KV = 2, 2
     rng = np.random.default_rng(S + hd + G)
     q = torch.from_numpy((rng.standard_normal((B, S, KV, G, hd)) * hd ** -0.5)
@@ -969,6 +1009,10 @@ def test_training_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):                     # unsupported head dim
         ops.flash_fwd(q[..., :48].contiguous(), kv[..., :48].contiguous(),
                       kv[..., :48].contiguous(), causal=True)
+    q80 = torch.zeros((1, 128, 2, 2, 80), device=dev)   # hubert-xlarge's
+    kv80 = torch.zeros((1, 128, 2, 80), device=dev)
+    with pytest.raises(ValueError, match="hd=80"):
+        ops.flash_fwd(q80, kv80, kv80, causal=False)
     with pytest.raises(ValueError):                     # k does not match q
         ops.flash_fwd(q, kv[:, :64].contiguous(), kv, causal=True)
     with pytest.raises(ValueError):                     # non-contiguous q

@@ -691,10 +691,14 @@ def test_spec_guards(world):
         with pytest.raises(ValueError, match=match):
             tserve.check_spec(cfg, args.pop("speculate"),
                               args.pop("draft_bits"), **args)
-    # the port builds no recurrent schedule yet; the rule itself is held on
-    # a schedule with a recurrent site
-    with pytest.raises(NotImplementedError, match="dense decoder"):
+    # the hybrid family's recurrent sites refuse speculation as the
+    # reference refuses them; the rule is also held on a mocked schedule
+    with pytest.raises(ValueError, match="attention-only"):
         tserve.check_spec(t_smoke("recurrentgemma-2b"), 2, 2)
+    # and its local window refuses the paged layout, as the reference's
+    # engine refuses windowed archs on pages
+    with pytest.raises(ValueError, match="sliding-window"):
+        teng.check_kv_layout(t_smoke("recurrentgemma-2b"), "paged")
     rec = tlm.Schedule((), ("attn", "rglru"), 1, ())
     with mock.patch.object(tlm, "build_schedule", lambda c: rec):
         with pytest.raises(ValueError, match="attention-only"):
