@@ -8,8 +8,8 @@ In order:
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
    at once); print the registers, spills, shared memory and blocks per SM
-   of every instance of the flash (hd 32, 64, 128 with one or two query
-   heads a block; hd 256 with one), matmul (int8 and nib4, both routes) and
+   of every instance of the flash (hd 32, 64, 80, 128 with two query heads
+   a block, or one over 128 or 64 positions; hd 256 with one), matmul (int8 and nib4, both routes) and
    wkv kernels (wkv must not spill);
 2. kernel phases: hold each kernel against its plain PyTorch version on the
    card at the main paths' Qwen3-0.6B shapes -- both matmuls (int8 and
@@ -34,7 +34,10 @@ In order:
    RecurrentGemma-2B's (KV 1, G 10, hd 256, a 2048-row ring under its
    2048-row window and under a 48-row one that masks); flash forward to
    2e-5 (out) / 1e-5 (lse), also at hd 256 (RecurrentGemma-2B's 2560-token
-   prefill: KV 1, G 10, causal, window 2048) -- and time
+   prefill: KV 1, G 10, causal, window 2048) and at hd 80 (HuBERT-XLarge's
+   2048 frames: KV 16, G 1, bidirectional), the fake-quant kernels also at
+   HuBERT-XLarge's (1280, 1280) and (1280, 5120) weights and its (2048,
+   5120) MLP activation -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -228,6 +231,25 @@ In order:
     evaluation, 0.05 x the logits' std) of the float32 reference. At 26
     layers the served tokens against the reference are printed, with the
     count of decisive steps.
+14. audio phase: the paper pipeline of phase 3 on hubert-xlarge, the
+    encoder-only family, at its published widths and depth (48 layers,
+    d_model 1280, 16 heads of 80 on 16 kv heads, bidirectional, plain gelu
+    d_ff 5120, LayerNorm, the stub frontend's 512-dim frames through an
+    8-bit pinned projection and a sinusoid position table, an untied
+    pinned head onto 504 units; seeded random weights, 945 M parameters,
+    3.8 GB in float32; 288 searchable projections), B=1, 2048 frames of
+    ``SyntheticLM``'s audio branch and their unit labels, float32: 2
+    importance steps, the indicators, the ILP (uniform-3-bit budget), 3
+    QAT steps, an evaluation batch. Gates: (a) per pass 580 fake-quant
+    forwards and backwards (two per projection, the frontend's and the
+    head's weight and activation) and 48 ``flash_fwd`` launches at hd 80,
+    no serving kernel; (b)-(d) as phase 3; (e) one QAT pass through the
+    kernels against the plain versions, as gate (e) of phase 7, at 2
+    layers (printed at 48); (f) remat bit for bit (1156 / 580 / 96
+    launches with it). Printed: ms per importance and QAT step and
+    frames/s, the ILP's ms, peak device memory, one profiled QAT step
+    with ``flash_fwd_kernel`` watched. The weights are freed before the
+    script ends.
 
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
@@ -322,18 +344,20 @@ VERIFY_PAGED_CASES = [(ps, rows, S) for ps, rows in ((3, 96), (8, 320),
                       for S in (1, 2, 5, 8)]
 
 # fake-quant: Qwen3-0.6B's (1024, 3072)/(3072, 1024) weights, the (2048,
-# 3072) MLP activation at B*S = 2048, the tied (151936, 1024) table, and a
-# ragged shape; summary row: the activation at 4 bits
+# 3072) MLP activation at B*S = 2048, the tied (151936, 1024) table, a
+# ragged shape, and HuBERT-XLarge's attention and MLP weights and its
+# (2048, 5120) MLP activation; summary row: Qwen's activation at 4 bits
 FQ_SHAPES = [(1024, 3072), (3072, 1024), (2048, 3072), (151936, 1024),
-             (37, 1000)]
+             (37, 1000), (1280, 1280), (1280, 5120), (2048, 5120)]
 FQ_BITS = (2, 4, 6, 8)
 FQ_MAIN = ((2048, 3072), 4)
 # flash: (S, causal, window, KV, G, hd) at B = 1: Qwen3-0.6B's heads (summary
 # row S=2048 causal), then RecurrentGemma-2B's long-prompt prefill (one kv
-# head, G = 10, hd 256, its 2048-row local window over 2560 tokens)
+# head, G = 10, hd 256, its 2048-row local window over 2560 tokens), then
+# HuBERT-XLarge's training attention (16 heads of 80, bidirectional)
 FLASH_CASES = [(2048, True, None, 8, 2, 128), (4096, True, None, 8, 2, 128),
                (2048, True, 512, 8, 2, 128), (2048, False, None, 8, 2, 128),
-               (2560, True, 2048, 1, 10, 256)]
+               (2560, True, 2048, 1, 10, 256), (2048, False, None, 16, 1, 80)]
 FLASH_MAIN = FLASH_CASES[0]
 # wkv: (B, S, H, hd, chunk); summary row one 256-token rwkv6-7b prefill;
 # tolerance (y and state, atol and rtol): the reference's wkv_pallas
@@ -368,6 +392,8 @@ HYBRID_LOGIT_FLOOR = 0.05
 ATTN_KERNELS = ("decode_attn_quant", "decode_attn_quant_paged",
                 "verify_attn_quant", "verify_attn_quant_paged", "flash_fwd")
 TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
+# the audio phase's arch and the depth of its gate (e)
+AUDIO_ARCH, AUDIO_CUT = "hubert-xlarge", 2
 # kernel launches of one profiled Qwen3-0.6B decode step over the ring and
 # over pages, and of one RecurrentGemma-2B step over the ring: one launch
 # per matmul and attention call, no more
@@ -486,10 +512,12 @@ def print_kernel_resources(_build, ops) -> None:
     flash = _build.load("flash_attention")
     qmm = _build.load("quant_matmul")
     wkv = _build.load("wkv")
-    occ = [(f"flash_fwd_kernel<hd={hd}, heads={gb}>", flash.flash_fwd_occupancy,
-            (hd, gb)) for hd in (128, 64, 32) for gb in (2, 1)]
-    occ.append(("flash_fwd_kernel<hd=256, heads=1>",
-                flash.flash_fwd_occupancy, (256, 1)))
+    occ = [(f"flash_fwd_kernel<hd={hd}, heads={gb}, positions={qt}>",
+            flash.flash_fwd_occupancy, (hd, gb, qt))
+           for hd in (128, 80, 64, 32) for gb, qt in ((2, 64), (1, 128),
+                                                      (1, 64))]
+    occ.append(("flash_fwd_kernel<hd=256, heads=1, positions=64>",
+                flash.flash_fwd_occupancy, (256, 1, 64)))
     for route, fmt in ((0, ""), (2, "w4_")):
         occ += [(f"qmm_{fmt}splitk_kernel<rows={mr}>", qmm.qmm_occupancy,
                  (route, mr)) for mr in ops.QMM_ROWS]
@@ -1193,37 +1221,58 @@ def _is_bank(path: str) -> bool:
     return path.endswith(("s_w", "s_a"))
 
 
-def train_phase(torch, ops, dev):
-    """The paper pipeline on Qwen3-0.6B at full width and depth. Returns
-    (launch counts of the run, results, the final params, the searched
-    policy)."""
+def pinned_fq(cfg) -> int:
+    """Fake-quant launches of the pinned layers in one pass: a tied token
+    table is read twice (the lookup and the head), an untied one once; an
+    untied head quantizes its weight and its activation; the audio
+    frontend quantizes its weight and the frames."""
+    if cfg.frontend == "audio_stub":
+        return 2 + 2 * (not cfg.tie_embeddings)
+    return 2 if cfg.tie_embeddings else 3
+
+
+def train_batches(torch, cfg, dev):
+    """``batch(step)``: the data module's B=1, ``TRAIN_S`` batch of every
+    key (tokens; frames and labels for the audio family) on ``dev``."""
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(cfg)
+
+    def batch(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch(step, 1, TRAIN_S).items()}
+    return batch
+
+
+def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
+                hawq=True):
+    """The paper pipeline on ``arch`` at full width and depth (``label``
+    prefixes its lines; ``hawq`` adds the HAWQ baseline). Returns (launch
+    counts of the run, results, the final params, the searched policy)."""
     from repro_torch import optim, training
     from repro_torch.configs import get_config
     from repro_torch.core import importance as imp
     from repro_torch.core import search
-    from repro_torch.data import SyntheticLM
     from repro_torch.models import lm
     from repro_torch.models.quant_layers import QuantContext
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     ql = lm.enumerate_qlayers(cfg)
     n_proj = len(ql)
-    per_pass = dict(fake_quant_fwd=2 * n_proj + 2,
-                    fake_quant_bwd=2 * n_proj + 2, flash_fwd=cfg.n_layers)
+    n_fq = 2 * n_proj + pinned_fq(cfg)
+    per_pass = dict(fake_quant_fwd=n_fq, fake_quant_bwd=n_fq,
+                    flash_fwd=cfg.n_layers)
     n_pass = cfg.n_bits + 1
     ctx = QuantContext.make(cfg.bits, cfg.quant_act_signed,
                             compute_dtype=torch.float32)
-    data = SyntheticLM(cfg)
-
-    def batch(step):
-        return {"tokens": torch.as_tensor(
-            data.batch(step, 1, TRAIN_S)["tokens"], device=dev)}
+    batch = train_batches(torch, cfg, dev)
+    unit = "frames" if cfg.frontend == "audio_stub" else "tok"
 
     params = lm.init_params(cfg, seed=0, device=dev)
     p0 = {k: t.clone() for k, t in _tree_leaves(params)}
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, "
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, "
           f"{lm.param_count(params) / 1e6:.1f}M params, {n_proj} searchable "
-          f"projections, B=1 S={TRAIN_S} float32", flush=True)
+          f"projections, B=1 S={TRAIN_S} float32, hd {cfg.hd}, "
+          f"{'causal' if cfg.causal else 'bidirectional'}", flush=True)
     res = dict(per_pass=per_pass)
     total = {k: 0 for k in TRAIN_KERNELS}
 
@@ -1259,8 +1308,8 @@ def train_phase(torch, ops, dev):
              f"importance step {i}: loss {losses} grad norm {gnorm}")
         imp_ms.append(ms)
         imp_loss.append(losses)
-        print(f"[train] importance step {i}: {ms:.0f} ms ({n_pass} passes, "
-              f"{n_pass * TRAIN_S / ms * 1e3:.0f} tok/s over all passes), "
+        print(f"[{label}] importance step {i}: {ms:.0f} ms ({n_pass} passes, "
+              f"{n_pass * TRAIN_S / ms * 1e3:.0f} {unit}/s over all passes), "
               f"losses uniform {[round(x, 4) for x in losses[:-1]]} random "
               f"{losses[-1]:.4f}, grad norm {gnorm:.4g}", flush=True)
     del state
@@ -1272,7 +1321,7 @@ def train_phase(torch, ops, dev):
     banks = [k for k in p0 if _is_bank(k)]
     still = [k for k in banks if torch.equal(now[k], p0[k])]
     gate(not still, f"banks not moved by the importance steps: {still[:4]}")
-    print(f"[train] backbone ({len(frozen)} tensors) bit for bit unchanged; "
+    print(f"[{label}] backbone ({len(frozen)} tensors) bit for bit unchanged; "
           f"all {len(banks)} banks moved", flush=True)
     del p0, now
 
@@ -1285,7 +1334,7 @@ def train_phase(torch, ops, dev):
     gate(sr.bitops <= budget * (1 + 1e-6),
          f"searched policy BitOps {sr.bitops} over budget {budget}")
     w_avg, a_avg = sr.policy.avg_bits()
-    print(f"[train] ILP search {sr.elapsed_s * 1e3:.1f} ms, solver "
+    print(f"[{label}] ILP search {sr.elapsed_s * 1e3:.1f} ms, solver "
           f"{sr.solver}, avg bits w={w_avg:.3f} a={a_avg:.3f}, BitOps "
           f"{sr.bitops:.4g} <= budget {budget:.4g}", flush=True)
 
@@ -1304,8 +1353,8 @@ def train_phase(torch, ops, dev):
              f"qat step {i}: loss {loss} grad norm {gnorm}")
         qat_ms.append(ms)
         qat_loss.append(loss)
-        print(f"[train] qat step {i}: {ms:.0f} ms "
-              f"({TRAIN_S / ms * 1e3:.0f} tok/s), loss {loss:.4f}, grad norm "
+        print(f"[{label}] qat step {i}: {ms:.0f} ms "
+              f"({TRAIN_S / ms * 1e3:.0f} {unit}/s), loss {loss:.4f}, grad norm "
               f"{gnorm:.4g}", flush=True)
     del state
 
@@ -1314,16 +1363,18 @@ def train_phase(torch, ops, dev):
     ev, ev_ms = run("eval", dict(per_pass, fake_quant_bwd=0),
                     lambda: training.evaluate(params, cfg, ctx, bits, [b]))
     gate(all(math.isfinite(v) for v in ev.values()), f"eval {ev}")   # (b)
-    print(f"[train] eval: ce {ev['ce']:.4f} in {ev_ms:.0f} ms", flush=True)
-    print(f"[train] launches over the run {total} (per pass {per_pass})",
+    print(f"[{label}] eval: ce {ev['ce']:.4f} in {ev_ms:.0f} ms", flush=True)
+    print(f"[{label}] launches over the run {total} (per pass {per_pass})",
           flush=True)
     # where the time goes: one more QAT step under the profiler (outside
     # the counted run; its result is dropped)
     state = opt.init(params)
     res["qat_step_profile"] = profile_device(
         torch, lambda: qstep(params, state, b), watch=("flash_fwd_kernel",))
-    print_profile("train", "one QAT step", res["qat_step_profile"])
+    print_profile(label, "one QAT step", res["qat_step_profile"])
     del state
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{label}] peak device memory {peak:.2f} GiB", flush=True)
     res.update(importance_ms=imp_ms, importance_losses=imp_loss,
                qat_ms=qat_ms, qat_losses=qat_loss, eval=ev, eval_ms=ev_ms,
                qat_tokens_per_s=TRAIN_S / statistics.median(qat_ms) * 1e3,
@@ -1331,32 +1382,35 @@ def train_phase(torch, ops, dev):
                / statistics.median(imp_ms) * 1e3,
                ilp_ms=sr.elapsed_s * 1e3, ilp_solver=sr.solver,
                avg_bits=[w_avg, a_avg], bitops=sr.bitops,
-               bitops_budget=budget, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+               bitops_budget=budget, peak_mem_gb=peak)
     # 6. remat: the QAT step's loss and gradients with and without it
     res["remat"] = remat_check(torch, ops, cfg, ctx, bits, params,
-                               batch(IMP_STEPS), n_proj)
+                               batch(IMP_STEPS), n_proj, label)
     # 7. the HAWQ baseline on the trained params and the first batch, its
     # table through the same ILP; the indicators' cost beside it
-    res["hawq"] = hawq_check(torch, ops, dev, cfg, ql, params, batch(0),
-                             budget, sum(imp_ms))
+    if hawq:
+        res["hawq"] = hawq_check(torch, ops, dev, cfg, ql, params, batch(0),
+                                 budget, sum(imp_ms))
     return total, res, params, sr.policy
 
 
-def remat_check(torch, ops, cfg, ctx, bits, params, batch, n_proj):
+def remat_check(torch, ops, cfg, ctx, bits, params, batch, n_proj,
+                label="train"):
     """(f) one QAT step's loss and gradients (forward + backward) with
     ``remat=False`` and with ``remat=True`` on the same params and batch:
     equal bit for bit (the recompute runs the same deterministic kernels on
     the same inputs); the launches the schedule implies (each body unit's
     forward runs again in the backward: its fake-quant forwards -- two per
-    projection -- and its flash forward; the pinned table's two stay
-    outside the units); the peak device memory and ms of both."""
+    projection -- and its flash forward; the pinned layers' stay outside
+    the units); the peak device memory and ms of both."""
     from repro_torch.models import lm
     from repro_torch.training import value_and_grad
-    expect = {False: dict(fake_quant_fwd=2 * n_proj + 2,
-                          fake_quant_bwd=2 * n_proj + 2,
+    pin = pinned_fq(cfg)
+    expect = {False: dict(fake_quant_fwd=2 * n_proj + pin,
+                          fake_quant_bwd=2 * n_proj + pin,
                           flash_fwd=cfg.n_layers),
-              True: dict(fake_quant_fwd=4 * n_proj + 2,
-                         fake_quant_bwd=2 * n_proj + 2,
+              True: dict(fake_quant_fwd=4 * n_proj + pin,
+                         fake_quant_bwd=2 * n_proj + pin,
                          flash_fwd=2 * cfg.n_layers)}
     runs, res = {}, {}
     # twice each, in turns; the second of each is kept (the first call
@@ -1379,7 +1433,7 @@ def remat_check(torch, ops, cfg, ctx, bits, params, batch, n_proj):
         res[f"remat_{remat}"] = dict(ms=ms, peak_mem_gb=peak,
                                      above_start_gb=peak - base,
                                      launches=got, loss=float(loss))
-        print(f"[train] remat={remat}: QAT loss and gradients in {ms:.0f} ms, "
+        print(f"[{label}] remat={remat}: QAT loss and gradients in {ms:.0f} ms, "
               f"peak device memory {peak:.2f} GiB ({peak - base:.2f} GiB "
               f"above the {base:.2f} GiB held before it), launches {got}",
               flush=True)
@@ -1388,7 +1442,7 @@ def remat_check(torch, ops, cfg, ctx, bits, params, batch, n_proj):
     gate(torch.equal(l0, l1) and not differ,
          f"remat changed the loss ({float(l0)!r} vs {float(l1)!r}) or "
          f"{len(differ)} gradients: {differ[:4]}")
-    print(f"[train] remat on and off: loss and all {len(g0)} gradients bit "
+    print(f"[{label}] remat on and off: loss and all {len(g0)} gradients bit "
           f"for bit", flush=True)
     return res
 
@@ -1564,20 +1618,19 @@ def print_profile(label: str, what: str, res: dict) -> None:
 
 
 def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
-                    plain=TRAIN_KERNELS):
-    """One loss_fn + backward at full width, S=2048, 4-bit uniform, through
-    the kernels and through the plain versions of the kernels ``plain`` (the
-    others launch on both sides). Returns the differences: loss rtol and
-    per-leaf relative L2 of the gradients (max over banks, max over the
-    rest)."""
+                    plain=TRAIN_KERNELS, arch="qwen3-0.6b", label="train"):
+    """One loss_fn + backward of ``arch`` at full width, S=2048, 4-bit
+    uniform, through the kernels and through the plain versions of the
+    kernels ``plain`` (the others launch on both sides). Returns the
+    differences: loss rtol and per-leaf relative L2 of the gradients (max
+    over banks, max over the rest)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.models import lm
     from repro_torch.models.quant_layers import QuantContext
     from repro_torch.training import value_and_grad
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     if n_layers is not None:
         cfg = cfg.scaled(n_layers=n_layers)
     params = lm.init_params(cfg, seed=0, device=dev)
@@ -1585,8 +1638,7 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
         QuantContext.make(cfg.bits, cfg.quant_act_signed,
                           compute_dtype=torch.float32),
         quantize_acts=quantize_acts)
-    batch = {"tokens": torch.as_tensor(
-        SyntheticLM(cfg).batch(7, 1, TRAIN_S)["tokens"], device=dev)}
+    batch = train_batches(torch, cfg, dev)(7)
     bits = lm.bits_uniform(cfg, 2)
 
     def once():
@@ -1613,13 +1665,53 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
              bank_rel_max=max(v for k, v in rel.items() if _is_bank(k)),
              weight_rel_max=max(v for k, v in rel.items() if not _is_bank(k)),
              worst=sorted(rel.items(), key=lambda kv: -kv[1])[:4])
-    print(f"[train] kernels vs plain {list(plain)}, {cfg.n_layers} layers, "
+    print(f"[{label}] kernels vs plain {list(plain)}, {cfg.n_layers} layers, "
           f"activations {'quantized' if quantize_acts else 'unquantized'}: loss "
           f"{lk:.6f} vs {lp:.6f} (rtol {d['loss_rtol']:.2e}), gradient "
           f"relative L2 max {d['bank_rel_max']:.2e} (banks) / "
           f"{d['weight_rel_max']:.2e} (weights, norms); worst "
           f"{[(k, f'{v:.2e}') for k, v in d['worst']]}", flush=True)
     return d
+
+
+def vs_plain_gates(torch, ops, dev, arch, cut, label):
+    """Gate (e) of ``arch``: one train pass through the kernels against
+    their plain versions, gated at ``cut`` layers (activations unquantized,
+    every kernel against its plain version; then quantized, the flash
+    kernel on both sides) and printed at full depth."""
+    out = {}
+    for key, kw, tol in (
+            ("acts_unquantized", dict(n_layers=cut, quantize_acts=False),
+             TRAIN_TOL),
+            ("acts_quantized", dict(n_layers=cut, plain=("fake_quant_fwd",
+                                                         "fake_quant_bwd")),
+             TRAIN_TOL),
+            ("full_depth", {}, None)):
+        d = out[key] = kernel_vs_plain(torch, ops, dev, arch=arch,
+                                       label=label, **kw)
+        if tol is not None:
+            gate(d["loss_rtol"] <= tol["loss_rtol"]
+                 and d["bank_rel_max"] <= tol["grad_rel"]
+                 and d["weight_rel_max"] <= tol["grad_rel"],
+                 f"[{label}] train pass through the kernels differs from the "
+                 f"plain versions beyond {tol}: {d}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def audio_phase(torch, ops, dev):
+    """The paper pipeline on hubert-xlarge, the encoder-only audio family,
+    at full width and depth (module docstring, phase 14), then gate (e) on
+    it; the weights are freed before it returns. Returns (launch counts of
+    the pipeline's run, results)."""
+    torch.cuda.reset_peak_memory_stats()
+    launches, res, params, _ = train_phase(torch, ops, dev, arch=AUDIO_ARCH,
+                                           label="audio", hawq=False)
+    del params
+    torch.cuda.empty_cache()
+    res["vs_plain"] = vs_plain_gates(torch, ops, dev, AUDIO_ARCH, AUDIO_CUT,
+                                     "audio")
+    return launches, res
 
 
 def prefill_noise(torch, cfg, params, policy, sess, reqs, dev,
@@ -3361,25 +3453,9 @@ def main() -> int:
     spec_res["self_draft"] = self_draft_check(torch, ops, dev, reqs)
     torch.cuda.empty_cache()
     # (e) kernels vs plain versions through one train pass: gated at 2
-    # layers (activations unquantized, every kernel against its plain
-    # version; then quantized, the flash kernel on both sides), printed at
-    # full depth
-    vs_plain = {}
-    for key, kw, tol in (
-            ("acts_unquantized", dict(n_layers=2, quantize_acts=False),
-             TRAIN_TOL),
-            ("acts_quantized", dict(n_layers=2, plain=("fake_quant_fwd",
-                                                       "fake_quant_bwd")),
-             TRAIN_TOL),
-            ("full_depth", {}, None)):
-        d = vs_plain[key] = kernel_vs_plain(torch, ops, dev, **kw)
-        if tol is not None:
-            gate(d["loss_rtol"] <= tol["loss_rtol"]
-                 and d["bank_rel_max"] <= tol["grad_rel"]
-                 and d["weight_rel_max"] <= tol["grad_rel"],
-                 f"train pass through the kernels differs from the plain "
-                 f"versions beyond {tol}: {d}")
-    train_res["vs_plain"] = vs_plain
+    # layers, printed at full depth
+    train_res["vs_plain"] = vs_plain_gates(torch, ops, dev, "qwen3-0.6b", 2,
+                                           "train")
     torch.cuda.empty_cache()
     rwkv_launches, rwkv_res = rwkv_serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
@@ -3388,6 +3464,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_launches, hybrid_res = hybrid_serve_phase(torch, ops, dev, card)
     hybrid_res["launches"] = hybrid_launches
+    torch.cuda.empty_cache()
+    audio_launches, audio_res = audio_phase(torch, ops, dev)
+    audio_res["launches"] = audio_launches
     torch.cuda.empty_cache()
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
@@ -3406,17 +3485,24 @@ def main() -> int:
     spec_res["launches"], spec_paged_res["launches"] = spec_launches, \
         spec_paged_launches
 
+    # the training kernels' launches on each training path (and flash's in
+    # the hybrid prefill) beside the train phase's count
+    by_path = {k: {"train": train_launches[k], "audio": audio_launches[k]}
+               for k in TRAIN_KERNELS}
+    by_path["flash_fwd"]["hybrid"] = hybrid_launches["flash_fwd"]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
         main_row = next(r for r in mine if r["main"])
+        extra = {"launches_by_path": by_path[name]} if name in by_path else {}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], shape=main_row["shape"]))
+            library_ms=main_row["library_ms"], shape=main_row["shape"],
+            **extra))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -3425,7 +3511,7 @@ def main() -> int:
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
          "serve_cli": cli_res, "rwkv_serve": rwkv_res,
          "starcoder_serve": starcoder_res, "hybrid_serve": hybrid_res,
-         "bundle": bundle_res,
+         "audio_train": audio_res, "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

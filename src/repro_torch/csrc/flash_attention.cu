@@ -27,9 +27,13 @@
 //
 // Design:
 // - One block per (b, kv head, pair of query heads, 64-position q tile):
-//   the block's R = 64 * GB query rows (GB = 2 when G is even, else 1) share
-//   each K/V tile, so a tile is read from device memory G / GB times per
-//   group instead of G times. 256 threads as 16 x 16 (ty, tx).
+//   the block's R = 64 * GB query rows (GB = 2 when G is even) share each
+//   K/V tile, so a tile is read from device memory G / GB times per group
+//   instead of G times. When G is odd (hubert-xlarge's G = 1) a block takes
+//   one query head over a 128-position q tile instead (QT = 128, when
+//   S % 128 == 0): the same R = 128 rows, register blocking and shared
+//   memory as two heads, where 64 rows would halve the FMAs per shared
+//   read. 256 threads as 16 x 16 (ty, tx).
 // - Register blocking with 16-byte shared reads. Thread (ty, tx) owns rows
 //   ty * TM .. + TM - 1 (TM = R / 16: 8 or 4), logit columns tx + 16 j
 //   (j < 4) and output columns in float4 chunks tx + 16 c (a float2 at
@@ -60,30 +64,44 @@
 //   the 227 KB a block may hold. A thread then holds 4 rows x 16 output
 //   columns and 4 x 2 logits; the swizzle and the output chunks tx + 16 c
 //   (c < 4) are those of hd = 128, twice over.
+// - hd = 80 (hubert-xlarge's 1280 / 16): 20 float4 chunks a row, which the
+//   XOR swizzle (a permutation of each group of 8 chunks) would carry past
+//   the row's end (chunks 16-19 onto 16-23). Rows are stored at a pitch of
+//   PITCH = 96 floats (24 chunks, three whole swizzle groups; the pad is
+//   never read or stored), which keeps every row on bank 0 as at hd 128.
+//   A thread's output columns are the float4 chunk tx (columns 0-63) and
+//   one more column, 64 + tx (TAIL = 1): 5 of the 80 columns for each of
+//   the 16 threads of a row, none idle. 181,248 B of shared memory at 128
+//   query rows a block (two heads, or one over 128 positions), 140,288 B
+//   at 64.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BQ = 64;   // q positions per block
+constexpr int BQ = 64;   // q positions per block (QT = 2 BQ: one head, odd G)
 constexpr float NEG_INF = -1e30f;
 
-template <int HD, int GB>
+template <int HD, int GB, int QT = BQ>
 struct Shape {
   // kv rows per loop step: 32 at hd = 256, where 64 would not fit
   static constexpr int BKV = HD >= 256 ? 32 : 64;
   static constexpr int NJ = BKV / 16;    // logit columns per thread
-  static constexpr int R = BQ * GB;      // query rows per block
+  static constexpr int R = QT * GB;      // query rows per block
   static constexpr int TM = R / 16;      // rows per thread
   static constexpr int CH = HD / 4;      // float4 chunks per row
+  // shared-memory row pitch in floats: whole groups of 8 swizzled chunks
+  static constexpr int PITCH = (CH + 7) / 8 * 32;
   // output columns per thread: OC vectors of OV floats (float4 chunks
-  // tx + 16 c; at hd = 32 one float2, columns 2 tx and 2 tx + 1)
+  // tx + 16 c; at hd = 32 one float2, columns 2 tx and 2 tx + 1), then
+  // TAIL single columns 64 OC + tx + 16 t (hd = 80: column 64 + tx)
   static constexpr int OC = HD >= 64 ? HD / 64 : 1;
   static constexpr int OV = HD >= 64 ? 4 : 2;
+  static constexpr int TAIL = HD >= 64 ? HD % 64 / 16 : 0;
   static constexpr int PP = R + 4;       // P pitch in floats
   // Q, two K and two V buffers, P
-  static constexpr int SMEM = (R * HD + 4 * BKV * HD + BKV * PP) * 4;
+  static constexpr int SMEM = (R * PITCH + 4 * BKV * PITCH + BKV * PP) * 4;
 };
 
 // Float offset of float4 chunk `ch` of row `r` in a row-major tile whose
@@ -92,9 +110,11 @@ struct Shape {
 // K and V rows by r & 7 (the 8 rows that 8 lanes read at once read
 // distinct banks); either way a thread's swizzle is one value for all the
 // rows it reads at one chunk, so an address costs one XOR per chunk.
-template <int HD>
+// Rows lie PITCH floats apart (a multiple of 32 floats: whole groups of 8
+// chunks), so the XOR keeps a chunk inside its row.
+template <int PITCH>
 __device__ __forceinline__ int at(int r, int ch, int s) {
-  return r * HD + ((ch ^ s) << 2);
+  return r * PITCH + ((ch ^ s) << 2);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -127,38 +147,41 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// one K or V tile: BKV rows of HD floats, row stride `stride` in device memory
-template <int HD, int BKV>
+// one K or V tile: BKV rows of HD floats, row stride `stride` in device
+// memory, PITCH in shared memory
+template <int HD, int PITCH, int BKV>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t stride) {
   constexpr int CH = HD / 4;
   for (int idx = threadIdx.x; idx < BKV * CH; idx += THREADS) {
     const int r = idx / CH, ch = idx % CH;
-    cp_async16(dst + at<HD>(r, ch, r & 7), src + (size_t)r * stride + ch * 4);
+    cp_async16(dst + at<PITCH>(r, ch, r & 7),
+               src + (size_t)r * stride + ch * 4);
   }
 }
 
-template <int HD, int GB>
+template <int HD, int GB, int QT>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int S, int KV, int G, int causal,
                  int window) {
-  using P = Shape<HD, GB>;
+  using P = Shape<HD, GB, QT>;
   constexpr int R = P::R, TM = P::TM, CH = P::CH, OC = P::OC, OV = P::OV;
-  constexpr int PP = P::PP, BKV = P::BKV, NJ = P::NJ;
+  constexpr int PP = P::PP, BKV = P::BKV, NJ = P::NJ, TAIL = P::TAIL;
+  constexpr int PITCH = P::PITCH;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // R x HD, swizzled
-  float* ks0 = qs + R * HD;         // two K buffers, BKV x HD, swizzled
-  float* vs0 = ks0 + 2 * BKV * HD;  // two V buffers
-  float* ps = vs0 + 2 * BKV * HD;   // BKV x PP: p[row r][kv c] at c * PP + r
+  float* qs = smem;                    // R x PITCH, swizzled
+  float* ks0 = qs + R * PITCH;         // two K buffers, BKV x PITCH, swizzled
+  float* vs0 = ks0 + 2 * BKV * PITCH;  // two V buffers
+  float* ps = vs0 + 2 * BKV * PITCH;   // BKV x PP: p[row r][kv c] at c * PP + r
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int n_q = gridDim.y;
   const int qt = n_q - 1 - blockIdx.y;   // the largest causal work first
-  const int q0 = qt * BQ;
+  const int q0 = qt * QT;
   const int hg = blockIdx.x;             // ((b * KV + h) * G / GB + gp)
   const int n_gp = G / GB;
   const int gbase = (hg % n_gp) * GB;
@@ -171,7 +194,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int n_kv = S / BKV;
   int kt_hi = n_kv - 1;
-  if (causal) kt_hi = min(kt_hi, (q0 + BQ - 1) / BKV);
+  if (causal) kt_hi = min(kt_hi, (q0 + QT - 1) / BKV);
   int kt_lo = 0;
   if (window > 0) {  // the first kv position any row of the tile attends
     const int first = q0 - window + 1;
@@ -181,15 +204,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // prologue: Q and the first K and V tiles
   for (int idx = tid; idx < R * CH; idx += THREADS) {
     const int r = idx / CH, ch = idx % CH;
-    const float* src = q + (((size_t)b * S + q0 + r % BQ) * KV + h) * G * HD +
-                       (size_t)(gbase + r / BQ) * HD + ch * 4;
-    cp_async16(qs + at<HD>(r, ch, (r / TM) & 7), src);
+    const float* src = q + (((size_t)b * S + q0 + r % QT) * KV + h) * G * HD +
+                       (size_t)(gbase + r / QT) * HD + ch * 4;
+    cp_async16(qs + at<PITCH>(r, ch, (r / TM) & 7), src);
   }
-  load_tile<HD, BKV>(ks0, kb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
-  load_tile<HD, BKV>(vs0, vb + (size_t)kt_lo * BKV * kv_stride, kv_stride);
+  load_tile<HD, PITCH, BKV>(ks0, kb + (size_t)kt_lo * BKV * kv_stride,
+                            kv_stride);
+  load_tile<HD, PITCH, BKV>(vs0, vb + (size_t)kt_lo * BKV * kv_stride,
+                            kv_stride);
   cp_async_commit();
 
-  float m[TM], l[TM], o[TM][OC][OV];
+  // (TAIL + 1: a zero-length array is not C++)
+  float m[TM], l[TM], o[TM][OC][OV], ot[TM][TAIL + 1];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     m[i] = NEG_INF;
@@ -198,25 +224,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < OC; ++c)
 #pragma unroll
       for (int e = 0; e < OV; ++e) o[i][c][e] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < TAIL; ++t) ot[i][t] = 0.0f;
   }
-  const float* qrow = qs + ty * TM * HD;   // this thread's rows, swizzle sq
+  const float* qrow = qs + ty * TM * PITCH;  // this thread's rows, swizzle sq
   const int sq = ty & 7;
   const int sk = tx & 7;                   // rows tx + 16 j of a K tile
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * BKV;
     const int buf = (kt - kt_lo) & 1;
-    const float* ks = ks0 + buf * BKV * HD;
-    const float* vs = vs0 + buf * BKV * HD;
+    const float* ks = ks0 + buf * BKV * PITCH;
+    const float* vs = vs0 + buf * BKV * PITCH;
     cp_async_wait_all();
     // K and V of this tile landed for every thread, and every thread is
     // done with the other buffers (the previous tile) and with P
     __syncthreads();
     if (kt < kt_hi) {
-      load_tile<HD, BKV>(ks0 + (buf ^ 1) * BKV * HD,
-                         kb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
-      load_tile<HD, BKV>(vs0 + (buf ^ 1) * BKV * HD,
-                         vb + (size_t)(kt + 1) * BKV * kv_stride, kv_stride);
+      load_tile<HD, PITCH, BKV>(ks0 + (buf ^ 1) * BKV * PITCH,
+                                kb + (size_t)(kt + 1) * BKV * kv_stride,
+                                kv_stride);
+      load_tile<HD, PITCH, BKV>(vs0 + (buf ^ 1) * BKV * PITCH,
+                                vb + (size_t)(kt + 1) * BKV * kv_stride,
+                                kv_stride);
     }
     cp_async_commit();
 
@@ -226,15 +256,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) s[i][j] = 0.0f;
-    const float* krow = ks + tx * HD;
+    const float* krow = ks + tx * PITCH;
 #pragma unroll 4
     for (int ch = 0; ch < CH; ++ch) {
       const int oq = (ch ^ sq) << 2, ok = (ch ^ sk) << 2;
       float4 a[TM], kk[NJ];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = lds4(qrow + i * HD + oq);
+      for (int i = 0; i < TM; ++i) a[i] = lds4(qrow + i * PITCH + oq);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) kk[j] = lds4(krow + 16 * j * HD + ok);
+      for (int j = 0; j < NJ; ++j) kk[j] = lds4(krow + 16 * j * PITCH + ok);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -249,11 +279,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // ---- mask (only on tiles that cross the diagonal or the window edge),
     // online softmax, p to shared memory
     const bool masked = (causal && k0 + BKV - 1 > q0) ||
-                        (window > 0 && q0 + BQ - 1 - k0 >= window);
+                        (window > 0 && q0 + QT - 1 - k0 >= window);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       if (masked) {
-        const int qpos = q0 + (ty * TM + i) % BQ;
+        const int qpos = q0 + (ty * TM + i) % QT;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int kpos = k0 + tx + 16 * j;
@@ -281,6 +311,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < OC; ++c)
 #pragma unroll
         for (int e = 0; e < OV; ++e) o[i][c][e] *= alpha;
+#pragma unroll
+      for (int t = 0; t < TAIL; ++t) ot[i][t] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -310,11 +342,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int cc = 0; cc < OC; ++cc) {
           float vv[OV];
           if constexpr (OV == 4) {
-            const float4 t = lds4(vs + c * HD + (((tx ^ e) + 16 * cc) << 2));
+            const float4 t = lds4(vs + c * PITCH + (((tx ^ e) + 16 * cc) << 2));
             vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
           } else {
             const float2 t = *reinterpret_cast<const float2*>(
-                vs + c * HD + (((tx >> 1) ^ e) << 2) + 2 * (tx & 1));
+                vs + c * PITCH + (((tx >> 1) ^ e) << 2) + 2 * (tx & 1));
             vv[0] = t.x; vv[1] = t.y;
           }
 #pragma unroll
@@ -322,6 +354,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int u = 0; u < OV; ++u)
               o[i][cc][u] = fmaf(pr[i], vv[u], o[i][cc][u]);
+        }
+        // column 64 OC + tx + 16 t: float (tx & 3) of chunk 16 OC + 4 t +
+        // tx / 4, stored at that chunk XOR e
+#pragma unroll
+        for (int t = 0; t < TAIL; ++t) {
+          const float vt =
+              vs[c * PITCH + (((16 * OC + 4 * t + (tx >> 2)) ^ e) << 2) +
+                 (tx & 3)];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) ot[i][t] = fmaf(pr[i], vt, ot[i][t]);
         }
       }
     }
@@ -331,8 +373,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty * TM + i;
-    const int g = gbase + r / BQ;
-    const int pos = q0 + r % BQ;
+    const int g = gbase + r / QT;
+    const int pos = q0 + r % QT;
     const float lf = fmaxf(l[i], 1e-30f);
     float* orow = out + ((size_t)b * S + pos) * q_stride + ((size_t)h * G + g) * HD;
 #pragma unroll
@@ -345,39 +387,50 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float2*>(orow + 2 * tx) =
             make_float2(o[i][cc][0] / lf, o[i][cc][1] / lf);
     }
+#pragma unroll
+    for (int t = 0; t < TAIL; ++t) orow[64 * OC + tx + 16 * t] = ot[i][t] / lf;
     if (tx == 0)
       lse[(((size_t)b * KV + h) * G + g) * S + pos] = m[i] + logf(lf);
   }
 }
 
-template <int HD, int GB>
+template <int HD, int GB, int QT>
 int launch(const float* q, const float* k, const float* v, float* out,
            float* lse, int B, int S, int KV, int G, int causal, int window,
            cudaStream_t stream) {
-  constexpr int bytes = Shape<HD, GB>::SMEM;
+  constexpr int bytes = Shape<HD, GB, QT>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel<HD, GB, QT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(B * KV * (G / GB), S / BQ);
-  flash_fwd_kernel<HD, GB><<<grid, THREADS, bytes, stream>>>(
+  dim3 grid(B * KV * (G / GB), S / QT);
+  flash_fwd_kernel<HD, GB, QT><<<grid, THREADS, bytes, stream>>>(
       q, k, v, out, lse, S, KV, G, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int GB>
+// GB query heads of QT positions per block (GB = 2, QT = 64 or GB = 1,
+// QT = 128 or 64); hd 256 takes one head of 64 positions at any G
+template <int GB, int QT>
 int launch_hd(const float* q, const float* k, const float* v, float* out,
               float* lse, int B, int S, int KV, int G, int hd, int causal,
               int window, cudaStream_t st) {
   switch (hd) {
     case 256:   // one query head per block at any G (shared memory)
-      return launch<256, 1>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+      return launch<256, 1, BQ>(q, k, v, out, lse, B, S, KV, G, causal,
+                                window, st);
     case 32:
-      return launch<32, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+      return launch<32, GB, QT>(q, k, v, out, lse, B, S, KV, G, causal,
+                                window, st);
     case 64:
-      return launch<64, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+      return launch<64, GB, QT>(q, k, v, out, lse, B, S, KV, G, causal,
+                                window, st);
+    case 80:
+      return launch<80, GB, QT>(q, k, v, out, lse, B, S, KV, G, causal,
+                                window, st);
     case 128:
-      return launch<128, GB>(q, k, v, out, lse, B, S, KV, G, causal, window, st);
+      return launch<128, GB, QT>(q, k, v, out, lse, B, S, KV, G, causal,
+                                 window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -386,7 +439,7 @@ int launch_hd(const float* q, const float* k, const float* v, float* out,
 }  // namespace
 
 // q, out: (B, S, KV, G, hd) f32; k, v: (B, S, KV, hd) f32; lse: (B, KV, G, S)
-// f32. S % 64 == 0, hd in {32, 64, 128, 256}, 16-byte aligned rows; window <= 0
+// f32. S % 64 == 0, hd in {32, 64, 80, 128, 256}, 16-byte aligned rows; window <= 0
 // means none. Returns cudaErrorInvalidValue for a shape it does not take.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int S, int KV, int G,
@@ -400,26 +453,34 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (S % BQ != 0 || S / BQ > 65535 || B * KV * G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (G % 2 == 0)
-    return launch_hd<2>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal, window, st);
-  return launch_hd<1>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal, window, st);
+    return launch_hd<2, BQ>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal,
+                            window, st);
+  if (S % (2 * BQ) == 0)
+    return launch_hd<1, 2 * BQ>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal,
+                                window, st);
+  return launch_hd<1, BQ>(qf, kf, vf, of, lf, B, S, KV, G, hd, causal,
+                          window, st);
 }
 
 // Registers, dynamic shared memory and resident blocks per SM of the
-// instance for head dim `hd` and `gb` query heads per block, from the
-// runtime. Writes four ints to `info`: registers, shared bytes, blocks per SM,
-// local (spill) bytes per thread.
-extern "C" int flash_fwd_occupancy(int hd, int gb, void* info) {
+// instance for head dim `hd`, `gb` query heads per block and `qt` q
+// positions per block, from the runtime. Writes four ints to `info`:
+// registers, shared bytes, blocks per SM, local (spill) bytes per thread.
+extern "C" int flash_fwd_occupancy(int hd, int gb, int qt, void* info) {
   int* o = static_cast<int*>(info);
   const void* fn = nullptr;
   int bytes = 0;
-  switch (hd * 10 + gb) {
-#define FA_CASE(HD, GB)                                                  \
-  case HD * 10 + GB:                                                     \
-    fn = reinterpret_cast<const void*>(flash_fwd_kernel<HD, GB>);        \
-    bytes = Shape<HD, GB>::SMEM;                                         \
+  switch ((hd * 10 + gb) * 1000 + qt) {
+#define FA_CASE(HD, GB, QT)                                              \
+  case (HD * 10 + GB) * 1000 + QT:                                       \
+    fn = reinterpret_cast<const void*>(flash_fwd_kernel<HD, GB, QT>);    \
+    bytes = Shape<HD, GB, QT>::SMEM;                                     \
     break;
-    FA_CASE(32, 1) FA_CASE(32, 2) FA_CASE(64, 1) FA_CASE(64, 2)
-    FA_CASE(128, 1) FA_CASE(128, 2) FA_CASE(256, 1)
+    FA_CASE(32, 1, 64) FA_CASE(32, 1, 128) FA_CASE(32, 2, 64)
+    FA_CASE(64, 1, 64) FA_CASE(64, 1, 128) FA_CASE(64, 2, 64)
+    FA_CASE(80, 1, 64) FA_CASE(80, 1, 128) FA_CASE(80, 2, 64)
+    FA_CASE(128, 1, 64) FA_CASE(128, 1, 128) FA_CASE(128, 2, 64)
+    FA_CASE(256, 1, 64)
 #undef FA_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -53,7 +53,7 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     },
     "flash_attention": {
         "flash_fwd": [_P] * 5 + [_I] * 7 + [_P],
-        "flash_fwd_occupancy": [_I, _I, _P],
+        "flash_fwd_occupancy": [_I, _I, _I, _P],
     },
     "wkv": {
         "wkv": [_P] * 10 + [_I] * 5 + [_P],

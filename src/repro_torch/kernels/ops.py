@@ -37,7 +37,7 @@ QMM_ROWS = (1, 2, 3, 4, 8, 16)
 QMM_TILE_N, QMM_STEP_K = 64, 32
 QMM_TARGET_BLOCKS = 2 * 132
 FLASH_TILE = 64                         # csrc/flash_attention.cu q tile
-FLASH_HEAD_DIMS = (32, 64, 128, 256)    # the kernel's instances
+FLASH_HEAD_DIMS = (32, 64, 80, 128, 256)  # the kernel's instances
 MAX_TABLE = 4096                        # page-table entries of a slot
 # csrc/decode_attn_quant.cu: cache rows per pipeline tile; the blocks a
 # launch aims for, four on each of the H100's 132 SMs; query rows per block

@@ -335,6 +335,7 @@ class DecodeEngine:
     def __init__(self, params, cfg: ModelConfig, bits, ctx, *,
                  ecfg: Optional[EngineConfig] = None, adapter=None,
                  device=None, elastic=None):
+        lm.check_decodes(cfg)
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()

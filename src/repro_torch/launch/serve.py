@@ -1118,6 +1118,7 @@ def main(argv=None):
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     try:
+        lm.check_decodes(cfg)
         scfg = ServeConfig.from_args(args)
         check_kv_layout(cfg, scfg.kv_layout)
         check_spec(cfg, scfg.speculate, scfg.draft_bits, kv=scfg.kv,

@@ -23,6 +23,11 @@ Examples:
       --steps 2
   python -m repro_torch.launch.train --smoke --device cpu --mode qat \
       --steps 4 --ckpt-dir ckpt --ckpt-every 2
+  python -m repro_torch.launch.train --arch hubert-xlarge --mode importance \
+      --seq 2048 --batch 1 --steps 2
+
+An encoder-only arch (hubert-xlarge) trains on frame embeddings and their
+unit labels (``data.SyntheticLM``'s audio branch); its rate counts frames.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = lm.init_params(cfg, seed=args.seed, device=dev)
     data = SyntheticLM(cfg)
+    unit = "frames" if cfg.frontend == "audio_stub" else "tok"
     ctx = (fp_context(torch.float32) if args.mode == "fp"
            else QuantContext.make(cfg.bits, cfg.quant_act_signed,
                                   compute_dtype=torch.float32))
@@ -133,7 +139,7 @@ def main(argv=None):
             print(f"[watchdog] step {step} straggled: {dt:.2f}s")
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:7.1f} ms  "
-                  f"{args.batch * args.seq / dt:.0f} tok/s on {dev}")
+                  f"{args.batch * args.seq / dt:.0f} {unit}/s on {dev}")
         if mgr and (step + 1) % args.ckpt_every == 0:
             mgr.save(step, params, meta={"arch": cfg.name, "mode": args.mode})
     if mgr:

@@ -1,6 +1,8 @@
 """Config-driven LM: dense attention layers (serving and training), RWKV6
-layers (serving) and the hybrid family's RG-LRU layers beside local
-attention (recurrentgemma; serving).
+layers (serving), the hybrid family's RG-LRU layers beside local
+attention (recurrentgemma; serving) and the audio family's encoder
+(hubert: bidirectional attention over frame embeddings from the stub
+frontend, a sinusoid position table, no rope; training only).
 
 A config expands into a *schedule*: ``prefix`` layers, a repeating
 ``pattern`` whose params are stacked ``repeats`` times on a leading axis
@@ -42,14 +44,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import MPQPolicy
 from repro_torch.core.qspec import QLayer
 from repro_torch.core.quantizer import bit_range, init_scale_from_stats
+from repro_torch.data import FRONTEND_DIMS
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        dense_init, embed_init, norm_init)
 from repro_torch.models.quant_layers import (QuantContext,
                                              embed_lookup_pinned,
-                                             pinned_table, qdense_init,
-                                             qeinsum, qeinsum_pinned)
+                                             pinned_init, pinned_table,
+                                             qdense_init, qeinsum,
+                                             qeinsum_pinned)
 from repro_torch.runtime import kv_cache as qkv
 
 ATTN_KINDS = ("attn", "dense")
@@ -74,18 +78,18 @@ class LayerSite(NamedTuple):
 
 
 def build_schedule(cfg: ModelConfig) -> Schedule:
-    if cfg.family in ("moe", "vlm") or cfg.encoder_only:
+    if cfg.family in ("moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder, rwkv (ssm) and "
-            f"hybrid families only (family {cfg.family!r} comes with a "
-            "later slice)")
+            f"{cfg.name}: the port runs the dense decoder, rwkv (ssm), "
+            f"hybrid and audio families only (family {cfg.family!r} comes "
+            "with a later slice)")
     L = cfg.n_layers
     if cfg.family == "hybrid":
         bp = tuple(cfg.block_pattern)
         return Schedule((), bp, L // len(bp), bp[:L % len(bp)])
     if cfg.family == "ssm":
         return Schedule((), ("rwkv",), L, ())
-    return Schedule((), ("attn",), L, ())
+    return Schedule((), ("attn",), L, ())     # dense / audio
 
 
 def iter_sites(cfg: ModelConfig) -> List[LayerSite]:
@@ -173,9 +177,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
     meta = torch.device(device or "cpu").type == "meta"
     gen = torch.Generator(device="cpu" if meta else device or "cpu"
                           ).manual_seed(int(seed))
-    w = embed_init(gen, cfg.vocab, cfg.d_model, device=device)
-    params: Dict[str, Any] = {"embed": {
-        "w": w, "s_w8": init_scale_from_stats(w, bit_range(8, True)[1])}}
+    if cfg.frontend == "audio_stub":     # frame embeddings, no vocab table
+        params: Dict[str, Any] = {"embed": pinned_init(
+            gen, FRONTEND_DIMS["audio_stub"], cfg.d_model, device=device)}
+    else:
+        w = embed_init(gen, cfg.vocab, cfg.d_model, device=device)
+        params = {"embed": {
+            "w": w, "s_w8": init_scale_from_stats(w, bit_range(8, True)[1])}}
     params["prefix"] = {str(i): _layer_init(gen, cfg, k, device=device)
                         for i, k in enumerate(sched.prefix)}
     params["body"] = {str(p): _layer_init(gen, cfg, k, stacked=(sched.repeats,),
@@ -189,10 +197,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
         params["head"] = {"s_a8": torch.tensor(0.1 / 8, dtype=torch.float32,
                                                device=device)}
     else:
-        hw = dense_init(gen, cfg.d_model, cfg.vocab, device=device)
-        params["head"] = {
-            "w": hw, "s_w8": init_scale_from_stats(hw, bit_range(8, True)[1]),
-            "s_a8": torch.tensor(0.1 / 8, dtype=torch.float32, device=device)}
+        params["head"] = pinned_init(gen, cfg.d_model, cfg.vocab,
+                                     device=device)
     return params
 
 
@@ -319,13 +325,32 @@ def bits_from_policy(cfg: ModelConfig, policy: MPQPolicy,
 # ===========================================================================
 # forward
 # ===========================================================================
-def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 ctx: QuantContext, table: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
-    """Token embeddings (B, S, D) from the 8-bit pinned table; the hybrid
-    family scales them by sqrt(d_model) (gemma), the factor first rounded
-    to the activation dtype as the reference rounds it."""
-    x = embed_lookup_pinned(tokens, params["embed"], ctx, table)
+def _sinusoid_pos(S: int, d: int, dtype, device) -> torch.Tensor:
+    """(1, S, d) position table: sin then cos of pos / 10000^(2i/d),
+    computed in float32 and then cast, as the reference computes it."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)[None]
+
+
+def embed_inputs(params, cfg: ModelConfig, inputs, ctx: QuantContext,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Input embeddings (B, S, D). ``inputs`` is a batch dict (``tokens``;
+    the audio frontend's ``feats`` (B, S, 512)) or a token tensor. Tokens
+    read the 8-bit pinned table (the hybrid family scales them by
+    sqrt(d_model), gemma's, the factor first rounded to the activation
+    dtype as the reference rounds it); frames go through the 8-bit pinned
+    projection, plus the sinusoid position table."""
+    dev = params["embed"]["w"].device
+    if cfg.frontend == "audio_stub":
+        feats = torch.as_tensor(inputs["feats"], device=dev)
+        x = qeinsum_pinned("bsf,fd->bsd", feats.to(ctx.compute_dtype),
+                           params["embed"], ctx)
+        return x + _sinusoid_pos(x.shape[1], cfg.d_model, x.dtype, dev)
+    tokens = inputs["tokens"] if isinstance(inputs, dict) else inputs
+    x = embed_lookup_pinned(torch.as_tensor(tokens, device=dev),
+                            params["embed"], ctx, table)
     if cfg.family == "hybrid":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
     return x
@@ -348,8 +373,39 @@ def _qk_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
+def _rope_qk(q, k, cfg: ModelConfig, mode: str, p_, S: int):
+    """q and k rotated at their positions: ``0..S-1`` in ``train`` and
+    ``prefill``, else ``p_`` (the int32 positions on the device)."""
+    B = q.shape[0]
+    per_slot = mode == "decode" and p_.dim() == 1
+    if mode == "decode":
+        positions = torch.clamp(p_, min=0) if per_slot else p_.reshape(1)
+    elif mode == "verify":
+        # one angle per (slot, token); sentinel rows (-1) take angle 0 and
+        # are masked everywhere
+        positions = torch.clamp(p_, min=0).reshape(-1)
+    elif mode == "append":
+        # pad rows carry -1: their angle is irrelevant (the write drops them)
+        positions = torch.clamp(p_, min=0)
+    else:
+        positions = torch.arange(S, device=q.device)
+    cos, sin = _rope_cos_sin(cfg, positions)
+    if per_slot:              # (B, hd/2) -> (B, 1, 1, hd/2): one angle per slot
+        cos, sin = cos[:, None, None], sin[:, None, None]
+    elif mode == "verify":    # (B*S, hd/2) -> (B, S, 1, hd/2), over the heads
+        cos, sin = cos.reshape(B, S, 1, -1), sin.reshape(B, S, 1, -1)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
 def _bget(bits, key):
     return None if bits is None else bits[key]
+
+
+def check_decodes(cfg: ModelConfig) -> None:
+    """Raise the reference's ``ValueError`` for an encoder-only config: it
+    has no decode step, so no engine, session or server takes it."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
 
 def attn_window(cfg: ModelConfig) -> Optional[int]:
@@ -379,27 +435,12 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
     if cfg.qk_norm:
         q = _qk_rms(q, p["q_norm"], cfg.norm_eps)
         k = _qk_rms(k, p["k_norm"], cfg.norm_eps)
-    per_slot = mode == "decode" and torch.as_tensor(pos).dim() == 1
+    p_ = None
     if mode in ("decode", "verify", "append"):
         p_ = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    if mode == "decode":
-        positions = torch.clamp(p_, min=0) if per_slot else p_.reshape(1)
-    elif mode == "verify":
-        # one angle per (slot, token); sentinel rows (-1) take angle 0 and
-        # are masked everywhere
-        positions = torch.clamp(p_, min=0).reshape(-1)
-    elif mode == "append":
-        # pad rows carry -1: their angle is irrelevant (the write drops them)
-        positions = torch.clamp(p_, min=0)
-    else:
-        positions = torch.arange(S, device=x.device)
-    cos, sin = _rope_cos_sin(cfg, positions)
-    if per_slot:              # (B, hd/2) -> (B, 1, 1, hd/2): one angle per slot
-        cos, sin = cos[:, None, None], sin[:, None, None]
-    elif mode == "verify":    # (B*S, hd/2) -> (B, S, 1, hd/2), over the heads
-        cos, sin = cos.reshape(B, S, 1, -1), sin.reshape(B, S, 1, -1)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin).to(ctx.compute_dtype)
+    if cfg.family != "audio":          # audio: the sinusoid table, no rope
+        q, k = _rope_qk(q, k, cfg, mode, p_, S)
+    k = k.to(ctx.compute_dtype)
     window = attn_window(cfg)
     if mode == "train":
         out = attn.self_attention(q.to(ctx.compute_dtype), k, v,
@@ -635,9 +676,7 @@ def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
     """Full-sequence logits. Returns (logits (B, S, V) f32, aux loss).
     ``remat`` recomputes each body unit in the backward
     (``run_sites_remat``), as the reference checkpoints its scan body."""
-    tokens = torch.as_tensor(inputs["tokens"],
-                             device=params["embed"]["w"].device)
-    x = embed_inputs(params, cfg, tokens, ctx)
+    x = embed_inputs(params, cfg, inputs, ctx)
     sites = reference_sites(params, bits, cfg)
     if remat:
         x = run_sites_remat(x, sites, cfg, ctx)
@@ -649,10 +688,17 @@ def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
 
 def loss_fn(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
             remat: bool = True):
-    """Next-token cross entropy (+ MoE aux). Returns (loss, metrics)."""
+    """Next-token cross entropy (+ MoE aux); an encoder-only model's CE is
+    over its ``labels`` at every position, unshifted. Returns (loss,
+    metrics)."""
     logits, aux = apply_train(params, cfg, inputs, bits, ctx, remat)
-    tokens = torch.as_tensor(inputs["tokens"], device=logits.device).long()
-    lg, tg = logits[:, :-1], tokens[:, 1:]
+    if cfg.encoder_only:
+        lg = logits
+        tg = torch.as_tensor(inputs["labels"], device=logits.device).long()
+    else:
+        tokens = torch.as_tensor(inputs["tokens"],
+                                 device=logits.device).long()
+        lg, tg = logits[:, :-1], tokens[:, 1:]
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, tg[..., None])[..., 0]
     ce = (lse - picked).mean()

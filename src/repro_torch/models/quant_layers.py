@@ -93,6 +93,19 @@ def qdense_init(gen: torch.Generator, in_dim: int, out_dim: int, bits, *,
     return {"w": w, "s_w": s_w, "s_a": s_a}
 
 
+def pinned_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
+                pinned_bits: int = 8, stacked=(), device=None):
+    """8-bit pinned projection (the audio frontend, the untied lm head):
+    one weight scale from the weight's statistics and one activation scale
+    0.1 / pinned_bits, outside the search."""
+    w = dense_init(gen, in_dim, out_dim, stacked=stacked, device=device)
+    s = init_scale_from_stats(w, bit_range(pinned_bits, True)[1])
+    ones = torch.ones(tuple(stacked), dtype=torch.float32, device=device)
+    return {"w": w, "s_w8": s * ones,
+            "s_a8": torch.full(tuple(stacked), 0.1 / pinned_bits,
+                               dtype=torch.float32, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # application
 # ---------------------------------------------------------------------------

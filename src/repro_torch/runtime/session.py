@@ -90,6 +90,7 @@ class QuantizedSession:
     def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
                  ctx: Optional[QuantContext] = None, *,
                  kv_quant: str = "int8"):
+        lm.check_decodes(cfg)
         self.cfg = cfg
         self.policy = policy
         self.ctx = dataclasses.replace(
@@ -282,6 +283,7 @@ class SpecSession(QuantizedSession):
     def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
                  ctx: Optional[QuantContext] = None, *,
                  kv_quant: str = "int8", draft_w_bits: int = 2):
+        lm.check_decodes(cfg)
         self.draft_w_bits = int(draft_w_bits)
         self.policy_draft = draft_policy(policy, lm.enumerate_qlayers(cfg),
                                          cfg.bits, self.draft_w_bits)
@@ -356,6 +358,7 @@ class ElasticSession(QuantizedSession):
                  ctx: Optional[QuantContext] = None, *,
                  active: Optional[str] = None, mode: str = "packed",
                  kv_quant: str = "int8"):
+        lm.check_decodes(cfg)
         if mode != "packed":
             raise ValueError(
                 "ElasticSession packs N policy variants over one weight "

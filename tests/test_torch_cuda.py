@@ -870,7 +870,7 @@ def _ds_tol(v, s, g, qmin, qmax, ds_plain):
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("shape", [(37, 1000), (1, 1), (5,), (3, 7, 11),
-                                   (1024, 3072), (4099,)])
+                                   (1024, 3072), (4099,), (2048, 5120)])
 def test_fake_quant_kernels_against_plain(dev, bits, shape):
     rng = np.random.default_rng(bits * 100 + len(shape))
     v = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32)).to(dev)
@@ -946,16 +946,27 @@ FLASH_CASES = [(hd, S, causal, window, G) for hd in (32, 64, 128)
                             (False, 100))
      for G in (1, 2, 10)] + \
     [(256, 2560, True, 2048, G) for G in (1, 2, 10)] + \
-    [(256, 2048, True, None, 10)]
+    [(256, 2048, True, None, 10)] + \
+    [(80, S, causal, window, G) for S in (64, 192)
+     for causal, window in ((True, None), (True, 40), (False, None),
+                            (False, 100))
+     for G in (1, 2, 4)] + \
+    [(80, 2048, causal, None, 1) for causal in (False, True)] + \
+    [(hd, 256, causal, window, G) for hd in (32, 64, 80, 128)
+     for causal, window in ((True, None), (True, 40), (False, None))
+     for G in (1, 3)]
 
 
 @pytest.mark.parametrize("hd,S,causal,window,G", FLASH_CASES)
 def test_flash_fwd_kernel_against_plain(dev, hd, S, causal, window, G):
-    """Every instance (hd 32/64/128; one or two query heads per block, G
-    odd or even; hd 256, one query head per block over 32-row kv tiles, at
-    recurrentgemma-2b's G = 10 and its 2048-row local window over a
-    2560-token prompt), tiles that the window leaves wholly or partly
-    masked, and the causal schedule's long rows at S = 2048."""
+    """Every instance (hd 32/64/80/128: two query heads per block when G is
+    even; one head over 128 positions when G is odd and S % 128 == 0 (S =
+    256, 2048), else over 64 (S = 64, 192, 320); hd 256, one query head per
+    block over 32-row kv tiles, at recurrentgemma-2b's G = 10 and its
+    2048-row local window over a 2560-token prompt; hd 80 at
+    hubert-xlarge's bidirectional S = 2048), tiles that the window leaves
+    wholly or partly masked, and the causal schedule's long rows at S =
+    2048."""
     B, KV = 2, 2
     rng = np.random.default_rng(S + hd + G)
     q = torch.from_numpy((rng.standard_normal((B, S, KV, G, hd)) * hd ** -0.5)
@@ -968,6 +979,27 @@ def test_flash_fwd_kernel_against_plain(dev, hd, S, causal, window, G):
     assert ops.launches["flash_fwd"] == n0 + 1
     out_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
                                      q_block=64, kv_block=64)
+    torch.testing.assert_close(out, out_p, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [32, 80, 128])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_fwd_non_causal_window_past_the_q_block(dev, hd, G):
+    """A bidirectional window at S > window + q_block: the kernel attends
+    every key the mask admits, keys after the query's block among them, as
+    the Pallas kernel does. The plain blockwise schedule in 64-row blocks
+    slices each q block's keys as if causal (ROADMAP 3), so the plain
+    version here runs one block over all S rows."""
+    B, S, KV, window = 1, 256, 2, 100
+    rng = np.random.default_rng(hd + G)
+    q = torch.from_numpy((rng.standard_normal((B, S, KV, G, hd)) * hd ** -0.5)
+                         .astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.standard_normal((B, S, KV, hd)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((B, S, KV, hd)).astype(np.float32)).to(dev)
+    out, lse = ops.flash_fwd(q, k, v, causal=False, window=window)
+    out_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=False, window=window,
+                                     q_block=S, kv_block=S)
     torch.testing.assert_close(out, out_p, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
 
@@ -1009,10 +1041,10 @@ def test_training_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):                     # unsupported head dim
         ops.flash_fwd(q[..., :48].contiguous(), kv[..., :48].contiguous(),
                       kv[..., :48].contiguous(), causal=True)
-    q80 = torch.zeros((1, 128, 2, 2, 80), device=dev)   # hubert-xlarge's
-    kv80 = torch.zeros((1, 128, 2, 80), device=dev)
-    with pytest.raises(ValueError, match="hd=80"):
-        ops.flash_fwd(q80, kv80, kv80, causal=False)
+    q96 = torch.zeros((1, 128, 2, 2, 96), device=dev)   # no instance
+    kv96 = torch.zeros((1, 128, 2, 96), device=dev)
+    with pytest.raises(ValueError, match="hd=96"):
+        ops.flash_fwd(q96, kv96, kv96, causal=False)
     with pytest.raises(ValueError):                     # k does not match q
         ops.flash_fwd(q, kv[:, :64].contiguous(), kv, causal=True)
     with pytest.raises(ValueError):                     # non-contiguous q

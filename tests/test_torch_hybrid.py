@@ -216,7 +216,7 @@ def test_schedule_qlayers_and_policy_match_jax(world):
     assert own.w_bits == jpol.w_bits and own.a_bits == jpol.a_bits
     assert len(tlm.enumerate_qlayers(t_get("recurrentgemma-2b"))) == 164
     assert tlm.attn_window(tcfg) == WINDOW
-    for name in ("mixtral-8x7b", "llama-3.2-vision-11b", "hubert-xlarge"):
+    for name in ("mixtral-8x7b", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="later slice"):
             tlm.build_schedule(t_get(name))
 
@@ -448,4 +448,4 @@ def test_flash_plain_version_at_hd_256_matches_pallas(causal, window):
     want, want_lse = ref.flash_fwd_ref(*map(torch.from_numpy, (q, k, v)),
                                        **kw)
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
-    assert 256 in ops.FLASH_HEAD_DIMS and 80 not in ops.FLASH_HEAD_DIMS
+    assert ops.FLASH_HEAD_DIMS == (32, 64, 80, 128, 256)
