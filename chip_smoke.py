@@ -37,7 +37,10 @@ In order:
    prefill: KV 1, G 10, causal, window 2048) and at hd 80 (HuBERT-XLarge's
    2048 frames: KV 16, G 1, bidirectional), the fake-quant kernels also at
    HuBERT-XLarge's (1280, 1280) and (1280, 5120) weights and its (2048,
-   5120) MLP activation -- and time
+   5120) MLP activation, the fake-quant forward with a scale per expert
+   (64 scales) at deepseek-moe-16b's decode expert input (64, 4, 2048) and
+   an expert stack (64, 2048, 1408), the matmuls at its five projection
+   shapes and decode attention at its KV 16, G 1 -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -250,6 +253,42 @@ In order:
     frames/s, the ILP's ms, peak device memory, one profiled QAT step
     with ``flash_fwd_kernel`` watched. The weights are freed before the
     script ends.
+15. moe phase: deepseek-moe-16b at its published widths and depth (28
+    layers: a dense layer of d_ff 10944, then 27 MoE layers of 64 routed
+    experts of d_ff 1408, top-6, capacity factor 1.25, and 2 shared
+    experts; d_model 2048, 16 heads of 128 on 16 kv heads (G = 1), vocab
+    102400, untied head; seeded random weights, 15.95 B searched weights,
+    65.5 GB of float32 parameters) under ``demo_mixed_policy`` (277
+    projections, 81 of them expert stacks), the serve phase's 8 requests
+    over 4 slots and a 320-row ring. The float32 tree does not fit the
+    card beside its packing, so each MoE site's seeded params are made on
+    the card when ``QuantizedSession(site_source=...)`` packs it, and
+    dropped before the next (``moe_site_source``); the host's MemTotal and
+    MemAvailable are printed. First the combine at deepseek's shapes (4
+    tokens, and 256 whose capacity of 128 drops picks): two equal calls
+    bit for bit equal, and equal to the CPU's evaluation. Gates: (a) the
+    ring kernels and ``fake_quant_fwd`` launched, no other layout's, no
+    kernel-eligible projection on dequant-fp, the attention route fused;
+    (b) one decode step runs 81 dequant-fp matmuls, the 3 x 27 expert
+    stacks; (c) packed bytes within 5% of ``MPQPolicy.size_bytes``; (d)
+    one decode step launches what the schedule implies: 196 matmul
+    kernels (every projection but the expert stacks: 7 in the dense
+    layer, 4 attention and 3 shared-expert projections in each MoE
+    layer), 28 ``decode_attn_quant`` (one a layer) and 83
+    ``fake_quant_fwd`` (one per expert stack's input, the per-expert
+    scale, and two for the untied pinned head's weight and input), and
+    under the profiler it launches ``DECODE_STEP_LAUNCHES["moe"]`` kernels
+    in all; (e) no host synchronisation inside a decode step; (f) finite
+    prefill and decode logits, and two equal decode steps bit for bit
+    equal. Printed: tok/s, step and prefill p50, peak device memory, the
+    profiled step's device-busy share and the phase's seconds. At 28
+    layers the float32 tree and a reference engine do not fit beside the
+    packed session: no reference comparison there. Then at 3 layers (the
+    dense layer and two MoE layers) at full width: the run through every
+    kernel token for token the same session on the matmuls' plain
+    versions, and the run on the dequant-fp matmul route equal to the
+    fake-quant reference on every decisive step (``serve.compare_greedy``
+    with the float64 control).
 
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
@@ -286,7 +325,12 @@ STARCODER2_KN = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
 # (K, N) of the RecurrentGemma-2B projections: wq, wo and the RG-LRU's wx,
 # wgate and wo; wk/wv (one kv head of 256); mlp_wi/wg; mlp_wo
 RGEMMA_KN = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)]
-MATMUL_KN = QWEN3_KN + RWKV6_KN + STARCODER2_KN + RGEMMA_KN
+# (K, N) of the deepseek-moe-16b projections that take the kernels: wq, wk,
+# wv and wo (16 x 128 heads, MHA), the two shared experts' up (2 x 1408)
+# and down projections, the dense first layer's MLP up and down
+DEEPSEEK_KN = [(2048, 2048), (2048, 2816), (2816, 2048), (2048, 10944),
+               (10944, 2048)]
+MATMUL_KN = QWEN3_KN + RWKV6_KN + STARCODER2_KN + RGEMMA_KN + DEEPSEEK_KN
 MAIN_KN = (1024, 3072)      # the summary row of each matmul: a decode GEMV
 PREFILL_M = 128             # the matmuls' prefill rows (M > 16: tensor cores)
 MAIN_SC = 320               # the summary row of decode attention: the serve ring
@@ -379,6 +423,15 @@ WIDE_GQA = [("starcoder2-7b", 4, 9, 4096), ("starcoder2-7b", 4, 9, 48),
 # 2048-row window, and a 48-row window that masks rows of it
 RGEMMA_ATTN = [("recurrentgemma-2b", 1, 10, 2048, 2048, 256),
                ("recurrentgemma-2b", 1, 10, 48, 2048, 256)]
+# deepseek-moe-16b's decode attention: MHA, 16 kv heads of 128 with one
+# query head each (G = 1), the serve phase's 320-row ring
+DEEPSEEK_ATTN = [("deepseek-moe-16b", 16, 1, None, MAIN_SC, 128)]
+# the MoE phase: its arch, the depth of its token gates (the dense layer
+# and two MoE layers), and the per-expert fake-quant cases: deepseek's
+# (64 experts, 4 tokens a decode step of 4 slots, d_model) expert input,
+# and one (64, 2048, 1408) expert weight stack
+MOE_ARCH, MOE_CUT = "deepseek-moe-16b", 3
+FQ_EXPERT_SHAPES = [(64, 4, 2048), (64, 2048, 1408)]
 # hybrid serve phase: the serve phase's 8 requests and one long one whose
 # prefill takes the flash kernel at hd 256 (2560 tokens: a multiple of the
 # 512-row q block past the 2048-token threshold, past the window), over
@@ -395,9 +448,11 @@ TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
 # the audio phase's arch and the depth of its gate (e)
 AUDIO_ARCH, AUDIO_CUT = "hubert-xlarge", 2
 # kernel launches of one profiled Qwen3-0.6B decode step over the ring and
-# over pages, and of one RecurrentGemma-2B step over the ring: one launch
-# per matmul and attention call, no more
-DECODE_STEP_LAUNCHES = {"serve": 4650, "paged": 5182, "hybrid": 3495}
+# over pages, and of one RecurrentGemma-2B and one DeepSeek-MoE-16B step
+# over the ring: one launch per matmul and attention call (and, for the
+# MoE step, per expert input's fake-quant), no more
+DECODE_STEP_LAUNCHES = {"serve": 4650, "paged": 5182, "hybrid": 3495,
+                        "moe": 7693}
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
 # layers: loss rtol, and per-gradient-leaf relative L2, the reference's ds
@@ -628,7 +683,7 @@ def attn_phase(torch, ops, ref, flush, dev):
     B = 4
     cases = [("qwen3-0.6b", 8, 2, None, Sc, 128) for Sc in (320, 4096)] + \
         [(arch, KV, G, w, Sc, 128) for arch, KV, G, w in WIDE_GQA
-         for Sc in (320, 4096)] + RGEMMA_ATTN
+         for Sc in (320, 4096)] + RGEMMA_ATTN + DEEPSEEK_ATTN
     for arch, KV, G, window, Sc, hd in cases:
         H = KV * G
         r = np.random.default_rng(Sc + (G if G > 2 else 0))
@@ -1074,6 +1129,66 @@ def fake_quant_phase(torch, ops, ref, flush, dev):
                       f"bound={b_ms:.4f}({b_by})", flush=True)
     print(f"[kernel] fake_quant: {len(FQ_SHAPES) * len(FQ_BITS)} cases, "
           "forward and dv bit for bit, ds within tolerance", flush=True)
+    return rows + fake_quant_expert_rows(torch, ops, ref, flush, dev)
+
+
+def fake_quant_expert_rows(torch, ops, ref, flush, dev):
+    """``fake_quant_fwd`` with a scale per expert (64 scales in the (64, 1,
+    1) form, each over its expert's slice) at deepseek-moe-16b's decode
+    expert input and one expert weight stack, bit for bit its plain
+    version at every width, and with one scale at the same shapes (the
+    kernel as before); timed at 4 bits beside PyTorch's learnable
+    per-channel fake-quant over the expert axis (times only: it multiplies
+    by a reciprocal)."""
+    rows = []
+    for shape in FQ_EXPERT_SHAPES:
+        E = shape[0]
+        g_ = torch.Generator(device=dev).manual_seed(shape[1] * 7 + E)
+        v = torch.randn(shape, generator=g_, device=dev) * 0.05
+        spread = torch.rand((E, 1, 1), generator=g_, device=dev) + 0.5
+        for bits in FQ_BITS:
+            qmin, qmax = float(-2 ** (bits - 1)), float(2 ** (bits - 1) - 1)
+            one = (2 * v.abs().mean() / qmax ** 0.5).reshape(1)
+            s = (one * spread).contiguous()             # (E, 1, 1)
+            for label, sc in (("64 scales", s), ("one scale", one)):
+                out = ops.fake_quant_fwd(v, sc, qmin, qmax)
+                want = ref.fake_quant_ref(v, sc, qmin, qmax)
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                gate(torch.equal(out, want),
+                     f"fake_quant_fwd {shape} {bits}b {label} differs from "
+                     f"its plain version (max |err| {err})")
+            if bits != 4:
+                rows.append(dict(name="fake_quant_fwd",
+                                 shape=f"{shape} {bits}b, {E} scales",
+                                 max_abs_err=err, main=False))
+                continue
+            n = v.numel()
+            zp = torch.zeros(E, device=dev)
+            v2, s1 = v.reshape(E, -1), s.reshape(E)
+
+            def lib():
+                return torch._fake_quantize_learnable_per_channel_affine(
+                    v2, s1, zp, 0, int(qmin), int(qmax), 1.0)
+
+            b_ms, b_by = bound_ms(8.0 * n + 4.0 * E, 5.0 * n, F32_OPS_PER_S)
+            rows.append(dict(
+                name="fake_quant_fwd", shape=f"{shape} {bits}b, {E} scales",
+                max_abs_err=err,
+                ms=cuda_ms(torch, lambda: ops.fake_quant_fwd(v, s, qmin,
+                                                              qmax), flush),
+                one_scale_ms=cuda_ms(torch, lambda: ops.fake_quant_fwd(
+                    v, one, qmin, qmax), flush),
+                plain_ms=cuda_ms(torch, lambda: ref.fake_quant_ref(
+                    v, s, qmin, qmax), flush),
+                library_ms=cuda_ms(torch, lib, flush), bound_ms=b_ms,
+                bound_by=b_by, main=False))
+            r = rows[-1]
+            print(f"[kernel] fake_quant_fwd  {str(shape):16s} {bits}b, {E} "
+                  f"scales: err={err:.1e} ms={r['ms']:.4f} (one scale "
+                  f"{r['one_scale_ms']:.4f}) plain={r['plain_ms']:.4f} "
+                  f"lib={r['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
+                  flush=True)
     return rows
 
 
@@ -1772,8 +1887,8 @@ def profile_decode_step(torch, sess, dev, label="serve", layout=None,
     time, device time and that of the kernels named in ``watch``. With a
     paged ``layout`` each slot maps pages of its own. The
     steps labelled in ``DECODE_STEP_LAUNCHES`` (Qwen3-0.6B's, ring and
-    pages; RecurrentGemma-2B's) launch exactly that many kernels: one
-    launch per matmul and attention call."""
+    pages; RecurrentGemma-2B's; DeepSeek-MoE-16B's) launch exactly that
+    many kernels: one launch per matmul and attention call."""
     st = sess.init_state(SLOTS, cache_len, torch.float32, device=dev,
                          layout=layout)
     if layout is not None:
@@ -3392,6 +3507,300 @@ def hybrid_serve_phase(torch, ops, dev, card):
         packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
 
 
+def moe_combine_check(torch, dev, cfg):
+    """The MoE combine at deepseek-moe-16b's shapes (64 experts, top-6,
+    d_model 2048; a decode step of 4 tokens and a 256-token prefill, whose
+    capacity of 128 drops picks): two equal calls on the card bit for bit
+    equal, and equal to the same ops on the CPU (each token's rows added in
+    ascending expert order from zero; IEEE adds in one order)."""
+    from repro_torch.models import moe as moe_mod
+    res = {}
+    for T in (4, 256):
+        g = torch.Generator(device=dev).manual_seed(T)
+        xf = torch.randn((T, cfg.d_model), generator=g, device=dev)
+        w = torch.randn((cfg.d_model, cfg.moe.n_experts), generator=g,
+                        device=dev) * cfg.d_model ** -0.5
+        xf[:, 0], w[0, 5] = 2.0, 4.0         # expert 5: every token's pick
+        r = moe_mod.route(xf, w, cfg.moe)
+        E, C = r.gi.shape
+        y = torch.randn((E, C, cfg.d_model), generator=g, device=dev) \
+            * (r.gv * r.keep)[..., None]
+        a = moe_mod.combine(y, r.gi, r.keep, r.top_i, T)
+        b = moe_mod.combine(y, r.gi, r.keep, r.top_i, T)
+        c = moe_mod.combine(y.cpu(), r.gi.cpu(), r.keep.cpu(),
+                            r.top_i.cpu(), T)
+        torch.cuda.synchronize()
+        dropped = int(T * cfg.moe.top_k - r.keep.sum().item())
+        gate(torch.equal(a, b), f"two equal MoE combines at T={T} differ")
+        gate(torch.equal(a.cpu(), c),
+             f"the MoE combine at T={T} differs from its CPU evaluation")
+        res[T] = dict(capacity=C, dropped_picks=dropped)
+        print(f"[moe] combine T={T} C={C} ({dropped} of "
+              f"{T * cfg.moe.top_k} picks dropped): two calls bit for bit "
+              f"equal, and equal to the CPU's", flush=True)
+    return res
+
+
+def moe_site_source(torch, lm, cfg, dev, seed=0):
+    """(the params outside the layer sites, a site source): the embedding,
+    the dense first layer, the final norm and the untied head made at
+    once, each MoE site's seeded params made on the card when the session
+    packs it (``QuantizedSession(site_source=...)``), so the 65.5 GB
+    float32 tree never exists whole beside its packing."""
+    fd = cfg.moe.first_dense_layers
+    outer = lm.init_params(cfg.scaled(n_layers=fd), seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def source(site):
+        if site.segment.startswith("prefix."):
+            return lm.site_params(outer, site)
+        return lm.layer_init(gen, cfg, site.kind, device=dev)
+
+    return outer, source
+
+
+def moe_serve_phase(torch, ops, dev, card):
+    """deepseek-moe-16b at full width and depth over the ring: routed
+    experts through the per-expert fake-quant kernel and the dequant-fp
+    route, shared experts, attention and the dense layer through the ring
+    kernels (module docstring, phase 15); the weights are freed before it
+    returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import dispatch, packing
+    from repro_torch.runtime.session import summarize
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    moe = cfg.moe
+    sites = lm.iter_sites(cfg)
+    n_moe = sum(s.kind == "moe" for s in sites)
+    ql = lm.enumerate_qlayers(cfg)
+    n_proj, n_stacks = len(ql), sum(q.n_mats > 1 for q in ql)
+    n_params = sum(q.w_params for q in ql)
+    res = {"combine": moe_combine_check(torch, dev, cfg)}
+    policy = serve.demo_mixed_policy(cfg)
+    reqs = serve_requests(cfg)
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev)
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: ln.split(":")[1].strip() for ln in f}
+    sched = lm.build_schedule(cfg)
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers {sched.prefix} + "
+          f"{sched.pattern} x {sched.repeats}, d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads} (G=1) head_dim={cfg.hd}; {moe.n_experts} "
+          f"routed experts of d_ff {moe.d_ff}, top-{moe.top_k}, "
+          f"{moe.n_shared} shared, dense d_ff {moe.dense_d_ff}; vocab "
+          f"{cfg.vocab}; {n_proj} projections ({n_stacks} expert stacks), "
+          f"{n_params} searched weights ({4 * n_params / 1e9:.1f} GB f32); "
+          f"host MemTotal {mem.get('MemTotal')}, MemAvailable "
+          f"{mem.get('MemAvailable')}; {card}", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    outer, source = moe_site_source(torch, lm, cfg, dev)
+    sess, eng, out = serve.serve_quantized(cfg, outer, policy, reqs,
+                                           site_source=source, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS
+                + ("fake_quant_fwd",)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    del outer
+    print(f"[moe] ring KV: {len(out)} requests in {wall:.2f}s wall (seeded "
+          f"init and packing site by site included): prefill p50 "
+          f"{d['prefill_p50_ms']:.2f} ms, decode step p50 "
+          f"{d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens, {st.prefill_tokens} prompt "
+          f"tokens); peak device memory {peak_gb:.2f} GB; {card}",
+          flush=True)
+    print(f"[moe] launches {launches}; routes {sess.route_counts.routes}",
+          flush=True)
+    # (a) the ring kernels and the per-expert fake-quant launched, no other
+    # layout's; no kernel-eligible projection on dequant-fp
+    gate(all(launches[k] > 0 for k in RING_KERNELS + ("fake_quant_fwd",))
+         and not any(launches[k] for k in SERVE_KERNELS
+                     if k not in RING_KERNELS),
+         f"moe serving launched {launches}")
+    gate(sess.route_counts.eligible_fp == 0,
+         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
+         "dequant-fp")
+    gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    # (c) packed bytes vs the policy's accounting
+    s = summarize(sess)
+    print(f"[moe] packed weights {s['packed_bytes']} B vs policy "
+          f"{s['policy_bytes']:.0f} B (x{s['packed_vs_policy']:.4f})",
+          flush=True)
+    gate(abs(s["packed_vs_policy"] - 1.0) <= 0.05,
+         f"packed bytes off the policy accounting by x{s['packed_vs_policy']}")
+
+    # (b), (d): one decode step's routes and launches, as the schedule
+    # implies them: every projection but the expert stacks on a matmul
+    # kernel, the expert stacks on dequant-fp, one attention launch a
+    # layer, one fake-quant launch per expert stack's activation (one per
+    # reuse group where two share one) and two for the untied pinned head
+    expert_pls = [pl for pl in packing.packed_leaves(sess.params)
+                  if len(pl.shape) == 3]
+    n_fq = len({pl.a_group or id(pl) for pl in expert_pls})
+    pinned = 0 if cfg.tie_embeddings else 2       # the head's weight, input
+    want_step = {"quant_matmul+w4": n_proj - n_stacks,
+                 "decode_attn_quant": cfg.n_layers,
+                 "fake_quant_fwd": n_fq + pinned}
+    state = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
+    counts = dispatch.Counts()
+    keep_counts, sess.route_counts = sess.route_counts, counts
+    ops.reset_launches()
+    logits, _ = sess.decode(sess.params, tok, pos, state)
+    again, _ = sess.decode(sess.params, tok, pos, state)
+    torch.cuda.synchronize()
+    sess.route_counts = keep_counts
+    step = {k: ops.launches[k] // 2 for k in ("quant_matmul",
+                                               "quant_matmul_w4",
+                                               "decode_attn_quant",
+                                               "fake_quant_fwd")}
+    got_step = {"quant_matmul+w4": step["quant_matmul"]
+                + step["quant_matmul_w4"],
+                "decode_attn_quant": step["decode_attn_quant"],
+                "fake_quant_fwd": step["fake_quant_fwd"]}
+    fp_step = counts.routes["matmul"].get("dequant-fp", 0) // 2
+    print(f"[moe] one decode step: launches {step}, routes "
+          f"{ {k: v // 2 for k, v in counts.routes['matmul'].items()} }",
+          flush=True)
+    gate(fp_step == n_stacks == 3 * n_moe,
+         f"one decode step ran {fp_step} dequant-fp matmuls, expected the "
+         f"{3 * n_moe} expert stacks")
+    gate(got_step == want_step,
+         f"one decode step launched {got_step}, expected {want_step}")
+    # (f) finite logits; the step is deterministic on the card
+    gate(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    gate(torch.equal(logits, again),
+         "two equal MoE decode steps gave different logits")
+    pre_logits, _ = sess.prefill(
+        sess.params, torch.as_tensor(reqs[0].tokens, device=dev)[None],
+        prefill_cap=CACHE_LEN)
+    gate(bool(torch.isfinite(pre_logits).all()), "non-finite prefill logits")
+    # (e) no host sync inside a decode step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.decode(sess.params, tok, pos, state)
+    except RuntimeError as e:
+        raise GateError(f"a moe decode step synchronised the host: {e}") \
+            from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[moe] one decode step under sync-debug 'error': no host sync; "
+          "logits finite, two equal steps bit for bit equal", flush=True)
+    # (d) the profiled step's launches
+    prof = profile_decode_step(
+        torch, sess, dev, "moe",
+        watch=("decode_attn_quant_kernel", "qmm_splitk_kernel",
+               "qmm_w4_splitk_kernel", "fq_fwd_kernel"))
+    print(f"[moe] at {cfg.n_layers} layers the float32 tree "
+          f"({4 * n_params / 1e9:.1f} GB of searched weights) and a "
+          "fake-quant reference engine do not fit beside the packed "
+          "session: no reference comparison at full depth", flush=True)
+    n_tok = sum(len(c.tokens) for c in out.values())
+    del sess, eng, state, logits, again, pre_logits
+    torch.cuda.empty_cache()
+    t_full = time.perf_counter() - t_phase
+
+    # (b) the token gates at the dense layer and two MoE layers, full width
+    cut = cfg.scaled(n_layers=MOE_CUT)
+    params = lm.init_params(cut, seed=0, device=dev)
+    policy_cut = serve.demo_mixed_policy(cut)
+    mm = ("quant_matmul", "quant_matmul_w4")
+
+    def served(label):
+        n0 = {k: ops.launches[k] for k in mm + ("decode_attn_quant",
+                                                 "fake_quant_fwd")}
+        s_, _, o = serve.serve_quantized(cut, params, policy_cut, reqs, **kw)
+        n = {k: ops.launches[k] - n0[k] for k in n0}
+        print(f"[moe] {cut.n_layers} layers, {label}: launches {n}, routes "
+              f"{s_.route_counts.routes}", flush=True)
+        gate(n["decode_attn_quant"] > 0 and n["fake_quant_fwd"] > 0
+             and set(s_.route_counts.routes["decode_attn"]) == {"fused"},
+             f"{label}: attention / fake-quant launched {n}, routes "
+             f"{s_.route_counts.routes}")
+        return o, n
+
+    out_kern, n_kern = served("every kernel")
+    with plain_matmuls(ops):
+        out_plain, n_plain = served("matmuls on their plain versions")
+    with dispatch.force_route("matmul", "dequant-fp"):
+        out_fp, n_fp = served("matmuls dequant-fp")
+    gate(all(n_kern[k] > 0 for k in mm)
+         and not any(n[k] for n in (n_plain, n_fp) for k in mm),
+         f"matmul launches: every kernel {n_kern}, controls {n_plain} / "
+         f"{n_fp}")
+    same_plain = [r.rid for r in reqs
+                  if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
+    print(f"[moe] {cut.n_layers} layers: every kernel vs the matmuls' plain "
+          f"versions: {len(same_plain)} of {len(reqs)} requests token for "
+          f"token", flush=True)
+    gate(len(same_plain) == len(reqs),
+         f"{cut.n_layers} layers: the matmul kernels' served tokens differ "
+         f"from their plain versions' in rids "
+         f"{sorted(set(r.rid for r in reqs) - set(same_plain))}")
+    ref, ref_out = serve.reference_engine(cut, params, policy_cut, reqs, **kw)
+    ctrl, ctrl_out = serve.reference_engine(cut, params, policy_cut, reqs,
+                                            compute_dtype=torch.float64, **kw)
+    greedy = {}
+    for label, o in (("matmuls dequant-fp", out_fp),
+                     ("every kernel", out_kern)):
+        c_, bad_ = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
+        same = sum(o[r.rid].tokens == ref_out[r.rid].tokens for r in reqs)
+        greedy[label] = dict(compared=c_, diverged=bad_, identical=same)
+        print(f"[moe] {cut.n_layers} layers, full width, {label}: greedy "
+              f"tokens vs fake-quant reference: {c_} of {n_tok} steps "
+              f"decisive and compared, diverged rids {bad_}; {same} of "
+              f"{len(reqs)} requests token for token the reference's",
+              flush=True)
+    _, unstable_cut = serve.compare_greedy(ctrl_out, ref, ref_out)
+    print(f"[moe] {cut.n_layers} layers: the reference's float32 and float64 "
+          f"evaluations part on a confident step in rids {unstable_cut}",
+          flush=True)
+    g = greedy["matmuls dequant-fp"]
+    gate(not g["diverged"] and g["compared"] > 0,
+         f"{cut.n_layers} layers, dequant-fp matmuls: greedy tokens diverged "
+         f"on decisive steps (rids {g['diverged']}) or none compared")
+    del params, ref, ctrl
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter() - t_phase
+    print(f"[moe] phase {t_all:.1f}s ({t_full:.1f}s at full depth); {card}",
+          flush=True)
+    res.update(
+        searched_weights=n_params, projections=n_proj,
+        expert_stacks=n_stacks, wall_s=wall, peak_mem_gb=peak_gb,
+        host_mem_total=mem.get("MemTotal"),
+        host_mem_available=mem.get("MemAvailable"),
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, decode_step_launches=step,
+        decode_step_dequant_fp=fp_step, decode_step_profile=prof,
+        cut_layers=cut.n_layers, cut_greedy=greedy,
+        cut_reference_unstable_rids=unstable_cut,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"],
+        phase_s=t_all, full_depth_s=t_full)
+    return launches, res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3468,6 +3877,9 @@ def main() -> int:
     audio_launches, audio_res = audio_phase(torch, ops, dev)
     audio_res["launches"] = audio_launches
     torch.cuda.empty_cache()
+    moe_launches, moe_res = moe_serve_phase(torch, ops, dev, card)
+    moe_res["launches"] = moe_launches
+    torch.cuda.empty_cache()
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -3490,6 +3902,11 @@ def main() -> int:
     by_path = {k: {"train": train_launches[k], "audio": audio_launches[k]}
                for k in TRAIN_KERNELS}
     by_path["flash_fwd"]["hybrid"] = hybrid_launches["flash_fwd"]
+    # and the MoE serving path's: the ring kernels beside the serve phase's
+    # count, the per-expert fake-quant forward beside the training paths'
+    for k in RING_KERNELS:
+        by_path[k] = {"serve": serve_launches[k], "moe": moe_launches[k]}
+    by_path["fake_quant_fwd"]["moe"] = moe_launches["fake_quant_fwd"]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -3511,7 +3928,8 @@ def main() -> int:
          "spec_serve": spec_res, "spec_paged_serve": spec_paged_res,
          "serve_cli": cli_res, "rwkv_serve": rwkv_res,
          "starcoder_serve": starcoder_res, "hybrid_serve": hybrid_res,
-         "audio_train": audio_res, "bundle": bundle_res,
+         "audio_train": audio_res, "moe_serve": moe_res,
+         "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,11 @@
 // (fake_quant_fwd) and src/repro/kernels/fake_quant.py:_bwd_kernel
 // (fake_quant_bwd).
 //
-// What it computes, with s = max(*scale, 1e-9) read from device memory:
-//   forward   out = round(clip(v / s, qmin, qmax)) * s
+// What it computes, with s = max(scale, 1e-9) read from device memory:
+//   forward   out = round(clip(v / s, qmin, qmax)) * s, with a scale for
+//             each leading slice: n_s scales, scale i over the i-th of n_s
+//             equal contiguous slices of v (n_s = 1: one scale; n_s = E: a
+//             per-expert (E, 1, 1) scale against an (E, C, D) stack)
 //   backward  dv  = g where qmin < v/s < qmax (strictly), else 0
 //             ds  = sum g * (round(v/s) - v/s) inside, sum g * clip(v/s) outside
 // The backward writes one ds partial per block; the wrapper sums them (and
@@ -16,7 +19,12 @@
 // rounding is rintf (half to even, as torch.round and jnp.round; roundf
 // would round half away from zero), and the clip keeps NaN. So the forward
 // and dv equal the plain PyTorch version bit for bit. ds sums in another
-// order than the plain version and is held to a relative tolerance.
+// order than the plain version and is held to a relative tolerance. At
+// n_s = 1 the forward reads the one scale once a thread, as before; past
+// it each group of four elements reads its slice's scale (one load from
+// L1 or L2, the same for every group of a slice), and a group takes the
+// vector path only when a slice's length is a multiple of four, so its
+// four elements share one scale. The backward takes one scale.
 //
 // What bounds it on an H100: a few float operations per element against 8
 // (forward: v in, out) or 12 (backward: v and g in, dv out) bytes, so bytes
@@ -45,14 +53,16 @@ __device__ __forceinline__ float fq_one(float v, float s, float qmin,
 
 __global__ void __launch_bounds__(THREADS)
 fq_fwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
-              float* __restrict__ out, long long n, float qmin, float qmax,
-              int vec) {
-  const float s = fmaxf(scale[0], 1e-9f);
+              float* __restrict__ out, long long n, long long n_s, float qmin,
+              float qmax, int vec) {
+  const float s0 = fmaxf(scale[0], 1e-9f);
+  const long long slice = n / n_s;  // elements a scale covers
   const long long groups = (n + 3) / 4;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
        i < groups; i += (long long)gridDim.x * THREADS) {
     const long long base = 4 * i;
     if (vec && base + 4 <= n) {
+      const float s = n_s == 1 ? s0 : fmaxf(scale[base / slice], 1e-9f);
       float4 x = *reinterpret_cast<const float4*>(v + base);
       x.x = fq_one(x.x, s, qmin, qmax);
       x.y = fq_one(x.y, s, qmin, qmax);
@@ -60,8 +70,10 @@ fq_fwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
       x.w = fq_one(x.w, s, qmin, qmax);
       *reinterpret_cast<float4*>(out + base) = x;
     } else {
-      for (long long e = base; e < base + 4 && e < n; ++e)
+      for (long long e = base; e < base + 4 && e < n; ++e) {
+        const float s = n_s == 1 ? s0 : fmaxf(scale[e / slice], 1e-9f);
         out[e] = fq_one(v[e], s, qmin, qmax);
+      }
     }
   }
 }
@@ -121,14 +133,16 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// v, out: n f32; scale: one f32 on the device -> out = fake-quant(v)
+// v, out: n f32; scale: n_s f32 on the device, n_s dividing n, one per
+// leading slice -> out = fake-quant(v)
 extern "C" int fake_quant_fwd(const void* v, const void* scale, void* out,
-                              long long n, float qmin, float qmax, int blocks,
-                              void* stream) {
-  const int vec = aligned16(v) && aligned16(out);
+                              long long n, long long n_s, float qmin,
+                              float qmax, int blocks, void* stream) {
+  const int vec =
+      aligned16(v) && aligned16(out) && (n_s == 1 || (n / n_s) % 4 == 0);
   fq_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(v), static_cast<const float*>(scale),
-      static_cast<float*>(out), n, qmin, qmax, vec);
+      static_cast<float*>(out), n, n_s, qmin, qmax, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

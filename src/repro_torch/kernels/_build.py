@@ -48,7 +48,7 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
         "verify_attn_quant_paged": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
     "fake_quant": {
-        "fake_quant_fwd": [_P, _P, _P, _L, _F, _F, _I, _P],
+        "fake_quant_fwd": [_P, _P, _P, _L, _L, _F, _F, _I, _P],
         "fake_quant_bwd": [_P, _P, _P, _P, _P, _L, _F, _F, _I, _P],
     },
     "flash_attention": {

@@ -115,6 +115,26 @@ def _check_scalar(t: torch.Tensor, name: str) -> None:
                         f"{t.dtype} {tuple(t.shape)}")
 
 
+def fq_scale_slices(v: torch.Tensor, s: torch.Tensor) -> int:
+    """How many leading slices of ``v`` the fake-quant scale ``s`` covers,
+    one scale each: 1 for one element, else the trailing-ones broadcast
+    form of a scale per leading index (``(E, 1, 1)`` against ``(E, C, D)``:
+    E slices of C * D contiguous elements). Raises on any other shape."""
+    if s.dtype != torch.float32:
+        raise TypeError(f"s: expected float32, got {s.dtype}")
+    if s.numel() == 1:
+        return 1
+    lead = s.dim()
+    while s.shape[lead - 1] == 1:
+        lead -= 1
+    if (s.dim() != v.dim() or tuple(s.shape[:lead]) != tuple(v.shape[:lead])
+            or not s.is_contiguous()):
+        raise TypeError(
+            f"s: a scale per leading slice must be v's leading dims then "
+            f"ones (v {tuple(v.shape)}), got {tuple(s.shape)}")
+    return s.numel()
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -412,16 +432,18 @@ def _fq_blocks(n: int) -> int:
 def fake_quant_fwd(v: torch.Tensor, s: torch.Tensor, qmin: float,
                    qmax: float) -> torch.Tensor:
     """Eq. 1 forward ``round(clip(v / max(s, 1e-9), qmin, qmax)) * s`` on a
-    float32 tensor of any shape. ``s`` is one float32 element on ``v``'s
-    device: the scale after the floor and the grad-scale chain."""
+    float32 tensor of any shape. ``s`` is float32 on ``v``'s device, the
+    scale after the floor and the grad-scale chain: one element, or one per
+    leading slice in the trailing-ones broadcast form (``fq_scale_slices``:
+    a per-expert ``(E, 1, 1)`` scale against an ``(E, ...)`` stack)."""
+    n_s = fq_scale_slices(v, s)
     if not _kernel_route("fake_quant_fwd", v, s):
-        return ref.fake_quant_ref(v, s.reshape(()), qmin, qmax)
+        return ref.fake_quant_ref(v, s, qmin, qmax)
     _check(v, "v", torch.float32, v.shape)
-    _check_scalar(s, "s")
     out = torch.empty_like(v)
     n = v.numel()
     rc = _build.load("fake_quant").fake_quant_fwd(
-        v.data_ptr(), s.data_ptr(), out.data_ptr(), n, float(qmin),
+        v.data_ptr(), s.data_ptr(), out.data_ptr(), n, n_s, float(qmin),
         float(qmax), _fq_blocks(n), _stream())
     _raise_on(rc, "fake_quant_fwd")
     launches["fake_quant_fwd"] += 1
@@ -432,7 +454,14 @@ def fake_quant_bwd(v: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
                    qmin: float, qmax: float):
     """LSQ backward of :func:`fake_quant_fwd` for the output gradient
     ``g``: ``(dv, ds)``, ds before the grad-scale factor. The kernel writes
-    one ds partial per block and the sum is taken here."""
+    one ds partial per block and the sum is taken here. One scale only: a
+    scale per leading slice (the per-expert banks of MoE training) would
+    need a ds partial per slice, which comes with a later slice."""
+    if s.numel() != 1:
+        raise NotImplementedError(
+            f"fake_quant_bwd: {s.numel()} scales (one per leading slice) "
+            "need a ds partial per slice; the backward takes one scale "
+            "(MoE training comes with a later slice)")
     if not _kernel_route("fake_quant_bwd", v, s, g):
         return ref.fake_quant_grads_ref(v, s.reshape(()), g, qmin, qmax)
     _check(v, "v", torch.float32, v.shape)

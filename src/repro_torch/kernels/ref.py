@@ -40,9 +40,15 @@ def quant_matmul_w4_ref(x_q: torch.Tensor, w_p: torch.Tensor,
 
 def fake_quant_ref(v: torch.Tensor, s: torch.Tensor, qmin: float,
                    qmax: float) -> torch.Tensor:
-    """Eq. 1 forward: ``round(clip(v / max(s, 1e-9), qmin, qmax)) * s``."""
-    s = torch.clamp(s.to(v.dtype), min=1e-9)
-    return torch.round(torch.clamp(v / s, qmin, qmax)) * s
+    """Eq. 1 forward: ``round(clip(v / max(s, 1e-9), qmin, qmax)) * s``,
+    with a scale for each leading slice: ``s`` holds n_s scales, scale i
+    over the i-th of n_s equal contiguous slices of ``v`` (n_s = 1: one
+    scale over the whole tensor; n_s = E: a per-expert (E, 1, 1) scale
+    against an (E, ...) expert stack)."""
+    n_s = s.numel()
+    s = torch.clamp(s.to(v.dtype).reshape(n_s, 1), min=1e-9)
+    vs = v.reshape(n_s, -1)
+    return (torch.round(torch.clamp(vs / s, qmin, qmax)) * s).reshape(v.shape)
 
 
 def fake_quant_grads_ref(v: torch.Tensor, s: torch.Tensor, g: torch.Tensor,

@@ -124,6 +124,15 @@ def check_kv_layout(cfg: ModelConfig, kv_layout: str) -> None:
             f"kv_layout='paged' on a schedule with {sorted(bad)} sites "
             "(recurrent state beside the pages, chunked append through the "
             "wkv state) comes with a later slice; serve it over the ring")
+    if kv_layout == "paged" and _has_moe(cfg):
+        raise NotImplementedError(
+            "kv_layout='paged' on a MoE schedule (chunked append prefill "
+            "through the routed experts) comes with a later slice; serve it "
+            "over the ring")
+
+
+def _has_moe(cfg: ModelConfig) -> bool:
+    return any(s.kind == "moe" for s in lm.iter_sites(cfg))
 
 
 def check_speculate(cfg: ModelConfig, k: int) -> None:
@@ -145,6 +154,11 @@ def check_speculate(cfg: ModelConfig, k: int) -> None:
         raise ValueError(
             "speculate > 0 does not support sliding-window archs: "
             "the ring window overwrites rows a rollback would need")
+    if _has_moe(cfg):
+        raise NotImplementedError(
+            "speculate > 0 on a MoE schedule (the verify pass through the "
+            "routed experts) comes with a later slice; serve it token at a "
+            "time")
 
 
 @dataclasses.dataclass

@@ -380,23 +380,28 @@ def make_context(cfg) -> QuantContext:
 
 
 def build_session(cfg, params, policy: MPQPolicy, *, kv: str = "int8",
-                  speculate: int = 0, draft_bits: int = 2):
+                  speculate: int = 0, draft_bits: int = 2, site_source=None):
     """Pack ``policy`` into a ``QuantizedSession`` (a ``SpecSession`` with
-    its ``draft_bits`` draft pack when ``speculate`` > 0)."""
+    its ``draft_bits`` draft pack when ``speculate`` > 0); a plain
+    session takes ``site_source`` (each site's params made when it is
+    packed), a speculative one packs two trees from ``params``."""
     from repro_torch.runtime.session import QuantizedSession, SpecSession
     kv_quant = "int8" if kv == "int8" else "none"
     if speculate:
+        if site_source is not None:
+            raise ValueError("a speculative session packs its target and "
+                             "draft trees from params, not a site source")
         return SpecSession(cfg, params, policy, make_context(cfg),
                            kv_quant=kv_quant, draft_w_bits=draft_bits)
     return QuantizedSession(cfg, params, policy, make_context(cfg),
-                            kv_quant=kv_quant)
+                            kv_quant=kv_quant, site_source=site_source)
 
 
 def serve_quantized(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                     cache_len: int, prefill_chunk: int = 0, device=None,
                     kv: str = "int8", kv_layout: str = "ring",
                     page_size: int = 8, speculate: int = 0,
-                    draft_bits: int = 2):
+                    draft_bits: int = 2, site_source=None):
     """Pack ``policy`` (``build_session``) and serve ``reqs`` through the
     engine over a ``kv`` ring KV cache or the paged int8 layout
     (``prefill_chunk`` 0: the roofline budget). Returns (session, engine,
@@ -408,7 +413,7 @@ def serve_quantized(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                        bucket=False, speculate=speculate,
                        draft_bits=draft_bits)
     sess = build_session(cfg, params, policy, kv=kv, speculate=speculate,
-                         draft_bits=draft_bits)
+                         draft_bits=draft_bits, site_source=site_source)
     eng, out = run_engine(None, cfg, None, sess.ctx, reqs, scfg=scfg,
                           device=device, adapter=sess, speculate=speculate)
     return sess, eng, out

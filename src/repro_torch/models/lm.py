@@ -2,7 +2,9 @@
 layers (serving), the hybrid family's RG-LRU layers beside local
 attention (recurrentgemma; serving) and the audio family's encoder
 (hubert: bidirectional attention over frame embeddings from the stub
-frontend, a sinusoid position table, no rope; training only).
+frontend, a sinusoid position table, no rope; training only) and the MoE
+family's layers (deepseek-moe, mixtral: attention, then the routed experts
+of ``models.moe`` beside always-on shared experts; leading dense layers).
 
 A config expands into a *schedule*: ``prefix`` layers, a repeating
 ``pattern`` whose params are stacked ``repeats`` times on a leading axis
@@ -46,6 +48,7 @@ from repro_torch.core.qspec import QLayer
 from repro_torch.core.quantizer import bit_range, init_scale_from_stats
 from repro_torch.data import FRONTEND_DIMS
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        dense_init, embed_init, norm_init)
@@ -56,7 +59,8 @@ from repro_torch.models.quant_layers import (QuantContext,
                                              qeinsum_pinned)
 from repro_torch.runtime import kv_cache as qkv
 
-ATTN_KINDS = ("attn", "dense")
+# the layer kinds whose first sub-block is self-attention over a KV cache
+ATTN_KINDS = ("attn", "dense", "moe")
 MOE_AUX_COEF = 0.01
 
 
@@ -71,19 +75,22 @@ class Schedule(NamedTuple):
 
 
 class LayerSite(NamedTuple):
-    kind: str          # attn | dense | rwkv | rec
+    kind: str          # attn | dense | moe | rwkv | rec
     segment: str       # "prefix.0" | "body.2" | "suffix.1"
     unit: int          # repeat index within body, else 0
     gidx: int          # global execution index
 
 
 def build_schedule(cfg: ModelConfig) -> Schedule:
-    if cfg.family in ("moe", "vlm"):
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder, rwkv (ssm), "
+            f"{cfg.name}: the port runs the dense decoder, moe, rwkv (ssm), "
             f"hybrid and audio families only (family {cfg.family!r} comes "
             "with a later slice)")
     L = cfg.n_layers
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        return Schedule(("dense",) * fd, ("moe",), L - fd, ())
     if cfg.family == "hybrid":
         bp = tuple(cfg.block_pattern)
         return Schedule((), bp, L // len(bp), bp[:L % len(bp)])
@@ -126,11 +133,22 @@ def site_params(params, site: LayerSite):
     return _select(params[seg][idx], site.unit if seg == "body" else None)
 
 
+def _layer_ff(cfg: ModelConfig, kind: str) -> int:
+    """The MLP width of a ``kind`` layer: a MoE config's leading dense
+    layers take ``moe.dense_d_ff``."""
+    if kind == "dense" and cfg.moe and cfg.moe.dense_d_ff:
+        return cfg.moe.dense_d_ff
+    return cfg.d_ff
+
+
 # ===========================================================================
 # init
 # ===========================================================================
-def _layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
-    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+def layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
+    """Seeded params of one ``kind`` layer (``stacked`` leading axes: the
+    body's repeats), drawn from ``gen`` on ``device``."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    ff = _layer_ff(cfg, kind)
 
     def nrm():
         return {k: v.expand(tuple(stacked) + tuple(v.shape)).contiguous()
@@ -159,6 +177,10 @@ def _layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
     if cfg.qk_norm and kind != "rec":
         p["q_norm"] = torch.ones(tuple(stacked) + (cfg.hd,), device=device)
         p["k_norm"] = torch.ones(tuple(stacked) + (cfg.hd,), device=device)
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, d, cfg.moe, cfg.bits, cfg.mlp_gated,
+                                    stacked=stacked, device=device)
+        return p
     p["mlp_wi"] = qd_(d, ff)
     p["mlp_wo"] = qd_(ff, d)
     if cfg.mlp_gated:
@@ -184,13 +206,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
         w = embed_init(gen, cfg.vocab, cfg.d_model, device=device)
         params = {"embed": {
             "w": w, "s_w8": init_scale_from_stats(w, bit_range(8, True)[1])}}
-    params["prefix"] = {str(i): _layer_init(gen, cfg, k, device=device)
+    params["prefix"] = {str(i): layer_init(gen, cfg, k, device=device)
                         for i, k in enumerate(sched.prefix)}
-    params["body"] = {str(p): _layer_init(gen, cfg, k, stacked=(sched.repeats,),
-                                          device=device)
+    params["body"] = {str(p): layer_init(gen, cfg, k, stacked=(sched.repeats,),
+                                         device=device)
                       for p, k in enumerate(sched.pattern)} \
         if sched.repeats else {}
-    params["suffix"] = {str(i): _layer_init(gen, cfg, k, device=device)
+    params["suffix"] = {str(i): layer_init(gen, cfg, k, device=device)
                         for i, k in enumerate(sched.suffix)}
     params["final_norm"] = norm_init(cfg.d_model, cfg.norm_type, device)
     if cfg.tie_embeddings:
@@ -214,7 +236,8 @@ def param_count(params) -> int:
 # ===========================================================================
 def _kind_qdefs(cfg: ModelConfig, kind: str):
     """[(path, in, out, n_mats, macs_per_token, w_params, qkind)]"""
-    d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    ff = _layer_ff(cfg, kind)
     if kind == "rwkv":
         return [((name,), i, o, 1, i * o, i * o, "rwkv") for name, i, o in (
             ("wr", d, d), ("wk", d, d), ("wv", d, d), ("wg", d, d),
@@ -231,6 +254,11 @@ def _kind_qdefs(cfg: ModelConfig, kind: str):
             (("wk",), d, kvd, 1, d * kvd, d * kvd, "attn"),
             (("wv",), d, kvd, 1, d * kvd, d * kvd, "attn"),
             (("wo",), qd, d, 1, qd * d, qd * d, "attn")]
+        if kind == "moe":
+            return defs + [(("moe",) + path, i, o, n, macs, w, "moe")
+                           for path, i, o, n, macs, w, _k
+                           in moe_mod.moe_qlayer_defs(d, cfg.moe,
+                                                      cfg.mlp_gated)]
     else:
         raise NotImplementedError(f"layer kind {kind!r}")
     defs += [
@@ -532,30 +560,46 @@ def _rec_layer(x, p, bits, cfg: ModelConfig, ctx: QuantContext, mode: str,
 
 def apply_layer(kind: str, x, p, bits, cfg: ModelConfig, ctx: QuantContext, *,
                 mode: str, state=None, pos=None, prefill_cap=None, slot=None):
-    """One residual layer. Returns (x, new_state)."""
+    """One residual layer. Returns (x, new_state, aux): aux the MoE layer's
+    load-balance loss (None for every other kind)."""
     if kind == "rwkv":
-        return _rwkv_layer(x, p, bits, cfg, ctx, mode, state)
+        return _rwkv_layer(x, p, bits, cfg, ctx, mode, state) + (None,)
     if kind == "rec":
-        return _rec_layer(x, p, bits, cfg, ctx, mode, state)
+        return _rec_layer(x, p, bits, cfg, ctx, mode, state) + (None,)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     x, st = _attn_sublayer(x, p, bits, cfg, ctx, mode, state, pos, prefill_cap,
                            slot)
-    return _mlp_sublayer(x, p, bits, cfg, ctx), st
+    if kind == "moe":
+        h = apply_norm(x, p["norm2"], cfg.norm_type, cfg.norm_eps)
+        out, aux = moe_mod.moe_ffn(h, p["moe"], cfg.moe, _bget(bits, "moe"),
+                                   ctx, cfg.act, cfg.mlp_gated)
+        return x + out, st, aux
+    return _mlp_sublayer(x, p, bits, cfg, ctx), st, None
+
+
+def _add_aux(aux, a):
+    return a if aux is None else (aux if a is None else aux + a)
 
 
 def run_sites(x, sites, cfg: ModelConfig, ctx: QuantContext, *, mode: str,
               states=None, pos=None, prefill_cap=None, slot=None):
     """Run ``sites`` -- ``[(LayerSite, params, bits)]`` in execution order --
-    and collect their new decode state under ``{"sites": {key: ...}}``."""
+    and collect their new decode state under ``{"sites": {key: ...}}``.
+    Returns (x, new_states, aux): aux the MoE layers' losses summed in
+    execution order, as the reference accumulates them (None without MoE
+    layers)."""
     new_states = {"sites": {}}
+    aux = None
     for site, p, b in sites:
         key = site_key(site.gidx)
         st = None if states is None else states["sites"][key]
-        x, st = apply_layer(site.kind, x, p, b, cfg, ctx, mode=mode, state=st,
-                            pos=pos, prefill_cap=prefill_cap, slot=slot)
+        x, st, a = apply_layer(site.kind, x, p, b, cfg, ctx, mode=mode,
+                               state=st, pos=pos, prefill_cap=prefill_cap,
+                               slot=slot)
+        aux = _add_aux(aux, a)
         new_states["sites"][key] = st
-    return x, new_states
+    return x, new_states, aux
 
 
 def lm_head(x, params, cfg: ModelConfig, ctx: QuantContext,
@@ -650,25 +694,29 @@ def run_sites_remat(x, sites, cfg: ModelConfig, ctx: QuantContext):
     The recompute runs the same deterministic ops on the same inputs, so
     loss and gradients are the ones without it, bit for bit; the kernels
     inside a unit (fake-quant forward, flash forward) launch twice. The
-    forward draws no random numbers, so no RNG state is stashed."""
+    forward draws no random numbers, so no RNG state is stashed. Returns
+    (x, aux) as ``run_sites``."""
     from torch.utils.checkpoint import checkpoint
 
     def unit(group):
         def run(h):
-            return run_sites(h, group, cfg, ctx, mode="train")[0]
+            out, _, a = run_sites(h, group, cfg, ctx, mode="train")
+            return out, a
         return run
 
     def key(site):
         return site[0].segment.startswith("body."), site[0].unit
 
+    aux = None
     for (body, _), group in itertools.groupby(sites, key):
         group = list(group)
         if body:
-            x = checkpoint(unit(group), x, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(unit(group), x, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = run_sites(x, group, cfg, ctx, mode="train")[0]
-    return x
+            x, _, a = run_sites(x, group, cfg, ctx, mode="train")
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
@@ -679,10 +727,11 @@ def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
     x = embed_inputs(params, cfg, inputs, ctx)
     sites = reference_sites(params, bits, cfg)
     if remat:
-        x = run_sites_remat(x, sites, cfg, ctx)
+        x, aux = run_sites_remat(x, sites, cfg, ctx)
     else:
-        x, _ = run_sites(x, sites, cfg, ctx, mode="train")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, aux = run_sites(x, sites, cfg, ctx, mode="train")
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_head(x, params, cfg, ctx), aux
 
 
@@ -711,8 +760,8 @@ def apply_prefill(params, cfg: ModelConfig, tokens, bits, ctx: QuantContext,
     """Prompt pass of the fake-quant graph. Returns (last-position logits
     (B, V), decode state with shared positions)."""
     x = embed_inputs(params, cfg, tokens, ctx, table)
-    x, states = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
-                          mode="prefill", prefill_cap=prefill_cap)
+    x, states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
+                             mode="prefill", prefill_cap=prefill_cap)
     return finish_prefill(x, states, params, cfg, ctx, true_len, table)
 
 
@@ -722,8 +771,8 @@ def apply_decode(params, cfg: ModelConfig, token, pos, states, bits,
     scalar (shared positions) or a (B,) vector (per-slot). Returns (logits
     (B, V), new states)."""
     x = embed_inputs(params, cfg, token, ctx, table)
-    x, new_states = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
-                              mode="decode", states=states, pos=pos)
+    x, new_states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg,
+                                 ctx, mode="decode", states=states, pos=pos)
     return lm_head(x, params, cfg, ctx, table)[:, 0], new_states
 
 
@@ -735,8 +784,8 @@ def apply_verify(params, cfg: ModelConfig, tokens, pos, states, bits,
     returns (logits (B, S, V), new states): position j's logits and rows
     are what S one-token ``apply_decode`` calls give."""
     x = embed_inputs(params, cfg, tokens, ctx, table)
-    x, new_states = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
-                              mode="verify", states=states, pos=pos)
+    x, new_states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg,
+                                 ctx, mode="verify", states=states, pos=pos)
     return lm_head(x, params, cfg, ctx, table), new_states
 
 

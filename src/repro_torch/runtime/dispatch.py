@@ -225,10 +225,21 @@ def _reuse_store(key, x: torch.Tensor, value):
 # ---------------------------------------------------------------------------
 # activation quantization
 # ---------------------------------------------------------------------------
+def _act_scale(x: torch.Tensor, pl: PackedLinear) -> torch.Tensor:
+    """The bank scale aligned to the activation: a per-expert ``(E,)``
+    scale in the trailing-ones form ``(E, 1, ..., 1)``, exactly
+    ``fake_quant_indexed``'s reshape."""
+    s = pl.s_a
+    if s.dim():
+        s = s.reshape(tuple(s.shape) + (1,) * (x.dim() - s.dim()))
+    return s
+
+
 def act_fake_quant(x: torch.Tensor, pl: PackedLinear, ctx) -> torch.Tensor:
     """LSQ fake-quant of activations at the layer's searched a_bits with the
     trained bank scale -- the training graph's op chain (scale floor, LSQ
-    grad-scale wrapper, clip bounds), for bitwise parity."""
+    grad-scale wrapper, clip bounds, per-expert broadcast), for bitwise
+    parity."""
     if not (ctx.enabled and ctx.quantize_acts):
         return x
     key, hit = _reuse_lookup(x, pl, "fake")
@@ -236,7 +247,7 @@ def act_fake_quant(x: torch.Tensor, pl: PackedLinear, ctx) -> torch.Tensor:
         return hit
     qmin, qmax = pl.a_range
     g = lsq_grad_scale_factor(x.numel(), qmax, device=x.device)
-    out = fake_quant(x, pl.s_a, qmin, qmax, grad_scale_factor=g)
+    out = fake_quant(x, _act_scale(x, pl), qmin, qmax, grad_scale_factor=g)
     _reuse_store(key, x, out)
     return out
 
@@ -315,7 +326,9 @@ REGISTRY: Dict[str, Callable] = {
 # ---------------------------------------------------------------------------
 def kernel_eligible(eqn: str, pl: PackedLinear) -> Optional[str]:
     """The kernel route this (eqn, layer) pair could take, else None (the
-    kernels' epilogue takes the per-tensor scale ``pack_linear`` packs)."""
+    kernels' epilogue takes the per-tensor scale ``pack_linear`` packs; an
+    expert stack, rank 3 with a per-expert scale, takes dequant-fp, as in
+    the reference, whose expert einsums run outside any Pallas kernel)."""
     if len(pl.shape) != 2 or not _kernel_form(eqn):
         return None
     if not pl.a_signed and pl.a_bits > 7:

@@ -17,8 +17,9 @@ padding. Layouts (byte for byte those of ``repro.runtime.packing``):
 
 Codes are stored offset-binary (``u = q - qmin``) so packed bytes are
 unsigned; ``unpack_*`` restores the signed grid exactly. This slice packs
-unsharded with the trained per-tensor scale broadcast per channel
-(bit-exact with the trained fake-quant graph).
+unsharded with the trained per-tensor scale broadcast per channel, or, for
+an expert stack, the trained per-expert scale in its ``(E, 1, 1)``
+broadcast form (bit-exact with the trained fake-quant graph either way).
 """
 from __future__ import annotations
 
@@ -129,12 +130,13 @@ def _layout_for(bits: int) -> str:
 @dataclasses.dataclass
 class PackedLinear:
     """One searched projection in deployable form: packed codes, the f32
-    dequant scale (``(out,)`` per channel), the trained activation scale and
-    the grid metadata."""
+    dequant scale (``(out,)`` per channel, or ``(E, 1, 1)`` per expert of
+    an ``(E, K, N)`` stack), the trained activation scale (``()``, or
+    ``(E,)`` per expert) and the grid metadata."""
 
     codes: torch.Tensor              # packed weight codes (layout-dependent)
-    scale: torch.Tensor              # f32 dequant scale, (out,)
-    s_a: torch.Tensor                # f32 activation scale (trained bank), ()
+    scale: torch.Tensor              # f32 dequant scale, (out,) | (E, 1, 1)
+    s_a: torch.Tensor                # f32 activation scale, () | (E,)
     w_bits: int = 8
     a_bits: int = 8
     a_signed: bool = True
@@ -182,9 +184,11 @@ class PackedLinear:
 
 
 def _broadcast_scale(s: torch.Tensor, w_shape) -> torch.Tensor:
-    """Align a scale against a weight: scalars broadcast plainly, a
+    """Align a scale against a weight: scalars broadcast plainly, a scale of
+    the weight's own rank (the per-expert ``(E, 1, 1)``, already in
+    ``fake_quant_indexed``'s trailing-ones form) passes through, a
     per-channel ``(out,)`` vector reshapes onto the LAST dim."""
-    if s.dim() == 0:
+    if s.dim() in (0, len(w_shape)):
         return s
     if s.dim() == 1 and s.shape[0] == w_shape[-1]:
         return s.reshape((1,) * (len(w_shape) - 1) + (-1,))
@@ -207,13 +211,20 @@ def pack_linear(w: torch.Tensor, w_bits: int, s_w, a_bits: int, s_a, *,
                 a_signed: bool = True) -> PackedLinear:
     """Quantize ``w`` onto its searched grid and bit-pack the codes.
 
-    ``s_w`` is the trained per-tensor scale (the selected indicator-bank
-    entry, a scalar tensor)."""
+    ``s_w`` is the trained scale (the selected indicator-bank entry): a
+    scalar for a plain projection, or, for an expert stack whose bank
+    selects per expert, the ``(E, 1, 1)`` trailing-ones form against ``(E,
+    K, N)``, kept as it is; ``s_a`` is ``()`` or per expert ``(E,)``."""
     s = torch.clamp(torch.as_tensor(s_w, device=w.device).to(torch.float32),
                     min=SCALE_EPS)
-    if s.numel() != 1:
-        raise ValueError(f"per-tensor scale expected, got {tuple(s.shape)}")
-    scale = s.reshape(()).expand(w.shape[-1]).contiguous()
+    if s.dim() == w.dim() and s.numel() > 1:
+        scale = s.contiguous()
+    elif s.numel() == 1:
+        scale = s.reshape(()).expand(w.shape[-1]).contiguous()
+    else:
+        raise ValueError(f"scale {tuple(s.shape)} is neither per-tensor nor "
+                         f"per-expert against weight {tuple(w.shape)}")
+    s_a = torch.as_tensor(s_a, device=w.device).to(torch.float32)
     q = quantize_to_grid(w, w_bits, scale)
     layout = _layout_for(w_bits)
     if layout == "int8":
@@ -226,7 +237,7 @@ def pack_linear(w: torch.Tensor, w_bits: int, s_w, a_bits: int, s_a, *,
         codes = pack_codes(q, w_bits)
     return PackedLinear(
         codes=codes, scale=scale,
-        s_a=torch.as_tensor(s_a, device=w.device).to(torch.float32).reshape(()),
+        s_a=s_a.reshape(()) if s_a.numel() == 1 else s_a.contiguous(),
         w_bits=int(w_bits), a_bits=int(a_bits), a_signed=bool(a_signed),
         layout=layout, shape=tuple(int(d) for d in w.shape))
 

@@ -6,7 +6,9 @@ Construction packs once:
    loudly),
 2. split the stacked param tree into per-site subtrees (one per
    ``lm.iter_sites`` entry), so every site holds its *own* searched
-   bit-widths in packed storage,
+   bit-widths in packed storage -- or take each site's subtree from a
+   ``site_source`` as it is packed, when the whole float32 tree would not
+   fit the device beside its packing,
 3. for every searched projection, select the trained indicator-bank scales
    at the policy's bit-widths and quantize + bit-pack the weight
    (``runtime.packing.pack_linear``) -- device memory then holds
@@ -37,7 +39,8 @@ pure function of the weights and is computed once here.
 ``ElasticSession`` packs N policy variants of one weight set for elastic
 precision serving (``launch.elastic``), keyed by ``bank_fingerprint``.
 
-Numerics: with per-tensor bank scales, the dequantized weights and the
+Numerics: with per-tensor bank scales (per-expert ones on an expert
+stack, in the ``(E, 1, 1)`` broadcast form), the dequantized weights and the
 on-the-fly activation fake-quant reproduce the fake-quant graph *bitwise*
 on the dequant-fp route, so its greedy tokens equal an ``LMAdapter``
 reference engine's -- with int8 KV slots too, whose reference is
@@ -75,13 +78,20 @@ def _set_path(tree, path: Tuple[str, ...], leaf):
 
 
 def effective_weight_scale(s_bank: torch.Tensor, idx: int, numel: int,
-                           bits: int) -> torch.Tensor:
+                           bits: int, w_ndim: Optional[int] = None
+                           ) -> torch.Tensor:
     """The scale value the fake-quant graph actually divides by: bank entry
-    ``idx`` -> floor at 1e-9 -> LSQ grad-scale wrapper (the identity in
-    exact arithmetic, replicated op for op for bitwise parity)."""
+    ``idx`` (selected on the LAST axis: leading axes are expert stacks) ->
+    floor at 1e-9 -> LSQ grad-scale wrapper (the identity in exact
+    arithmetic, replicated op for op for bitwise parity). A per-expert
+    selection comes back in ``fake_quant_indexed``'s trailing-ones form
+    (``(E, 1, 1)`` for a rank-3 weight, via ``w_ndim``)."""
     qmax = float(bit_range(bits, True)[1])
     s = torch.clamp(s_bank[..., idx].to(torch.float32), min=1e-9)
-    return grad_scale(s, lsq_grad_scale_factor(numel, qmax, device=s.device))
+    s = grad_scale(s, lsq_grad_scale_factor(numel, qmax, device=s.device))
+    if s.dim() and w_ndim is not None:
+        s = s.reshape(tuple(s.shape) + (1,) * (w_ndim - s.dim()))
+    return s
 
 
 class QuantizedSession:
@@ -89,9 +99,14 @@ class QuantizedSession:
 
     def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
                  ctx: Optional[QuantContext] = None, *,
-                 kv_quant: str = "int8"):
+                 kv_quant: str = "int8", site_source=None):
         lm.check_decodes(cfg)
         self.cfg = cfg
+        # where each site's param subtree comes from: the site's slice of
+        # ``params`` (None), or ``site_source(site)``, called once per site
+        # and packed tree, so that a tree too large for the device beside
+        # its packing can be made, packed and dropped site by site
+        self.site_source = site_source
         self.policy = policy
         self.ctx = dataclasses.replace(
             ctx or QuantContext.make(cfg.bits, cfg.quant_act_signed,
@@ -124,13 +139,15 @@ class QuantizedSession:
         sites_p: Dict[str, Any] = {}
         for site in self.sites:
             key = lm.site_key(site.gidx)
-            sp = lm.site_params(params, site)
+            sp = (self.site_source(site) if self.site_source is not None
+                  else lm.site_params(params, site))
             packed_paths: List[Tuple[str, ...]] = []
             for q in by_site[(site.segment, site.unit)]:
                 leaf = _get_path(sp, q.path)
                 wb = int(self.policy.w_bits[q.name])
                 s_w = effective_weight_scale(leaf["s_w"], self._lut[wb],
-                                             leaf["w"].numel(), wb)
+                                             leaf["w"].numel(), wb,
+                                             w_ndim=leaf["w"].dim())
                 a_idx = self._lut[int(self.policy.a_bits[q.name])]
                 pl = packing.pack_linear(
                     leaf["w"], wb, s_w, int(self.policy.a_bits[q.name]),
@@ -176,9 +193,9 @@ class QuantizedSession:
                  for s in self.sites]
         with dispatch.counts_scope(self.route_counts), \
                 dispatch.act_reuse_scope() as scope:
-            x, new_states = lm.run_sites(x, sites, self.cfg, self.ctx,
-                                         mode=mode, states=states, pos=pos,
-                                         prefill_cap=prefill_cap, slot=slot)
+            x, new_states, _ = lm.run_sites(
+                x, sites, self.cfg, self.ctx, mode=mode, states=states,
+                pos=pos, prefill_cap=prefill_cap, slot=slot)
         self.act_quant_reused += scope["hits"]
         if self.metrics is not None and scope["hits"]:
             self.metrics.counter("dispatch.act_reuse_hits").inc(scope["hits"])

@@ -111,7 +111,8 @@ def world():
 def test_schedule_qlayers_and_policy_bytes_match_reference():
     """The full config's schedule, its 288 QLayers in order (names, sites,
     paths, dims, MACs, weight counts, kinds) and a mixed policy's bytes are
-    the reference's; moe and vlm still wait for their slice."""
+    the reference's, and so are the MoE schedules; vlm still waits for its
+    slice."""
     jcfg, tcfg = j_get(ARCH), t_get(ARCH)
     assert tuple(tlm.build_schedule(tcfg)) == tuple(jlm.build_schedule(jcfg))
     assert tlm.build_schedule(tcfg) == ((), ("attn",), 48, ())
@@ -127,9 +128,11 @@ def test_schedule_qlayers_and_policy_bytes_match_reference():
     for b in (2, 4, 6):
         assert tpolicy.MPQPolicy.uniform(tq, b).size_bytes(tq) == \
             jpolicy.MPQPolicy.uniform(jq, b).size_bytes(jq)
-    for name in ("mixtral-8x7b", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tlm.build_schedule(t_get(name))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tlm.build_schedule(t_get("llama-3.2-vision-11b"))
+    for name in ("mixtral-8x7b", "deepseek-moe-16b"):
+        assert tuple(tlm.build_schedule(t_get(name))) == \
+            tuple(jlm.build_schedule(j_get(name)))
 
 
 def test_param_tree_and_data_match_reference(world):

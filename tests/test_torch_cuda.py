@@ -23,6 +23,10 @@ RWKV6_KN = [(4096, 4096), (4096, 14336), (14336, 4096)]
 # (K, N) of the RecurrentGemma-2B projections: wq, rg/wx, rg/wgate, rg/wo and
 # wo; wk/wv (one kv head); mlp_wi/wg; mlp_wo
 RGEMMA_KN = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)]
+# (K, N) of the deepseek-moe-16b projections on the kernels: wq/wk/wv/wo,
+# the shared experts' up and down, the dense layer's MLP up and down
+DEEPSEEK_KN = [(2048, 2048), (2048, 2816), (2816, 2048), (2048, 10944),
+               (10944, 2048)]
 
 
 @pytest.fixture
@@ -40,7 +44,7 @@ def _codes(rng, shape, lo, hi, dev):
 
 @pytest.mark.parametrize("M", [1, 4, 128, 37, 2, 8, 16, 17])
 @pytest.mark.parametrize("KN", QWEN3_KN + [(200, 72), (130, 33)] + RWKV6_KN
-                         + RGEMMA_KN)
+                         + RGEMMA_KN + DEEPSEEK_KN)
 def test_quant_matmul_bitwise(dev, M, KN):
     """Both routes (split-K for M <= 16, tensor cores above) at every
     row instance and its neighbours, bit for bit the plain version."""
@@ -171,7 +175,8 @@ def test_one_device_kernel_per_call(dev, what):
 
 
 @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 16, 17, 128])
-@pytest.mark.parametrize("KN", QWEN3_KN + RWKV6_KN + [(202, 40)] + RGEMMA_KN)
+@pytest.mark.parametrize("KN", QWEN3_KN + RWKV6_KN + [(202, 40)] + RGEMMA_KN
+                         + DEEPSEEK_KN)
 def test_quant_matmul_w4_bitwise(dev, M, KN):
     """Both nib4 routes (split-K for M <= 16 at every row instance and its
     neighbours, tensor cores above) bit for bit the plain version, at the
@@ -759,6 +764,25 @@ def test_decode_attn_quant_recurrentgemma_shape(dev, Sc, window):
         rtol=2e-5, atol=2e-6)
 
 
+def test_decode_attn_quant_deepseek_shape(dev):
+    """deepseek-moe-16b's decode attention: MHA, 16 kv heads of 128 with
+    one query head each (G = 1), the serve ring of 320 rows; within rtol
+    2e-5 / atol 2e-6 of the plain version, one launch."""
+    B, KV, G, hd, Sc = 4, 16, 1, 128, 320
+    rng = np.random.default_rng(16)
+    q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, 3], np.int32)
+    kc, ks, vc, vs, pos = _ring(rng, B, Sc, KV, hd, dev, q_pos)
+    q = _q(rng, B, 1, KV * G, hd, dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    n0 = ops.launches["decode_attn_quant"]
+    out = ops.decode_attn_quant(q, kc, ks, vc, vs, pos, qp)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attn_quant"] == n0 + 1
+    torch.testing.assert_close(
+        out, _plain_ring(q, kc, ks, vc, vs, pos, qp[:, None], None),
+        rtol=2e-5, atol=2e-6)
+
+
 def test_verify_wrappers_reject_bad_operands(dev):
     rng = np.random.default_rng(6)
     kc, ks, vc, vs, pos = _ring(rng, 2, 64, 2, 64, dev, np.array([10, 20]))
@@ -887,6 +911,73 @@ def test_fake_quant_kernels_against_plain(dev, bits, shape):
     dv_p, ds_p = ref.fake_quant_grads_ref(v, s.reshape(()), g, qmin, qmax)
     assert torch.equal(dv, dv_p)
     assert abs(float(ds) - float(ds_p)) <= _ds_tol(v, s, g, qmin, qmax, ds_p)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 6, 8])
+@pytest.mark.parametrize("shape", [(64, 4, 2048), (64, 2048, 1408),
+                                   (8, 3, 5), (6, 1), (3, 7, 2, 9)])
+def test_fake_quant_fwd_with_a_scale_per_slice(dev, bits, shape):
+    """A scale per leading slice (deepseek's (64, 1, 1) per-expert scale
+    over its decode expert input and an expert weight stack; ragged slices
+    that take the scalar path): one launch, bit for bit the plain version
+    and the broadcasting Eq. 1; a zero scale meets the 1e-9 floor."""
+    rng = np.random.default_rng(bits + len(shape))
+    v = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(
+        np.float32)).to(dev)
+    qmin, qmax = float(-2 ** (bits - 1)), float(2 ** (bits - 1) - 1)
+    s_shape = (shape[0],) + (1,) * (len(shape) - 1)
+    s = torch.from_numpy(rng.uniform(0.02, 0.4, s_shape).astype(
+        np.float32) / qmax).to(dev)
+    s[1] = 0.0
+    n0 = ops.launches["fake_quant_fwd"]
+    out = ops.fake_quant_fwd(v, s, qmin, qmax)
+    torch.cuda.synchronize()
+    assert ops.launches["fake_quant_fwd"] == n0 + 1
+    assert torch.equal(out, ref.fake_quant_ref(v, s, qmin, qmax))
+    sf = torch.clamp(s, min=1e-9)
+    assert torch.equal(out, torch.round(torch.clamp(v / sf, qmin, qmax)) * sf)
+    with pytest.raises(NotImplementedError, match="per slice"):
+        ops.fake_quant_bwd(v, s, v, qmin, qmax)
+
+
+def test_moe_combine_and_expert_layer_repeat_bit_for_bit(dev):
+    """The MoE combine at deepseek's widths (64 experts, top-6, d_model
+    2048) over 256 tokens whose capacity of 128 drops picks: two equal
+    calls on the card equal, and equal to the CPU's evaluation (the same
+    adds in the same order). Then a packed MoE layer of the smoke config
+    on the card (the expert route's per-expert fake-quant kernel): two
+    equal calls bit for bit equal."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, moe as moe_mod
+    cfg = get_config("deepseek-moe-16b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    T = 256
+    xf = torch.randn((T, cfg.d_model), generator=g, device=dev)
+    w = torch.randn((cfg.d_model, 64), generator=g, device=dev) * 0.02
+    xf[:, 0], w[0, 5] = 2.0, 4.0
+    r = moe_mod.route(xf, w, cfg.moe)
+    assert r.gi.shape == (64, 128) and int(r.keep[5].sum()) == 128
+    y = torch.randn((64, 128, cfg.d_model), generator=g, device=dev) \
+        * (r.gv * r.keep)[..., None]
+    a = moe_mod.combine(y, r.gi, r.keep, r.top_i, T)
+    b = moe_mod.combine(y, r.gi, r.keep, r.top_i, T)
+    c = moe_mod.combine(y.cpu(), r.gi.cpu(), r.keep.cpu(), r.top_i.cpu(), T)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    small = smoke_config("deepseek-moe-16b")
+    sess = serve.build_session(small, lm.init_params(small, seed=0,
+                                                     device=dev),
+                               serve.demo_mixed_policy(small))
+    p = sess.params["sites"]["001"]
+    x = torch.randn((4, 1, small.d_model), generator=g, device=dev)
+    n0 = ops.launches["fake_quant_fwd"]
+    y1, aux1 = moe_mod.moe_ffn(x, p["moe"], small.moe, None, sess.ctx,
+                               small.act, small.mlp_gated)
+    y2, aux2 = moe_mod.moe_ffn(x, p["moe"], small.moe, None, sess.ctx,
+                               small.act, small.mlp_gated)
+    torch.cuda.synchronize()
+    assert ops.launches["fake_quant_fwd"] - n0 == 2 * 3
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
 
 
 def test_fake_quant_kernels_on_unaligned_views(dev):

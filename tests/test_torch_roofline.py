@@ -36,7 +36,8 @@ from repro_torch.dist import roofline as troof               # noqa: E402
 from repro_torch.launch import engine as teng                # noqa: E402
 from repro_torch.launch import serve as tserve               # noqa: E402
 
-ARCHS = ("limpq-demo", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-2b")
+ARCHS = ("limpq-demo", "qwen3-0.6b", "rwkv6-7b", "recurrentgemma-2b",
+         "deepseek-moe-16b")
 REL = 1e-12
 
 # the same envelope in both packages' ChipSpec types: the port's default
