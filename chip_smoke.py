@@ -39,8 +39,12 @@ In order:
    HuBERT-XLarge's (1280, 1280) and (1280, 5120) weights and its (2048,
    5120) MLP activation, the fake-quant forward with a scale per expert
    (64 scales) at deepseek-moe-16b's decode expert input (64, 4, 2048) and
-   an expert stack (64, 2048, 1408), the matmuls at its five projection
-   shapes and decode attention at its KV 16, G 1 -- and time
+   an expert stack (64, 2048, 1408), the backward with 64 scales at that
+   stack and its training expert input (64, 256, 2048) (dv bit for bit,
+   each expert's ds to rtol 1e-4 of |ds| plus 1e-6 of its sum |g * dsd|),
+   flash at its training attention (KV 16, G 1, hd 128, causal, S 2048),
+   the matmuls at its five projection shapes and decode attention at its
+   KV 16, G 1 -- and time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA-event medians, L2 flushed before each launch);
 3. train phase: the paper pipeline on Qwen3-0.6B at full width and depth
@@ -74,7 +78,7 @@ In order:
    reference's top-2 margin > 1e-2 and its float64 evaluation agreeing
    (``serve.check_greedy``); a request's comparison stops at its first
    non-decisive step; (c) packed weight bytes within 5% of
-   ``MPQPolicy.size_bytes``; (d) one profiled decode step launches 4650
+   ``MPQPolicy.size_bytes``; (d) one profiled decode step launches 4707
    kernels (one per matmul and attention call, with the rest of the step's
    kernels). The reference engine runs the plain versions
    (``ops.plain_on_cuda()``), so its fake-quant is plain PyTorch;
@@ -82,7 +86,7 @@ In order:
    of 8) made the same, served over pooled int8 pages with shared-prefix
    remapping and chunked append prefill. Gates: ``decode_attn_quant_paged``
    launched 28 times per decode step and ``decode_attn_quant`` never, and
-   one profiled decode step launches 5182 kernels; greedy
+   one profiled decode step launches 5239 kernels; greedy
    tokens as in (b); prefix hits, and fewer tokens prefilled than the ring
    phase; the page pool consistent and every slot empty after the drain;
 6. speculative serve phases, ring and paged: the same requests as phases 4
@@ -118,10 +122,11 @@ In order:
    prefill of a multiple of 32 and never in a decode step, both matmul
    kernels launched, no kernel-eligible projection on dequant-fp, no
    attention kernel; (b) greedy tokens as in phase 4 (the reference
-   engines run plain, the float64 control in float64 throughout), printed
-   at 32 layers and gated at the same widths with 2 layers (as gate (e):
-   at 32 layers the float32 and float64 evaluations part on confident
-   steps, so none is decisive); (c)
+   engines run plain, the float64 control in float64 throughout), gated
+   at the same widths with 2 layers (as gate (e): at 32 layers the float32
+   and float64 evaluations part on confident steps, so none is decisive;
+   the 32-layer comparison is cut for the time limit, the prefill logits
+   are printed at 32); (c)
    packed bytes within 5%; (d) no host synchronisation inside a decode step
    (``set_sync_debug_mode("error")``); (e) a profiled 256-token prefill
    runs the ``wkv`` kernel once per layer (its device time printed, and the
@@ -144,8 +149,9 @@ In order:
    metrics snapshots; the Prometheus dump parses back to the registry's
    values; the host time spent in the trace, the KV-scale sampler, the
    monitor and the route counters printed per decode step. Then the same
-   run with ``--no-trace`` twice and traced once more (on, off, off, on:
-   the decode-step p50s printed, the tokens unchanged); then budgeted on
+   run with ``--no-trace`` (on, off: the decode-step p50s printed, the
+   tokens unchanged; the off / on repeats are cut for the time limit);
+   then budgeted on
    the device table the first run measured (``--chip-table``): the tokens
    unchanged, both chunks printed. Last, the 8 requests over pooled pages
    sharing 128 prompt tokens, speculating (``--speculate 4 --draft-bits
@@ -219,7 +225,7 @@ In order:
     attention kernel 8 times and 164 matmuls; (c) packed bytes within 5%;
     (d) no host synchronisation inside a decode step
     (``set_sync_debug_mode("error")``), and a profiled decode step launches
-    3495 kernels (its attention and split-K matmul kernels' device time
+    3548 kernels (its attention and split-K matmul kernels' device time
     printed, its slots of 2048 rows at positions past the window; step
     p50, tok/s, prefill p50 and peak memory printed, and one profiled
     2560-token prefill with its 8 flash launches); (b) at 3 layers, one
@@ -231,9 +237,8 @@ In order:
     prefill and 6 decode steps of two short prompts and the long one (each
     side carrying its own state; the long one decodes past the window),
     within max(2 x the float32 reference's distance from its float64
-    evaluation, 0.05 x the logits' std) of the float32 reference. At 26
-    layers the served tokens against the reference are printed, with the
-    count of decisive steps.
+    evaluation, 0.05 x the logits' std) of the float32 reference. (The
+    26-layer comparison with the reference is cut for the time limit.)
 14. audio phase: the paper pipeline of phase 3 on hubert-xlarge, the
     encoder-only family, at its published widths and depth (48 layers,
     d_model 1280, 16 heads of 80 on 16 kv heads, bidirectional, plain gelu
@@ -262,9 +267,10 @@ In order:
     projections, 81 of them expert stacks), the serve phase's 8 requests
     over 4 slots and a 320-row ring. The float32 tree does not fit the
     card beside its packing, so each MoE site's seeded params are made on
-    the card when ``QuantizedSession(site_source=...)`` packs it, and
-    dropped before the next (``moe_site_source``); the host's MemTotal and
-    MemAvailable are printed. First the combine at deepseek's shapes (4
+    the card when ``SpecSession(site_source=...)`` packs it, under the
+    target policy and the 2-bit draft policy of phase 17, and dropped
+    before the next (``moe_site_source``): one pack serves phases 15-17;
+    the host's MemTotal and MemAvailable are printed. First the combine at deepseek's shapes (4
     tokens, and 256 whose capacity of 128 drops picks): two equal calls
     bit for bit equal, and equal to the CPU's evaluation. Gates: (a) the
     ring kernels and ``fake_quant_fwd`` launched, no other layout's, no
@@ -288,8 +294,45 @@ In order:
     kernel token for token the same session on the matmuls' plain
     versions, and the run on the dequant-fp matmul route equal to the
     fake-quant reference on every decisive step (``serve.compare_greedy``
-    with the float64 control).
+    with the float64 control);
+16. moe-paged phase: phase 15's session at 28 layers over pooled int8
+    pages, the paged phase's 8 requests (128 shared prompt tokens), 4
+    slots, append chunks of 256. Gates: ``decode_attn_quant_paged``
+    launched 28 times a decode step and ``decode_attn_quant`` never, the
+    matmul and fake-quant kernels launched, no kernel-eligible projection
+    on dequant-fp; prefix hits and fewer tokens prefilled than the ring
+    phase; a clean pool; packed bytes exactly the policy's; no host sync
+    in a paged decode step. Then phase 15's 3-layer gates over pages: the
+    all-kernel run token for token the plain-matmul run, the dequant-fp
+    run equal on decisive steps to the fake-quant reference served over
+    pages under the same schedule (an append chunk's pad rows attend the
+    slot's pages and compete for an expert's capacity, so which tokens it
+    drops depends on the pool's history: ROADMAP §3). Printed: decode and
+    prefill p50, tok/s, peak memory, a profiled paged decode step;
+17. moe-spec phases, ring and paged: phase 15's session at 28 layers with
+    ``speculate=4`` and its 2-bit draft, the first wave of phases 15 and
+    16 (4 requests, one a slot into fresh caches: the time limit; over
+    pages a later admission's chunk has pad rows that attend the rows
+    another history left in its pages, ROADMAP §3). Gates as phase 6:
+    tokens equal that layout's token-at-a-time run on every decisive
+    step, 28 verify launches a round and no one-token
+    launch in the verify pass, no sync inside a round, a clean pool and
+    phase 16's prefix hits; draft bytes within 1% of the 2-bit draft
+    policy's. Then the midflight check of phase 6 on this session, both
+    layouts. Printed: accept rate, round p50 and tok/s beside
+    token-at-a-time's;
+18. moe-train phase: the paper pipeline of phase 3 on deepseek-moe-16b at
+    full width cut to 4 layers (the dense layer and three MoE layers, 2.27
+    B parameters: 28 layers' weights, gradients and AdamW moments take
+    ~262 GB), B=1, S=2048: 2 importance steps, the indicators (an expert
+    stack's the mean over its experts' banks), the ILP, 3 QAT steps, an
+    evaluation batch. Gates (a)-(d) of phase 3, with 77 fake-quant launches
+    each way a pass, 18 of them (each expert stack's weight and input)
+    with 64 scales, and 4 ``flash_fwd`` at G 1, hd 128; then gate (e) at 3
+    layers, printed at 4. Printed: step ms, the ILP's ms, peak memory, a
+    profiled QAT step.
 
+Every phase's seconds and the script's are printed as ``[time]`` lines.
 Any failure exits non-zero. The line before the last is a JSON object with
 one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
 per-case numbers also go to ``chiprun_out/chip_smoke.json``.
@@ -398,10 +441,12 @@ FQ_MAIN = ((2048, 3072), 4)
 # flash: (S, causal, window, KV, G, hd) at B = 1: Qwen3-0.6B's heads (summary
 # row S=2048 causal), then RecurrentGemma-2B's long-prompt prefill (one kv
 # head, G = 10, hd 256, its 2048-row local window over 2560 tokens), then
-# HuBERT-XLarge's training attention (16 heads of 80, bidirectional)
+# HuBERT-XLarge's training attention (16 heads of 80, bidirectional), then
+# deepseek-moe-16b's (16 heads of 128 on 16 kv heads: odd G at hd 128)
 FLASH_CASES = [(2048, True, None, 8, 2, 128), (4096, True, None, 8, 2, 128),
                (2048, True, 512, 8, 2, 128), (2048, False, None, 8, 2, 128),
-               (2560, True, 2048, 1, 10, 256), (2048, False, None, 16, 1, 80)]
+               (2560, True, 2048, 1, 10, 256), (2048, False, None, 16, 1, 80),
+               (2048, True, None, 16, 1, 128)]
 FLASH_MAIN = FLASH_CASES[0]
 # wkv: (B, S, H, hd, chunk); summary row one 256-token rwkv6-7b prefill;
 # tolerance (y and state, atol and rtol): the reference's wkv_pallas
@@ -432,6 +477,13 @@ DEEPSEEK_ATTN = [("deepseek-moe-16b", 16, 1, None, MAIN_SC, 128)]
 # and one (64, 2048, 1408) expert weight stack
 MOE_ARCH, MOE_CUT = "deepseek-moe-16b", 3
 FQ_EXPERT_SHAPES = [(64, 4, 2048), (64, 2048, 1408)]
+# the backward with a scale per expert in MoE training: one expert weight
+# stack, and the expert input of B*S = 2048 tokens (capacity 256 each)
+FQ_EXPERT_BWD_SHAPES = [(64, 2048, 1408), (64, 256, 2048)]
+# MoE training at full width: its depth (the dense layer and three MoE
+# layers; 28 layers' weights, gradients and AdamW moments take ~262 GB),
+# and the depth of its gate (e)
+MOE_TRAIN_LAYERS, MOE_TRAIN_CUT = 4, 3
 # hybrid serve phase: the serve phase's 8 requests and one long one whose
 # prefill takes the flash kernel at hd 256 (2560 tokens: a multiple of the
 # 512-row q block past the 2048-token threshold, past the window), over
@@ -451,8 +503,8 @@ AUDIO_ARCH, AUDIO_CUT = "hubert-xlarge", 2
 # over pages, and of one RecurrentGemma-2B and one DeepSeek-MoE-16B step
 # over the ring: one launch per matmul and attention call (and, for the
 # MoE step, per expert input's fake-quant), no more
-DECODE_STEP_LAUNCHES = {"serve": 4650, "paged": 5182, "hybrid": 3495,
-                        "moe": 7693}
+DECODE_STEP_LAUNCHES = {"serve": 4707, "paged": 5239, "hybrid": 3548,
+                        "moe": 7858}
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
 # layers: loss rtol, and per-gradient-leaf relative L2, the reference's ds
@@ -1189,6 +1241,87 @@ def fake_quant_expert_rows(torch, ops, ref, flush, dev):
                   f"{r['one_scale_ms']:.4f}) plain={r['plain_ms']:.4f} "
                   f"lib={r['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
                   flush=True)
+    return rows + fake_quant_expert_bwd_rows(torch, ops, ref, flush, dev)
+
+
+def fake_quant_expert_bwd_rows(torch, ops, ref, flush, dev):
+    """``fake_quant_bwd`` with a scale per expert at MoE training's shapes
+    (``FQ_EXPERT_BWD_SHAPES``): at every width dv bit for bit its plain
+    version and each expert's ds within 1e-4 of |ds| plus 1e-6 of that
+    expert's sum |g * dsd|; at one scale the kernel as before; timed at 4
+    bits beside PyTorch's learnable per-channel fake-quant, forward and
+    backward, over the expert axis (its forward is the only way to its
+    backward)."""
+    rows = []
+    for shape in FQ_EXPERT_BWD_SHAPES:
+        E = shape[0]
+        g_ = torch.Generator(device=dev).manual_seed(shape[1] * 11 + E)
+        v = torch.randn(shape, generator=g_, device=dev) * 0.05
+        g = 1 + 0.5 * torch.randn(shape, generator=g_, device=dev)
+        spread = torch.rand((E, 1, 1), generator=g_, device=dev) + 0.5
+        for bits in FQ_BITS:
+            qmin, qmax = float(-2 ** (bits - 1)), float(2 ** (bits - 1) - 1)
+            one = (2 * v.abs().mean() / qmax ** 0.5).reshape(1)
+            s = (one * spread).contiguous()             # (E, 1, 1)
+            dv, ds = ops.fake_quant_bwd(v, s, g, qmin, qmax)
+            dv_p, ds_p = ref.fake_quant_grads_ref(v, s, g, qmin, qmax)
+            dv1, ds1 = ops.fake_quant_bwd(v, one, g, qmin, qmax)
+            dv1_p, ds1_p = ref.fake_quant_grads_ref(v, one, g, qmin, qmax)
+            torch.cuda.synchronize()
+            tol = torch.tensor([
+                1e-4 * abs(float(ds_p[e])) + 1e-6 * _ds_terms_abs(
+                    torch, v[e], s[e], g[e], qmin, qmax) for e in range(E)],
+                device=dev)
+            err = float((ds - ds_p).abs().max())
+            gate(torch.equal(dv, dv_p) and torch.equal(dv1, dv1_p),
+                 f"fake_quant_bwd {shape} {bits}b: dv differs from its plain "
+                 "version")
+            gate(bool(((ds - ds_p).abs() <= tol).all()),
+                 f"fake_quant_bwd {shape} {bits}b, {E} scales: ds off its "
+                 f"plain version by up to {err}")
+            tol1 = (1e-4 * abs(float(ds1_p))
+                    + 1e-6 * _ds_terms_abs(torch, v, one, g, qmin, qmax))
+            gate(abs(float(ds1) - float(ds1_p)) <= tol1,
+                 f"fake_quant_bwd {shape} {bits}b, one scale: ds {float(ds1)}"
+                 f" vs plain {float(ds1_p)}")
+            if bits != 4:
+                rows.append(dict(name="fake_quant_bwd",
+                                 shape=f"{shape} {bits}b, {E} scales",
+                                 max_abs_err=err, main=False))
+                continue
+            n = v.numel()
+            zp = torch.zeros(E, device=dev)
+            vl = v.reshape(E, -1).clone().requires_grad_(True)
+            sl = s.reshape(E).clone().requires_grad_(True)
+            g2 = g.reshape(E, -1)
+
+            def lib():
+                o = torch._fake_quantize_learnable_per_channel_affine(
+                    vl, sl, zp, 0, int(qmin), int(qmax), 1.0)
+                return torch.autograd.grad(o, (vl, sl), g2)
+
+            b_ms, b_by = bound_ms(12.0 * n + 8.0 * E, 10.0 * n,
+                                  F32_OPS_PER_S)
+            rows.append(dict(
+                name="fake_quant_bwd", shape=f"{shape} {bits}b, {E} scales",
+                max_abs_err=err,
+                ms=cuda_ms(torch, lambda: ops.fake_quant_bwd(
+                    v, s, g, qmin, qmax), flush),
+                one_scale_ms=cuda_ms(torch, lambda: ops.fake_quant_bwd(
+                    v, one, g, qmin, qmax), flush),
+                plain_ms=cuda_ms(torch, lambda: ref.fake_quant_grads_ref(
+                    v, s, g, qmin, qmax), flush),
+                library_ms=cuda_ms(torch, lib, flush), bound_ms=b_ms,
+                bound_by=b_by, main=False))
+            r = rows[-1]
+            print(f"[kernel] fake_quant_bwd  {str(shape):16s} {bits}b, {E} "
+                  f"scales: err={err:.1e} ms={r['ms']:.4f} (one scale "
+                  f"{r['one_scale_ms']:.4f}) plain={r['plain_ms']:.4f} "
+                  f"lib fwd+bwd={r['library_ms']:.4f} "
+                  f"bound={b_ms:.4f}({b_by})", flush=True)
+    print(f"[kernel] fake_quant_bwd with a scale per expert: "
+          f"{len(FQ_EXPERT_BWD_SHAPES) * len(FQ_BITS)} cases, dv bit for "
+          "bit, each expert's ds within tolerance", flush=True)
     return rows
 
 
@@ -1346,6 +1479,33 @@ def pinned_fq(cfg) -> int:
     return 2 if cfg.tie_embeddings else 3
 
 
+@contextlib.contextmanager
+def fq_slice_probe(ops):
+    """Count the fake-quant launches that take a scale per leading slice
+    (n_s > 1) while the block runs: {"fake_quant_fwd": n, "fake_quant_bwd":
+    n}. The wrappers are called as module functions (``_FakeQuant`` looks
+    them up in ``ops``), so a wrapped name sees every call."""
+    seen = {"fake_quant_fwd": 0, "fake_quant_bwd": 0}
+    real = {k: getattr(ops, k) for k in seen}
+
+    def wrap(name):
+        def counted(v, s, *a):
+            before = ops.launches[name]
+            out = real[name](v, s, *a)
+            if ops.launches[name] > before and ops.fq_scale_slices(v, s) > 1:
+                seen[name] += 1
+            return out
+        return counted
+
+    for k in seen:
+        setattr(ops, k, wrap(k))
+    try:
+        yield seen
+    finally:
+        for k, f in real.items():
+            setattr(ops, k, f)
+
+
 def train_batches(torch, cfg, dev):
     """``batch(step)``: the data module's B=1, ``TRAIN_S`` batch of every
     key (tokens; frames and labels for the audio family) on ``dev``."""
@@ -1359,10 +1519,11 @@ def train_batches(torch, cfg, dev):
 
 
 def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
-                hawq=True):
-    """The paper pipeline on ``arch`` at full width and depth (``label``
-    prefixes its lines; ``hawq`` adds the HAWQ baseline). Returns (launch
-    counts of the run, results, the final params, the searched policy)."""
+                hawq=True, remat=True, n_layers=None):
+    """The paper pipeline on ``arch`` at full width and depth (``n_layers``
+    cuts the depth; ``label`` prefixes its lines; ``remat`` adds the remat
+    check, ``hawq`` the HAWQ baseline). Returns (launch counts of the run,
+    results, the final params, the searched policy)."""
     from repro_torch import optim, training
     from repro_torch.configs import get_config
     from repro_torch.core import importance as imp
@@ -1371,11 +1532,15 @@ def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
     from repro_torch.models.quant_layers import QuantContext
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
     ql = lm.enumerate_qlayers(cfg)
     n_proj = len(ql)
     n_fq = 2 * n_proj + pinned_fq(cfg)
     per_pass = dict(fake_quant_fwd=n_fq, fake_quant_bwd=n_fq,
                     flash_fwd=cfg.n_layers)
+    # an expert stack's weight and input take a scale per expert, each way
+    n_sliced = 2 * sum(q.n_mats > 1 for q in ql)
     n_pass = cfg.n_bits + 1
     ctx = QuantContext.make(cfg.bits, cfg.quant_act_signed,
                             compute_dtype=torch.float32)
@@ -1383,7 +1548,9 @@ def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
     unit = "frames" if cfg.frontend == "audio_stub" else "tok"
 
     params = lm.init_params(cfg, seed=0, device=dev)
-    p0 = {k: t.clone() for k, t in _tree_leaves(params)}
+    # the initial values, kept on the host: at full width a tree is
+    # gigabytes of device memory
+    p0 = {k: t.detach().to("cpu", copy=True) for k, t in _tree_leaves(params)}
     print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, "
           f"{lm.param_count(params) / 1e6:.1f}M params, {n_proj} searchable "
           f"projections, B=1 S={TRAIN_S} float32, hd {cfg.hd}, "
@@ -1395,13 +1562,19 @@ def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
         ops.reset_launches()                     # counts: this run only
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn()
-        ms = sync_ms(torch, t0)
+        with fq_slice_probe(ops) as sliced:
+            out = fn()
+            ms = sync_ms(torch, t0)
         got = {k: ops.launches[k] for k in TRAIN_KERNELS}
         for k in TRAIN_KERNELS:
             total[k] += got[k]
-        # (a) launches exactly as the schedule implies
+        # (a) launches exactly as the schedule implies, those with a scale
+        # per expert among them
         gate(got == expect, f"[{label}] launches {got}, expected {expect}")
+        passes = expect["fake_quant_fwd"] // n_fq
+        want = {k: n_sliced * passes * bool(expect[k]) for k in sliced}
+        gate(sliced == want, f"[{label}] launches with a scale per slice "
+             f"{sliced}, expected {want}")
         gate(all(ops.launches[k] == 0 for k in SERVE_KERNELS),
              f"[{label}] a serving kernel launched while training")
         return out, ms
@@ -1431,10 +1604,10 @@ def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
     # (c) backbone bit for bit, every bank moved
     now = dict(_tree_leaves(params))
     frozen = [k for k in p0 if not _is_bank(k)]
-    gate(all(torch.equal(now[k], p0[k]) for k in frozen),
+    gate(all(torch.equal(now[k].cpu(), p0[k]) for k in frozen),
          "importance steps moved a backbone weight")
     banks = [k for k in p0 if _is_bank(k)]
-    still = [k for k in banks if torch.equal(now[k], p0[k])]
+    still = [k for k in banks if torch.equal(now[k].cpu(), p0[k])]
     gate(not still, f"banks not moved by the importance steps: {still[:4]}")
     print(f"[{label}] backbone ({len(frozen)} tensors) bit for bit unchanged; "
           f"all {len(banks)} banks moved", flush=True)
@@ -1498,9 +1671,11 @@ def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
                ilp_ms=sr.elapsed_s * 1e3, ilp_solver=sr.solver,
                avg_bits=[w_avg, a_avg], bitops=sr.bitops,
                bitops_budget=budget, peak_mem_gb=peak)
+    res["sliced_per_pass"] = n_sliced
     # 6. remat: the QAT step's loss and gradients with and without it
-    res["remat"] = remat_check(torch, ops, cfg, ctx, bits, params,
-                               batch(IMP_STEPS), n_proj, label)
+    if remat:
+        res["remat"] = remat_check(torch, ops, cfg, ctx, bits, params,
+                                   batch(IMP_STEPS), n_proj, label)
     # 7. the HAWQ baseline on the trained params and the first batch, its
     # table through the same ILP; the indicators' cost beside it
     if hawq:
@@ -1789,11 +1964,12 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
     return d
 
 
-def vs_plain_gates(torch, ops, dev, arch, cut, label):
+def vs_plain_gates(torch, ops, dev, arch, cut, label, full=None):
     """Gate (e) of ``arch``: one train pass through the kernels against
     their plain versions, gated at ``cut`` layers (activations unquantized,
     every kernel against its plain version; then quantized, the flash
-    kernel on both sides) and printed at full depth."""
+    kernel on both sides) and printed at full depth (``full`` layers where
+    the phase trains at a cut depth)."""
     out = {}
     for key, kw, tol in (
             ("acts_unquantized", dict(n_layers=cut, quantize_acts=False),
@@ -1801,7 +1977,7 @@ def vs_plain_gates(torch, ops, dev, arch, cut, label):
             ("acts_quantized", dict(n_layers=cut, plain=("fake_quant_fwd",
                                                          "fake_quant_bwd")),
              TRAIN_TOL),
-            ("full_depth", {}, None)):
+            ("full_depth", dict(n_layers=full), None)):
         d = out[key] = kernel_vs_plain(torch, ops, dev, arch=arch,
                                        label=label, **kw)
         if tol is not None:
@@ -2119,7 +2295,10 @@ def elastic_phase(torch, ops, dev, card, layout):
     try:
         serve.check_trace(eng, f"[{label}]")
         with elastic_probe(ops) as replays:
-            checks = serve.check_elastic(res, dev)
+            # over pages the reference engines feed only the printed
+            # comparison: cut for the script's time limit
+            checks = serve.check_elastic(res, dev,
+                                         reference=layout == "ring")
     except SystemExit as e:
         raise GateError(f"[{label}] {e}") from e
     gate(len(replays) == (layout == "ring") and all(
@@ -2149,9 +2328,10 @@ def elastic_phase(torch, ops, dev, card, layout):
           + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(step_p50.items()))
           + f"; launches {launches}", flush=True)
     print(f"[{label}] served tokens vs the fake-quant reference on decisive "
-          "steps (printed, not gated): " + "; ".join(
+          "steps (printed, not gated): " + ("; ".join(
               f"{pid} {c['decisive']} compared, parted on rids {c['parted']}"
-              for pid, c in checks.items()), flush=True)
+              for pid, c in checks.items()) if layout == "ring" else
+              "cut over pages for the script's time limit"), flush=True)
     print(f"[{label}] kernel launches in one decode step per variant: "
           f"{variant_launches}", flush=True)
     result = dict(
@@ -2238,9 +2418,11 @@ def serve_phase(torch, ops, dev):
     gate(not bad, f"greedy tokens diverged on decisive steps: rids {bad}")
     gate(compared > 0, "no decisive step to compare")
     # how far two correct float evaluations of one graph part: max |logit
-    # difference| at prefill on identical prompts (no gate; see check_greedy)
+    # difference| at prefill on identical prompts (no gate; see
+    # check_greedy); three of the prompts, for the time limit
     with ops.plain_on_cuda():
-        noise = prefill_noise(torch, cfg, params, policy, sess, reqs, dev)
+        noise = prefill_noise(torch, cfg, params, policy, sess,
+                              [reqs[0], reqs[1], reqs[4]], dev)
     # (c) packed bytes vs the policy's accounting
     s = summarize(sess)
     print(f"[serve] packed weights {s['packed_bytes']} B vs policy "
@@ -2265,21 +2447,13 @@ def paged_serve_phase(torch, ops, dev, ring_prefill_tokens):
     """The serve phase's requests with their first SHARED_PREFIX tokens made
     the same, over pooled int8 pages (``kv_layout="paged"``)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch import serve
-    from repro_torch.launch.scheduler import Request
     from repro_torch.models import lm
 
     cfg = get_config("qwen3-0.6b")
     params = lm.init_params(cfg, seed=0, device=dev)
     policy = serve.demo_mixed_policy(cfg)
-    data = SyntheticLM(cfg)
-    base = data.batch(0, 1, PROMPTS[0])["tokens"][0][:SHARED_PREFIX]
-    reqs = []
-    for i, p in enumerate(PROMPTS):
-        toks = np.asarray(data.batch(i, 1, p)["tokens"][0]).copy()
-        toks[:SHARED_PREFIX] = base
-        reqs.append(Request(rid=i, tokens=toks, max_new=GEN))
+    reqs = paged_requests(cfg)
     kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
               device=dev)
     paged = dict(kv_layout="paged", page_size=PAGE_SIZE)
@@ -2416,8 +2590,8 @@ def spec_serve_phase(torch, ops, dev, layout, base, paged_hits=None):
     kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
               device=dev, kv_layout=layout, page_size=PAGE_SIZE,
               speculate=SPEC_K, draft_bits=DRAFT_BITS)
-    serve.serve_quantized(cfg, params, policy, reqs[:1],        # warm-up
-                          **dict(kw, slots=1))
+    # no warm-up of its own (cut for the time limit): the serve phases
+    # before it loaded the kernels and warmed the allocator and cuBLAS
     ops.reset_launches()                         # counts: the main path only
     with spec_probe(torch, ops) as rec:
         t0 = time.perf_counter()
@@ -2526,7 +2700,7 @@ def _spec_until_rejection(spec, req):
             return slot
 
 
-def midflight_check(torch, dev, reqs):
+def midflight_check(torch, dev, reqs, sess=None, label="midflight"):
     """One request, one slot, at full width: after at least four
     speculative rounds, one of which rejected a draft, the KV state is the
     token-at-a-time engine's at the same generated length, bit for bit (pos
@@ -2536,17 +2710,21 @@ def midflight_check(torch, dev, reqs):
     could finish: a draft that is never rejected rolls nothing back. Rows
     are compared up to the first generated token where the two engines part
     (if they part at all: only on a near-tie of the head, whose float32
-    GEMM over S rows may round otherwise)."""
+    GEMM over S rows may round otherwise). ``sess`` is the speculative
+    session to check (Qwen3-0.6B's under ``demo_mixed_policy`` when
+    None)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.runtime.kv_cache import PagedKVCache
     from repro_torch.runtime.session import SpecSession
 
-    cfg = get_config("qwen3-0.6b")
-    params = lm.init_params(cfg, seed=0, device=dev)
-    sess = SpecSession(cfg, params, serve.demo_mixed_policy(cfg),
-                       serve.make_context(cfg), draft_w_bits=DRAFT_BITS)
+    if sess is None:
+        cfg = get_config("qwen3-0.6b")
+        params = lm.init_params(cfg, seed=0, device=dev)
+        sess = SpecSession(cfg, params, serve.demo_mixed_policy(cfg),
+                           serve.make_context(cfg), draft_w_bits=DRAFT_BITS)
+    cfg = sess.cfg
     res = {}
     for layout in ("ring", "paged"):
         for req in reqs:
@@ -2555,7 +2733,7 @@ def midflight_check(torch, dev, reqs):
             if slot.spec_accepted < slot.spec_drafted:
                 break
         gate(slot.spec_accepted < slot.spec_drafted,
-             f"midflight ({layout}): no request of {len(reqs)} had a draft "
+             f"{label} ({layout}): no request of {len(reqs)} had a draft "
              "rejected, so no rollback was exercised")
         plen = len(req.tokens)
         g = len(slot.gen)
@@ -2591,7 +2769,7 @@ def midflight_check(torch, dev, reqs):
                            rounds=spec.stats.spec_rounds,
                            drafted=slot.spec_drafted,
                            accepted=slot.spec_accepted)
-        print(f"[midflight] {layout}: request {req.rid}, "
+        print(f"[{label}] {layout}: request {req.rid}, "
               f"{spec.stats.spec_rounds} rounds, {g} tokens "
               f"({slot.spec_accepted} of {slot.spec_drafted} drafts "
               f"accepted), {n_same} identical with the token-at-a-time "
@@ -2599,7 +2777,7 @@ def midflight_check(torch, dev, reqs):
               "layers "
               + ("bit for bit equal" if not diffs else
                  f"DIFFER: {diffs[:8]}"), flush=True)
-        gate(not diffs, f"midflight KV ({layout}) differs from the "
+        gate(not diffs, f"{label} KV ({layout}) differs from the "
              f"token-at-a-time engine's: (layer, field, rows, first "
              f"position) {diffs[:8]}")
     return res
@@ -2792,10 +2970,11 @@ def serve_cli_phase(torch, ops, dev, card):
     del ring, eng
     torch.cuda.empty_cache()
 
-    # 2. the trace's cost: the same run untraced twice, then traced again
-    # (on, off, off, on: the host's spread drifts within a call)
+    # 2. the trace's cost: the same run untraced (on, off; the repeats of
+    # PRs 19-25, on, off, off, on against the host's drift within a call,
+    # are cut for the script's time limit)
     p50 = {"on": [res["ring"]["decode_step_p50_ms"]], "off": []}
-    for mode in ("off", "off", "on"):
+    for mode in ("off",):
         run = _serve_cli(serve, base + ["--compare"] + (
             ["--no-trace"] if mode == "off" else []))
         gate((run["eng"].trace is None) == (mode == "off") and {
@@ -2804,11 +2983,10 @@ def serve_cli_phase(torch, ops, dev, card):
         p50[mode].append(run["eng"].stats.as_dict()["decode_step_p50_ms"])
         del run
         torch.cuda.empty_cache()
-    print(f"[cli] decode step p50, trace on / off / off / on: "
-          f"{p50['on'][0]:.2f} / {p50['off'][0]:.2f} / {p50['off'][1]:.2f} / "
-          f"{p50['on'][1]:.2f} ms ({card})", flush=True)
-    res["trace_on_off"] = dict(order=["on", "off", "off", "on"],
-                               decode_step_p50_ms=p50)
+    print(f"[cli] decode step p50, trace on / off: {p50['on'][0]:.2f} / "
+          f"{p50['off'][0]:.2f} ms ({card}; cut: the off / on repeats, for "
+          "the script's time limit)", flush=True)
+    res["trace_on_off"] = dict(order=["on", "off"], decode_step_p50_ms=p50)
 
     # 3. the same, budgeted on the measured table: only the chunk moves
     cal_run = _serve_cli(serve, base + [
@@ -3150,26 +3328,22 @@ def rwkv_serve_phase(torch, ops, dev):
         gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     # (b) greedy tokens vs the fake-quant reference engine on decisive steps
-    # (serve.check_greedy), printed at 32 layers and gated at 2 (as gate
-    # (e)): through 32 recurrent layers the 2-6-bit quantizers turn the
-    # last-bit differences of two float evaluations into code steps that
-    # the wkv state carries to every later token, and the float32 reference
-    # and its float64 control part on confident steps of every request, so
-    # no step is decisive there
-    t1 = time.perf_counter()
-    # the reference stays plain PyTorch, its wkv too
-    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
-        compared, bad, unstable = serve.check_greedy(cfg, params, policy,
-                                                     reqs, out, **kw)
+    # (serve.check_greedy), gated at 2 layers (as gate (e)): through 32
+    # recurrent layers the 2-6-bit quantizers turn the last-bit differences
+    # of two float evaluations into code steps that the wkv state carries
+    # to every later token, and the float32 reference and its float64
+    # control part on confident steps of every request, so no step was
+    # decisive there (PRs 15-25). The 32-layer comparison (~86 s of
+    # reference engines) is cut to the gate's depth for the script's time
+    # limit; the prefill logits are compared at 32 layers
+    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):     # the reference, plain
         noise = prefill_noise(torch, cfg, params, policy, sess,
                               [reqs[0], reqs[1], reqs[4]], dev)
+    print(f"[rwkv] cut: the {cfg.n_layers}-layer greedy-token comparison "
+          "with the fake-quant reference runs at 2 layers (below; the "
+          "script's time limit)", flush=True)
+    compared = bad = unstable = None
     n_tok = sum(len(c.tokens) for c in out.values())
-    print(f"[rwkv] {cfg.n_layers} layers, greedy tokens vs fake-quant "
-          f"reference: {compared} of {n_tok} steps decisive and compared, "
-          f"diverged rids {bad}; the reference's float32 and float64 "
-          f"evaluations part on a confident step in rids {unstable} "
-          f"(reference engines {time.perf_counter() - t1:.1f}s)", flush=True)
-    gate(not bad, f"greedy tokens diverged on decisive steps: rids {bad}")
     del params
     torch.cuda.empty_cache()
     cut = cfg.scaled(n_layers=2)
@@ -3388,19 +3562,14 @@ def hybrid_serve_phase(torch, ops, dev, card):
     gate(ops.launches["flash_fwd"] - n0 == n_attn,
          f"a {HYBRID_LONG}-token prefill launched "
          f"{ops.launches['flash_fwd'] - n0} flash kernels, expected {n_attn}")
-    # 26 layers against the fake-quant reference engine (printed): the
-    # kernels' exact integer sums part from its float32 ones on near-ties
-    # (ROADMAP 3), and so may its float64 control
-    t1 = time.perf_counter()
-    compared, bad, unstable = serve.check_greedy(cfg, params, policy, reqs,
-                                                 out, **kw)
+    # the 26-layer comparison with the fake-quant reference engine (printed,
+    # ~48 s of reference engines) is cut to the gates' 3 layers below, for
+    # the script's time limit
+    print(f"[hybrid] cut: the {cfg.n_layers}-layer greedy-token comparison "
+          f"with the fake-quant reference runs at {HYBRID_CUT} layers "
+          "(below; the script's time limit)", flush=True)
+    compared = bad = unstable = None
     n_tok = sum(len(c.tokens) for c in out.values())
-    print(f"[hybrid] {cfg.n_layers} layers, every kernel: greedy tokens vs "
-          f"fake-quant reference: {compared} of {n_tok} steps decisive and "
-          f"compared" + ("" if compared else " (none to compare)")
-          + f", diverged rids {bad}; the reference's float32 and float64 "
-          f"evaluations part on a confident step in rids {unstable} "
-          f"(reference engines {time.perf_counter() - t1:.1f}s)", flush=True)
     del sess, eng, params
     torch.cuda.empty_cache()
 
@@ -3559,12 +3728,43 @@ def moe_site_source(torch, lm, cfg, dev, seed=0):
     return outer, source
 
 
+def moe_engine(torch, sess, dev, reqs, layout="ring", speculate=0):
+    """Drain ``reqs`` through an engine over ``sess`` (the MoE phases' one
+    site-by-site pack) on ``layout``, the serve phase's slots, ring rows
+    and prefill chunk: (engine, completions, wall seconds)."""
+    from repro_torch.launch.engine import DecodeEngine, EngineConfig
+    eng = DecodeEngine(sess.params, sess.cfg, None, sess.ctx, adapter=sess,
+                       device=dev, ecfg=EngineConfig(
+                           slots=SLOTS, cache_len=CACHE_LEN,
+                           prefill_chunk=PREFILL_CHUNK, kv_quant="int8",
+                           kv_layout=layout, page_size=PAGE_SIZE,
+                           speculate=speculate))
+    eng.submit_all(reqs)
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    return eng, out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def fresh_route_counts(sess):
+    """The session's dispatch route tallies of the scope only."""
+    from repro_torch.runtime import dispatch
+    keep, sess.route_counts = sess.route_counts, dispatch.Counts()
+    try:
+        yield sess.route_counts
+    finally:
+        sess.route_counts = keep
+
+
 def moe_serve_phase(torch, ops, dev, card):
     """deepseek-moe-16b at full width and depth over the ring: routed
     experts through the per-expert fake-quant kernel and the dequant-fp
     route, shared experts, attention and the dense layer through the ring
-    kernels (module docstring, phase 15); the weights are freed before it
-    returns."""
+    kernels (module docstring, phase 15). Packs the target and the 2-bit
+    draft site by site once, for this phase and the paged and speculative
+    ones. Returns (launches, results, (session, requests, completions,
+    engine))."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -3582,8 +3782,6 @@ def moe_serve_phase(torch, ops, dev, card):
     res = {"combine": moe_combine_check(torch, dev, cfg)}
     policy = serve.demo_mixed_policy(cfg)
     reqs = serve_requests(cfg)
-    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
-              device=dev)
     with open("/proc/meminfo") as f:
         mem = {ln.split(":")[0]: ln.split(":")[1].strip() for ln in f}
     sched = lm.build_schedule(cfg)
@@ -3603,37 +3801,40 @@ def moe_serve_phase(torch, ops, dev, card):
     ops.reset_launches()                         # counts: the main path only
     t0 = time.perf_counter()
     outer, source = moe_site_source(torch, lm, cfg, dev)
-    sess, eng, out = serve.serve_quantized(cfg, outer, policy, reqs,
-                                           site_source=source, **kw)
+    # the target and the speculative phases' 2-bit draft, each site made
+    # once and packed under both policies before the next
+    sess = serve.build_session(cfg, outer, policy, speculate=SPEC_K,
+                               draft_bits=DRAFT_BITS, site_source=source)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    pack_s = time.perf_counter() - t0
+    del outer
+    with fresh_route_counts(sess) as routes:
+        eng, out, wall = moe_engine(torch, sess, dev, reqs)
     launches = {k: ops.launches[k] for k in SERVE_KERNELS
                 + ("fake_quant_fwd",)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
     d = st.as_dict()
-    del outer
-    print(f"[moe] ring KV: {len(out)} requests in {wall:.2f}s wall (seeded "
-          f"init and packing site by site included): prefill p50 "
+    print(f"[moe] packed site by site (seeded init, target and "
+          f"{DRAFT_BITS}-bit draft) in {pack_s:.2f}s; ring KV: {len(out)} "
+          f"requests in {wall:.2f}s wall: prefill p50 "
           f"{d['prefill_p50_ms']:.2f} ms, decode step p50 "
           f"{d['decode_step_p50_ms']:.2f} ms, decode "
           f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
           f"{st.tokens_generated} tokens, {st.prefill_tokens} prompt "
-          f"tokens); peak device memory {peak_gb:.2f} GB; {card}",
-          flush=True)
-    print(f"[moe] launches {launches}; routes {sess.route_counts.routes}",
-          flush=True)
+          f"tokens); peak device memory {peak_gb:.2f} GB (the draft tree "
+          f"resident); {card}", flush=True)
+    print(f"[moe] launches {launches}; routes {routes.routes}", flush=True)
     # (a) the ring kernels and the per-expert fake-quant launched, no other
     # layout's; no kernel-eligible projection on dequant-fp
     gate(all(launches[k] > 0 for k in RING_KERNELS + ("fake_quant_fwd",))
          and not any(launches[k] for k in SERVE_KERNELS
                      if k not in RING_KERNELS),
          f"moe serving launched {launches}")
-    gate(sess.route_counts.eligible_fp == 0,
-         f"{sess.route_counts.eligible_fp} kernel-eligible matmuls ran "
-         "dequant-fp")
-    gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
-         f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    gate(routes.eligible_fp == 0,
+         f"{routes.eligible_fp} kernel-eligible matmuls ran dequant-fp")
+    gate(set(routes.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {routes.routes['decode_attn']}")
     for r in reqs:
         toks = out[r.rid].tokens
         gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
@@ -3661,13 +3862,11 @@ def moe_serve_phase(torch, ops, dev, card):
     state = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev)
     tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
     pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
-    counts = dispatch.Counts()
-    keep_counts, sess.route_counts = sess.route_counts, counts
     ops.reset_launches()
-    logits, _ = sess.decode(sess.params, tok, pos, state)
-    again, _ = sess.decode(sess.params, tok, pos, state)
-    torch.cuda.synchronize()
-    sess.route_counts = keep_counts
+    with fresh_route_counts(sess) as counts:
+        logits, _ = sess.decode(sess.params, tok, pos, state)
+        again, _ = sess.decode(sess.params, tok, pos, state)
+        torch.cuda.synchronize()
     step = {k: ops.launches[k] // 2 for k in ("quant_matmul",
                                                "quant_matmul_w4",
                                                "decode_attn_quant",
@@ -3694,15 +3893,8 @@ def moe_serve_phase(torch, ops, dev, card):
         prefill_cap=CACHE_LEN)
     gate(bool(torch.isfinite(pre_logits).all()), "non-finite prefill logits")
     # (e) no host sync inside a decode step
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        sess.decode(sess.params, tok, pos, state)
-    except RuntimeError as e:
-        raise GateError(f"a moe decode step synchronised the host: {e}") \
-            from e
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    no_sync(torch, lambda: sess.decode(sess.params, tok, pos, state),
+            "a moe decode step")
     print("[moe] one decode step under sync-debug 'error': no host sync; "
           "logits finite, two equal steps bit for bit equal", flush=True)
     # (d) the profiled step's launches
@@ -3714,28 +3906,81 @@ def moe_serve_phase(torch, ops, dev, card):
           f"({4 * n_params / 1e9:.1f} GB of searched weights) and a "
           "fake-quant reference engine do not fit beside the packed "
           "session: no reference comparison at full depth", flush=True)
-    n_tok = sum(len(c.tokens) for c in out.values())
-    del sess, eng, state, logits, again, pre_logits
+    del state, logits, again, pre_logits
     torch.cuda.empty_cache()
     t_full = time.perf_counter() - t_phase
 
     # (b) the token gates at the dense layer and two MoE layers, full width
+    greedy, unstable_cut = moe_cut_gates(torch, ops, dev, cfg, reqs, "ring",
+                                         "moe")
+    t_all = time.perf_counter() - t_phase
+    print(f"[moe] phase {t_all:.1f}s ({t_full:.1f}s at full depth); {card}",
+          flush=True)
+    res.update(
+        searched_weights=n_params, projections=n_proj,
+        expert_stacks=n_stacks, pack_s=pack_s, wall_s=wall,
+        peak_mem_gb=peak_gb, host_mem_total=mem.get("MemTotal"),
+        host_mem_available=mem.get("MemAvailable"),
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, decode_step_launches=step,
+        decode_step_dequant_fp=fp_step, decode_step_profile=prof,
+        cut_layers=MOE_CUT, cut_greedy=greedy,
+        cut_reference_unstable_rids=unstable_cut,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"],
+        phase_s=t_all, full_depth_s=t_full)
+    return launches, res, (sess, reqs, out, eng)
+
+
+def no_sync(torch, fn, what):
+    """Gate: ``fn`` runs under ``set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise GateError(f"{what} synchronised the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def moe_cut_gates(torch, ops, dev, cfg, reqs, layout, label):
+    """deepseek-moe-16b at full width cut to ``MOE_CUT`` layers (the dense
+    layer and two MoE layers) over ``layout``: the run through every kernel
+    token for token the same session on the matmuls' plain versions, and
+    the run on the dequant-fp matmul route equal to the fake-quant
+    reference served over the same layout under the same schedule on every
+    decisive step, with its float64 control; the all-kernel run against
+    the reference printed. Returns (per-run comparisons, the rids where
+    the reference's float32 and float64 evaluations part)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import dispatch
+
     cut = cfg.scaled(n_layers=MOE_CUT)
     params = lm.init_params(cut, seed=0, device=dev)
     policy_cut = serve.demo_mixed_policy(cut)
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev, kv_layout=layout, page_size=PAGE_SIZE)
     mm = ("quant_matmul", "quant_matmul_w4")
+    attn = "decode_attn_quant_paged" if layout == "paged" \
+        else "decode_attn_quant"
 
-    def served(label):
-        n0 = {k: ops.launches[k] for k in mm + ("decode_attn_quant",
-                                                 "fake_quant_fwd")}
-        s_, _, o = serve.serve_quantized(cut, params, policy_cut, reqs, **kw)
+    sess = serve.build_session(cut, params, policy_cut)   # one pack
+
+    def served(what):
+        n0 = {k: ops.launches[k] for k in mm + (attn, "fake_quant_fwd")}
+        with fresh_route_counts(sess) as routes:
+            _, o, _ = moe_engine(torch, sess, dev, reqs, layout)
         n = {k: ops.launches[k] - n0[k] for k in n0}
-        print(f"[moe] {cut.n_layers} layers, {label}: launches {n}, routes "
-              f"{s_.route_counts.routes}", flush=True)
-        gate(n["decode_attn_quant"] > 0 and n["fake_quant_fwd"] > 0
-             and set(s_.route_counts.routes["decode_attn"]) == {"fused"},
-             f"{label}: attention / fake-quant launched {n}, routes "
-             f"{s_.route_counts.routes}")
+        print(f"[{label}] {cut.n_layers} layers, {what}: launches {n}, "
+              f"routes {routes.routes}", flush=True)
+        gate(n[attn] > 0 and n["fake_quant_fwd"] > 0
+             and set(routes.routes["decode_attn"]) == {"fused"},
+             f"{what}: attention / fake-quant launched {n}, routes "
+             f"{routes.routes}")
         return o, n
 
     out_kern, n_kern = served("every kernel")
@@ -3749,9 +3994,9 @@ def moe_serve_phase(torch, ops, dev, card):
          f"{n_fp}")
     same_plain = [r.rid for r in reqs
                   if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
-    print(f"[moe] {cut.n_layers} layers: every kernel vs the matmuls' plain "
-          f"versions: {len(same_plain)} of {len(reqs)} requests token for "
-          f"token", flush=True)
+    print(f"[{label}] {cut.n_layers} layers: every kernel vs the matmuls' "
+          f"plain versions: {len(same_plain)} of {len(reqs)} requests token "
+          f"for token", flush=True)
     gate(len(same_plain) == len(reqs),
          f"{cut.n_layers} layers: the matmul kernels' served tokens differ "
          f"from their plain versions' in rids "
@@ -3759,45 +4004,257 @@ def moe_serve_phase(torch, ops, dev, card):
     ref, ref_out = serve.reference_engine(cut, params, policy_cut, reqs, **kw)
     ctrl, ctrl_out = serve.reference_engine(cut, params, policy_cut, reqs,
                                             compute_dtype=torch.float64, **kw)
+    n_tok = sum(len(c.tokens) for c in out_kern.values())
     greedy = {}
-    for label, o in (("matmuls dequant-fp", out_fp),
-                     ("every kernel", out_kern)):
+    for what, o in (("matmuls dequant-fp", out_fp),
+                    ("every kernel", out_kern)):
         c_, bad_ = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
         same = sum(o[r.rid].tokens == ref_out[r.rid].tokens for r in reqs)
-        greedy[label] = dict(compared=c_, diverged=bad_, identical=same)
-        print(f"[moe] {cut.n_layers} layers, full width, {label}: greedy "
-              f"tokens vs fake-quant reference: {c_} of {n_tok} steps "
-              f"decisive and compared, diverged rids {bad_}; {same} of "
-              f"{len(reqs)} requests token for token the reference's",
+        greedy[what] = dict(compared=c_, diverged=bad_, identical=same)
+        print(f"[{label}] {cut.n_layers} layers, full width, {what}: greedy "
+              f"tokens vs fake-quant reference ({layout}): {c_} of {n_tok} "
+              f"steps decisive and compared, diverged rids {bad_}; {same} "
+              f"of {len(reqs)} requests token for token the reference's",
               flush=True)
-    _, unstable_cut = serve.compare_greedy(ctrl_out, ref, ref_out)
-    print(f"[moe] {cut.n_layers} layers: the reference's float32 and float64 "
-          f"evaluations part on a confident step in rids {unstable_cut}",
+    _, unstable = serve.compare_greedy(ctrl_out, ref, ref_out)
+    print(f"[{label}] {cut.n_layers} layers: the reference's float32 and "
+          f"float64 evaluations part on a confident step in rids {unstable}",
           flush=True)
     g = greedy["matmuls dequant-fp"]
     gate(not g["diverged"] and g["compared"] > 0,
          f"{cut.n_layers} layers, dequant-fp matmuls: greedy tokens diverged "
          f"on decisive steps (rids {g['diverged']}) or none compared")
-    del params, ref, ctrl
+    del params, sess, ref, ctrl
     torch.cuda.empty_cache()
-    t_all = time.perf_counter() - t_phase
-    print(f"[moe] phase {t_all:.1f}s ({t_full:.1f}s at full depth); {card}",
+    return greedy, unstable
+
+
+def paged_requests(cfg):
+    """The serve phase's requests with their first ``SHARED_PREFIX`` prompt
+    tokens made the same (request 0's)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.scheduler import Request
+    data = SyntheticLM(cfg)
+    base = data.batch(0, 1, PROMPTS[0])["tokens"][0][:SHARED_PREFIX]
+    reqs = []
+    for i, p in enumerate(PROMPTS):
+        toks = np.asarray(data.batch(i, 1, p)["tokens"][0]).copy()
+        toks[:SHARED_PREFIX] = base
+        reqs.append(Request(rid=i, tokens=toks, max_new=GEN))
+    return reqs
+
+
+def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
+    """deepseek-moe-16b at full width and depth over pooled int8 pages
+    (module docstring, phase 16), on the ``[moe]`` phase's session.
+    Returns (launches, results, (requests, completions, engine))."""
+    from repro_torch.runtime.session import summarize
+
+    t_phase = time.perf_counter()
+    cfg = sess.cfg
+    reqs = paged_requests(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    with fresh_route_counts(sess) as routes:
+        eng, out, wall = moe_engine(torch, sess, dev, reqs, "paged")
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS
+                + ("fake_quant_fwd",)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    print(f"[moe-paged] {len(out)} requests sharing {SHARED_PREFIX} prompt "
+          f"tokens in {wall:.2f}s wall: prefill p50 {d['prefill_p50_ms']:.2f}"
+          f" ms, decode step p50 {d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens); prefill {st.prefill_tokens} tokens "
+          f"(ring phase {ring_prefill_tokens}), prefix hits "
+          f"{st.prefix_hit_tokens} tokens, {st.kv_unique_pages} of "
+          f"{eng.pool.n_pages} pages in use, {st.prefill_compiles} chunk "
+          f"shape(s); peak device memory {peak_gb:.2f} GB; {card}",
           flush=True)
-    res.update(
-        searched_weights=n_params, projections=n_proj,
-        expert_stacks=n_stacks, wall_s=wall, peak_mem_gb=peak_gb,
-        host_mem_total=mem.get("MemTotal"),
-        host_mem_available=mem.get("MemAvailable"),
+    print(f"[moe-paged] launches {launches}; routes {routes.routes}",
+          flush=True)
+    per_step = cfg.n_layers * st.decode_steps
+    gate(launches["decode_attn_quant_paged"] == per_step
+         and launches["decode_attn_quant"] == 0
+         and all(launches[k] > 0 for k in PAGED_KERNELS + ("fake_quant_fwd",))
+         and not any(launches[k] for k in ("verify_attn_quant",
+                                           "verify_attn_quant_paged")),
+         f"moe paged serving launched {launches}, expected "
+         f"decode_attn_quant_paged {cfg.n_layers} x {st.decode_steps} steps "
+         "and no decode_attn_quant")
+    gate(routes.eligible_fp == 0,
+         f"{routes.eligible_fp} kernel-eligible matmuls ran dequant-fp")
+    gate(set(routes.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {routes.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    gate(st.prefix_hit_tokens > 0 and st.prefill_tokens < ring_prefill_tokens,
+         f"prefix hits {st.prefix_hit_tokens} tokens, prefilled "
+         f"{st.prefill_tokens} (ring phase {ring_prefill_tokens})")
+    eng.pool.check()
+    gate(all(s is None for s in eng.slots), "occupied slots after the drain")
+    s = summarize(sess)
+    gate(s["packed_bytes"] == s["policy_bytes"],
+         f"packed bytes {s['packed_bytes']} B, the policy's "
+         f"{s['policy_bytes']:.0f} B")
+    # no host sync inside a paged decode step; its launches under the
+    # profiler
+    prof = profile_decode_step(torch, sess, dev, "moe-paged", eng.layout,
+                               watch=("decode_attn_quant_kernel",
+                                      "fq_fwd_kernel"))
+    st0 = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev,
+                          layout=eng.layout)
+    P = eng.layout.pages_per_slot(CACHE_LEN)
+    tbl = torch.arange(SLOTS * P, dtype=torch.int32,
+                       device=dev).reshape(SLOTS, P)
+    st0 = {"sites": {k: c._replace(page_table=tbl)
+                     for k, c in st0["sites"].items()}}
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
+    no_sync(torch, lambda: sess.decode(sess.params, tok, pos, st0),
+            "a moe paged decode step")
+    print(f"[moe-paged] packed weights {s['packed_bytes']} B, the policy's "
+          "exactly; one paged decode step under sync-debug 'error': no host "
+          "sync", flush=True)
+    del st0
+    t_full = time.perf_counter() - t_phase
+    greedy, unstable = moe_cut_gates(torch, ops, dev, cfg, reqs, "paged",
+                                     "moe-paged")
+    t_all = time.perf_counter() - t_phase
+    print(f"[moe-paged] phase {t_all:.1f}s ({t_full:.1f}s at full depth); "
+          f"{card}", flush=True)
+    return launches, dict(
+        wall_s=wall, peak_mem_gb=peak_gb,
         prefill_p50_ms=d["prefill_p50_ms"],
         decode_step_p50_ms=d["decode_step_p50_ms"],
         decode_tokens_per_s=st.decode_tokens_per_s,
         decode_steps=st.decode_steps, tokens=st.tokens_generated,
-        prefill_tokens=st.prefill_tokens, decode_step_launches=step,
-        decode_step_dequant_fp=fp_step, decode_step_profile=prof,
-        cut_layers=cut.n_layers, cut_greedy=greedy,
-        cut_reference_unstable_rids=unstable_cut,
-        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"],
-        phase_s=t_all, full_depth_s=t_full)
+        prefill_tokens=st.prefill_tokens,
+        ring_prefill_tokens=ring_prefill_tokens,
+        prefix_hit_tokens=st.prefix_hit_tokens,
+        kv_unique_pages=st.kv_unique_pages, n_pages=eng.pool.n_pages,
+        decode_step_profile=prof, packed_bytes=s["packed_bytes"],
+        cut_layers=MOE_CUT, cut_greedy=greedy,
+        cut_reference_unstable_rids=unstable, phase_s=t_all,
+        full_depth_s=t_full), (reqs, out, eng)
+
+
+def moe_spec_phase(torch, ops, dev, card, sess, layout, base):
+    """deepseek-moe-16b at full width and depth decoded self-speculatively
+    (``speculate=SPEC_K``, the session's ``DRAFT_BITS`` draft) over
+    ``layout`` (module docstring, phase 17); ``base`` is that layout's
+    token-at-a-time phase's (requests, completions, engine). Returns
+    (launches, results)."""
+    from repro_torch.models import lm
+    from repro_torch.launch import serve
+
+    label = f"moe-spec-{layout}"
+    cfg = sess.cfg
+    reqs, base_out, base_eng = base
+    paged = layout == "paged"
+    # the token-at-a-time phase's first wave, one request a slot into fresh
+    # caches (the script's time limit; and over pages a later admission's
+    # chunk has pad rows that attend the rows another history left in its
+    # pages and compete for an expert's capacity: ROADMAP §3)
+    reqs = reqs[:SLOTS]
+    rids = {r.rid for r in reqs}
+    paged_hits = sum(ev.args["tokens"] for ev in base_eng.trace.events
+                     if ev.name == "prefix_hit" and ev.args["rid"] in rids)
+    ops.reset_launches()                         # counts: the main path only
+    with spec_probe(torch, ops) as rec, fresh_route_counts(sess) as routes:
+        eng, out, wall = moe_engine(torch, sess, dev, reqs, layout,
+                                    speculate=SPEC_K)
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS
+                + ("fake_quant_fwd",)}
+    st, bst = eng.stats, base_eng.stats
+    d, bd = st.as_dict(), bst.as_dict()
+    one = "decode_attn_quant_paged" if paged else "decode_attn_quant"
+    name = "verify_attn_quant_paged" if paged else "verify_attn_quant"
+    others = [k for k in ATTN_KERNELS[:4] if k not in (one, name)]
+    emitted = st.tokens_generated - st.completed     # first tokens: prefill
+    draft_policy_bytes = sess.policy_draft.size_bytes(
+        lm.enumerate_qlayers(cfg))
+    print(f"[{label}] {len(out)} requests in {wall:.2f}s wall: "
+          f"{st.spec_rounds} rounds of k={SPEC_K}, accept rate "
+          f"{st.spec_accept_rate:.4f} ({st.spec_accepted_tokens} of "
+          f"{st.spec_draft_tokens} drafts), {emitted / st.slot_steps:.3f} "
+          f"tokens per slot and round; decode {st.decode_tokens_per_s:.1f} "
+          f"tok/s, round p50 {d['decode_step_p50_ms']:.2f} ms against "
+          f"token-at-a-time's {bst.decode_tokens_per_s:.1f} tok/s, step p50 "
+          f"{bd['decode_step_p50_ms']:.2f} ms ({bst.decode_steps} steps); "
+          f"draft pack {sess.draft_bytes()} B (the {DRAFT_BITS}-bit "
+          f"policy's {draft_policy_bytes:.0f} B) beside "
+          f"{sess.packed_bytes()} B; {card}", flush=True)
+    print(f"[{label}] launches {launches}; draft steps "
+          f"{sum(rec['draft_steps'])}; routes {routes.routes}", flush=True)
+    # one verify launch per layer and round, no one-token launch inside the
+    # verify pass; the draft steps launch the one-token kernel
+    gate(st.spec_rounds == len(rec["verify"]) > 0,
+         f"{st.spec_rounds} rounds, {len(rec['verify'])} verify passes")
+    gate(all(v[name] == cfg.n_layers and v[one] == 0 for v in rec["verify"]),
+         f"verify passes launched {rec['verify'][:3]}..., expected "
+         f"{cfg.n_layers} x {name} and no {one}")
+    gate(launches[name] == cfg.n_layers * st.spec_rounds
+         and launches[one] == cfg.n_layers * sum(rec["draft_steps"])
+         and all(launches[k] == 0 for k in others)
+         and all(launches[k] > 0 for k in ("quant_matmul", "quant_matmul_w4",
+                                           "fake_quant_fwd")),
+         f"{label} launched {launches}")
+    gate(routes.eligible_fp == 0,
+         f"{routes.eligible_fp} kernel-eligible matmuls ran dequant-fp")
+    gate(abs(sess.draft_bytes() / draft_policy_bytes - 1) <= 0.01,
+         f"draft bytes {sess.draft_bytes()} vs the {DRAFT_BITS}-bit policy's "
+         f"{draft_policy_bytes:.0f}")
+    gate(set(out) == rids, f"served rids {sorted(out)}, expected "
+         f"{sorted(rids)}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    same, total, compared, bad = serve.compare_spec(out, base_eng, base_out)
+    print(f"[{label}] tokens vs token-at-a-time over the {layout}: {same} of "
+          f"{total} identical over rids {sorted(out)}, {compared} decisive "
+          f"steps compared, differing rids {bad}", flush=True)
+    gate(not bad and compared > 0,
+         f"speculative tokens differ on a decisive step: rids {bad}")
+    gate(all(s is None for s in eng.slots), "occupied slots after the drain")
+    if paged:
+        eng.pool.check()
+        gate(st.prefix_hit_tokens == paged_hits,
+             f"prefix hits {st.prefix_hit_tokens} tokens, the paged phase's "
+             f"first wave {paged_hits}")
+    return launches, dict(
+        wall_s=wall, rounds=st.spec_rounds, accept_rate=st.spec_accept_rate,
+        drafted=st.spec_draft_tokens, accepted=st.spec_accepted_tokens,
+        tokens_per_slot_round=emitted / st.slot_steps,
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        round_p50_ms=d["decode_step_p50_ms"],
+        base_decode_tokens_per_s=bst.decode_tokens_per_s,
+        base_step_p50_ms=bd["decode_step_p50_ms"],
+        identical_tokens=same, tokens=total, decisive_compared=compared,
+        rids=sorted(out), draft_bytes=sess.draft_bytes(),
+        draft_policy_bytes=draft_policy_bytes,
+        packed_bytes=sess.packed_bytes(),
+        prefix_hit_tokens=st.prefix_hit_tokens,
+        draft_steps=sum(rec["draft_steps"]))
+
+
+def moe_train_phase(torch, ops, dev):
+    """The paper pipeline on deepseek-moe-16b at full width, cut to
+    ``MOE_TRAIN_LAYERS`` layers (module docstring, phase 18), then gate (e)
+    at ``MOE_TRAIN_CUT``. Returns (launch counts of the pipeline's run,
+    results)."""
+    torch.cuda.reset_peak_memory_stats()
+    launches, res, params, _ = train_phase(
+        torch, ops, dev, arch=MOE_ARCH, label="moe-train", hawq=False,
+        remat=False, n_layers=MOE_TRAIN_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    res["vs_plain"] = vs_plain_gates(torch, ops, dev, MOE_ARCH, MOE_TRAIN_CUT,
+                                     "moe-train", full=MOE_TRAIN_LAYERS)
     return launches, res
 
 
@@ -3807,6 +4264,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ops, ref
+
+    t_script = time.perf_counter()
+    t_lap = [t_script]
+
+    def lap(name):
+        """Print the seconds since the last lap and since the start."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - t_lap[0]:.1f}s (script "
+              f"{now - t_script:.1f}s)", flush=True)
+        t_lap[0] = now
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3821,6 +4288,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     print_kernel_resources(_build, ops)
 
+    lap("build")
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = matmul_phase(torch, ops, ref, flush, dev)
@@ -3830,15 +4298,18 @@ def main() -> int:
     rows += fake_quant_phase(torch, ops, ref, flush, dev)
     rows += flash_phase(torch, ops, ref, flush, dev)
     rows += wkv_phase(torch, ops, ref, flush, dev)
+    lap("kernels")
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train_launches, train_res, trained, searched = train_phase(torch, ops,
                                                                 dev)
     torch.cuda.empty_cache()
+    lap("train")
     bundle_res = bundle_phase(torch, ops, dev, trained, searched)
     del trained
     torch.cuda.empty_cache()
+    lap("bundle")
     ring_run, serve_launches, serve_res = serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
     paged_run, paged_launches, paged_res = paged_serve_phase(
@@ -3850,10 +4321,13 @@ def main() -> int:
     spec_paged_launches, spec_paged_res = spec_serve_phase(
         torch, ops, dev, "paged", paged_run, paged_res["prefix_hit_tokens"])
     torch.cuda.empty_cache()
+    lap("serve, paged, spec")
     cli_res = serve_cli_phase(torch, ops, dev, card)
     torch.cuda.empty_cache()
+    lap("cli")
     elastic_res = {layout: elastic_phase(torch, ops, dev, card, layout)
                    for layout in ("ring", "paged")}
+    lap("elastic")
     reqs = ring_run[0]
     del ring_run, paged_run
     torch.cuda.empty_cache()
@@ -3866,20 +4340,46 @@ def main() -> int:
     train_res["vs_plain"] = vs_plain_gates(torch, ops, dev, "qwen3-0.6b", 2,
                                            "train")
     torch.cuda.empty_cache()
+    lap("midflight, self-draft, train (e)")
     rwkv_launches, rwkv_res = rwkv_serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
+    lap("rwkv")
     starcoder_launches, starcoder_res = starcoder_serve_phase(torch, ops, dev)
     starcoder_res["launches"] = starcoder_launches
     torch.cuda.empty_cache()
+    lap("starcoder")
     hybrid_launches, hybrid_res = hybrid_serve_phase(torch, ops, dev, card)
     hybrid_res["launches"] = hybrid_launches
     torch.cuda.empty_cache()
+    lap("hybrid")
     audio_launches, audio_res = audio_phase(torch, ops, dev)
     audio_res["launches"] = audio_launches
     torch.cuda.empty_cache()
-    moe_launches, moe_res = moe_serve_phase(torch, ops, dev, card)
+    lap("audio")
+    moe_launches, moe_res, (sess, moe_reqs, moe_out, moe_eng) = \
+        moe_serve_phase(torch, ops, dev, card)
     moe_res["launches"] = moe_launches
+    lap("moe")
+    mp_launches, mp_res, mp_base = moe_paged_phase(
+        torch, ops, dev, card, sess, moe_res["prefill_tokens"])
+    mp_res["launches"] = mp_launches
+    lap("moe-paged")
+    ms_res = {}
+    for layout, base in (("ring", (moe_reqs, moe_out, moe_eng)),
+                         ("paged", mp_base)):
+        ms_launches, ms_res[layout] = moe_spec_phase(
+            torch, ops, dev, card, sess, layout, base)
+        ms_res[layout]["launches"] = ms_launches
+        lap(f"moe-spec-{layout}")
+    ms_res["midflight"] = midflight_check(torch, dev, moe_reqs, sess=sess,
+                                          label="moe-midflight")
+    lap("moe-midflight")
+    del sess, moe_out, moe_eng, mp_base, base
     torch.cuda.empty_cache()
+    mt_launches, mt_res = moe_train_phase(torch, ops, dev)
+    mt_res["launches"] = mt_launches
+    torch.cuda.empty_cache()
+    lap("moe-train")
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -3907,6 +4407,19 @@ def main() -> int:
     for k in RING_KERNELS:
         by_path[k] = {"serve": serve_launches[k], "moe": moe_launches[k]}
     by_path["fake_quant_fwd"]["moe"] = moe_launches["fake_quant_fwd"]
+    # the MoE slice's other paths: pages, speculation on both layouts, and
+    # the paper pipeline at full width (per-expert scales both ways)
+    for k in PAGED_KERNELS:
+        by_path.setdefault(k, {"paged": paged_launches[k]})
+        by_path[k]["moe-paged"] = mp_launches[k]
+    by_path["fake_quant_fwd"]["moe-paged"] = mp_launches["fake_quant_fwd"]
+    for k, layout, base in (("verify_attn_quant", "ring", spec_launches),
+                            ("verify_attn_quant_paged", "paged",
+                             spec_paged_launches)):
+        by_path[k] = {"spec": base[k],
+                      f"moe-spec-{layout}": ms_res[layout]["launches"][k]}
+    for k in TRAIN_KERNELS:
+        by_path[k]["moe-train"] = mt_launches[k]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -3929,6 +4442,8 @@ def main() -> int:
          "serve_cli": cli_res, "rwkv_serve": rwkv_res,
          "starcoder_serve": starcoder_res, "hybrid_serve": hybrid_res,
          "audio_train": audio_res, "moe_serve": moe_res,
+         "moe_paged_serve": mp_res, "moe_spec_serve": ms_res,
+         "moe_train": mt_res,
          "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))

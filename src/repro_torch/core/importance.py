@@ -72,10 +72,11 @@ def make_importance_step(cfg: ModelConfig, ctx: QuantContext,
         # at most the random pass, so the banks are normalized by that
         # upper bound (2) instead -- the reference's deliberately
         # conservative fixed constant
-        grads = optim.tree_map_with_path(
-            lambda path, g: g / (2 if optim.indicator_only_mask(path, g)
-                                 else n + 1),
+        grads = optim.tree_map_with_path(      # in place, as the sum
+            lambda path, g: g.div_(2 if optim.indicator_only_mask(path, g)
+                                   else n + 1),
             grads_sum)
+        del grads_sum
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optim.apply_updates(params, updates)
         metrics = {"loss_uniform": torch.stack(losses[:n]),
@@ -117,8 +118,10 @@ def _qparam_node(params, segment: str, path):
 def extract_indicators(params, cfg: ModelConfig,
                        qlayers: Optional[Sequence[QLayer]] = None
                        ) -> Indicators:
-    """Read the learned (n_bits,) banks per QLayer (body banks are stacked
-    (repeats, n)) as float64 numpy magnitudes."""
+    """Read the learned (n_bits,) banks per QLayer as float64 numpy
+    magnitudes. Body banks are stacked (repeats, ..., n); MoE expert stacks
+    are averaged over the expert dim — one QLayer spans the whole stacked
+    tensor."""
     qlayers = qlayers if qlayers is not None else lm.enumerate_qlayers(cfg)
     out: Indicators = {}
     for q in qlayers:
@@ -127,6 +130,10 @@ def extract_indicators(params, cfg: ModelConfig,
         s_a = node["s_a"].detach().cpu().numpy().astype(np.float64)
         if q.segment.startswith("body."):
             s_w, s_a = s_w[q.unit], s_a[q.unit]
+        while s_w.ndim > 1:            # MoE expert dim
+            s_w = s_w.mean(axis=0)
+        while s_a.ndim > 1:
+            s_a = s_a.mean(axis=0)
         out[q.name] = {"w": np.abs(s_w), "a": np.abs(s_a)}
     return out
 

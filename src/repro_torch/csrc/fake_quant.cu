@@ -11,9 +11,11 @@
 //             per-expert (E, 1, 1) scale against an (E, C, D) stack)
 //   backward  dv  = g where qmin < v/s < qmax (strictly), else 0
 //             ds  = sum g * (round(v/s) - v/s) inside, sum g * clip(v/s) outside
-// The backward writes one ds partial per block; the wrapper sums them (and
-// autograd multiplies by the LSQ grad scale through the scale chain), as
-// the TPU wrapper sums its per-tile partials.
+// The backward takes the forward's n_s scales on a (blocks per slice, n_s)
+// grid, so no block straddles two slices, and writes one ds partial per
+// block, (n_s, blocks per slice); the wrapper sums each slice's partials
+// (and autograd multiplies by the LSQ grad scale through the scale chain),
+// as the TPU wrapper sums its per-tile partials.
 //
 // Numerics: the division is IEEE (no fast math, never a reciprocal), the
 // rounding is rintf (half to even, as torch.round and jnp.round; roundf
@@ -24,7 +26,8 @@
 // it each group of four elements reads its slice's scale (one load from
 // L1 or L2, the same for every group of a slice), and a group takes the
 // vector path only when a slice's length is a multiple of four, so its
-// four elements share one scale. The backward takes one scale.
+// four elements share one scale. A backward block reads its slice's scale
+// once, and takes the vector path on the same condition.
 //
 // What bounds it on an H100: a few float operations per element against 8
 // (forward: v in, out) or 12 (backward: v and g in, dv out) bytes, so bytes
@@ -90,19 +93,27 @@ __device__ __forceinline__ float fq_bwd_one(float v, float g, float s,
   return inside ? g : 0.0f;
 }
 
+// grid (blocks per slice, n_s): block (x, y) takes slice y only, so its
+// one scale is read once and its ds partial is that slice's; partials are
+// laid out (n_s, gridDim.x)
 __global__ void __launch_bounds__(THREADS)
 fq_bwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
               const float* __restrict__ g, float* __restrict__ dv,
-              float* __restrict__ partials, long long n, float qmin,
-              float qmax, int vec) {
+              float* __restrict__ partials, long long n, long long n_s,
+              float qmin, float qmax, int vec) {
   __shared__ float warp_part[THREADS / 32];
-  const float s = fmaxf(scale[0], 1e-9f);
-  const long long groups = (n + 3) / 4;
+  const long long slice = n / n_s;
+  const long long off = (long long)blockIdx.y * slice;
+  const float s = fmaxf(scale[blockIdx.y], 1e-9f);
+  v += off;
+  g += off;
+  dv += off;
+  const long long groups = (slice + 3) / 4;
   float acc = 0.0f;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
        i < groups; i += (long long)gridDim.x * THREADS) {
     const long long base = 4 * i;
-    if (vec && base + 4 <= n) {
+    if (vec && base + 4 <= slice) {
       const float4 x = *reinterpret_cast<const float4*>(v + base);
       const float4 gg = *reinterpret_cast<const float4*>(g + base);
       float4 o;
@@ -112,7 +123,7 @@ fq_bwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
       o.w = fq_bwd_one(x.w, gg.w, s, qmin, qmax, acc);
       *reinterpret_cast<float4*>(dv + base) = o;
     } else {
-      for (long long e = base; e < base + 4 && e < n; ++e)
+      for (long long e = base; e < base + 4 && e < slice; ++e)
         dv[e] = fq_bwd_one(v[e], g[e], s, qmin, qmax, acc);
     }
   }
@@ -123,7 +134,7 @@ fq_bwd_kernel(const float* __restrict__ v, const float* __restrict__ scale,
   if (threadIdx.x == 0) {
     float t = 0.0f;
     for (int w = 0; w < THREADS / 32; ++w) t += warp_part[w];
-    partials[blockIdx.x] = t;
+    partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = t;
   }
 }
 
@@ -146,15 +157,18 @@ extern "C" int fake_quant_fwd(const void* v, const void* scale, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// v, g, dv: n f32; scale: one f32 on the device; partials: `blocks` f32
+// v, g, dv: n f32; scale: n_s f32 on the device, n_s dividing n, one per
+// leading slice; partials: n_s x `blocks` f32 (`blocks` per slice)
 extern "C" int fake_quant_bwd(const void* v, const void* scale, const void* g,
                               void* dv, void* partials, long long n,
-                              float qmin, float qmax, int blocks,
-                              void* stream) {
-  const int vec = aligned16(v) && aligned16(g) && aligned16(dv);
-  fq_bwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+                              long long n_s, float qmin, float qmax,
+                              int blocks, void* stream) {
+  const int vec = aligned16(v) && aligned16(g) && aligned16(dv) &&
+                  (n_s == 1 || (n / n_s) % 4 == 0);
+  const dim3 grid(blocks, static_cast<unsigned>(n_s));
+  fq_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(v), static_cast<const float*>(scale),
       static_cast<const float*>(g), static_cast<float*>(dv),
-      static_cast<float*>(partials), n, qmin, qmax, vec);
+      static_cast<float*>(partials), n, n_s, qmin, qmax, vec);
   return static_cast<int>(cudaGetLastError());
 }

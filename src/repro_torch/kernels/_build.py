@@ -49,7 +49,7 @@ SYMBOLS: Dict[str, Dict[str, list]] = {
     },
     "fake_quant": {
         "fake_quant_fwd": [_P, _P, _P, _L, _L, _F, _F, _I, _P],
-        "fake_quant_bwd": [_P, _P, _P, _P, _P, _L, _F, _F, _I, _P],
+        "fake_quant_bwd": [_P, _P, _P, _P, _P, _L, _L, _F, _F, _I, _P],
     },
     "flash_attention": {
         "flash_fwd": [_P] * 5 + [_I] * 7 + [_P],

@@ -29,6 +29,7 @@ launches: Dict[str, int] = {"quant_matmul": 0, "quant_matmul_w4": 0,
                             "fake_quant_bwd": 0, "flash_fwd": 0, "wkv": 0}
 
 FQ_THREADS, FQ_MAX_BLOCKS = 256, 2048   # csrc/fake_quant.cu launch shape
+FQ_MAX_SLICES = 65535                   # the backward grid's y limit
 # csrc/quant_matmul.cu (int8 and nib4 weights): the split-K route's row
 # instances (M <= 16; larger M takes the tensor-core route), output columns
 # per block, k rows per block step, and the blocks a launch aims for: two
@@ -429,6 +430,13 @@ def _fq_blocks(n: int) -> int:
     return max(1, min(FQ_MAX_BLOCKS, -(-groups // FQ_THREADS)))
 
 
+def _fq_slice_blocks(slice_n: int, n_s: int) -> int:
+    """Blocks per slice of the backward's (blocks, n_s) grid: one scale
+    takes :func:`_fq_blocks`; n_s scales share ``FQ_MAX_BLOCKS`` among
+    them, at least one block a slice."""
+    return max(1, min(_fq_blocks(slice_n), -(-FQ_MAX_BLOCKS // n_s)))
+
+
 def fake_quant_fwd(v: torch.Tensor, s: torch.Tensor, qmin: float,
                    qmax: float) -> torch.Tensor:
     """Eq. 1 forward ``round(clip(v / max(s, 1e-9), qmin, qmax)) * s`` on a
@@ -453,30 +461,31 @@ def fake_quant_fwd(v: torch.Tensor, s: torch.Tensor, qmin: float,
 def fake_quant_bwd(v: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
                    qmin: float, qmax: float):
     """LSQ backward of :func:`fake_quant_fwd` for the output gradient
-    ``g``: ``(dv, ds)``, ds before the grad-scale factor. The kernel writes
-    one ds partial per block and the sum is taken here. One scale only: a
-    scale per leading slice (the per-expert banks of MoE training) would
-    need a ds partial per slice, which comes with a later slice."""
-    if s.numel() != 1:
-        raise NotImplementedError(
-            f"fake_quant_bwd: {s.numel()} scales (one per leading slice) "
-            "need a ds partial per slice; the backward takes one scale "
-            "(MoE training comes with a later slice)")
+    ``g``: ``(dv, ds)``, ds before the grad-scale factor: a scalar for one
+    scale, else one sum per leading slice, ``(n_s,)``. The kernel's grid
+    is (blocks per slice, n_s), so no block straddles two slices; each
+    block writes one ds partial and the sums over each slice's partials
+    are taken here (no atomics: the same from run to run)."""
+    n_s = fq_scale_slices(v, s)
     if not _kernel_route("fake_quant_bwd", v, s, g):
-        return ref.fake_quant_grads_ref(v, s.reshape(()), g, qmin, qmax)
+        return ref.fake_quant_grads_ref(v, s, g, qmin, qmax)
     _check(v, "v", torch.float32, v.shape)
     _check(g, "g", torch.float32, v.shape)
-    _check_scalar(s, "s")
+    if n_s > FQ_MAX_SLICES:
+        raise ValueError(f"fake_quant_bwd: {n_s} scales, at most "
+                         f"{FQ_MAX_SLICES} (the grid's second dim)")
     n = v.numel()
-    blocks = _fq_blocks(n)
+    blocks = _fq_slice_blocks(n // n_s, n_s)
     dv = torch.empty_like(v)
-    partials = torch.empty((blocks,), dtype=torch.float32, device=v.device)
+    partials = torch.empty((n_s, blocks), dtype=torch.float32,
+                           device=v.device)
     rc = _build.load("fake_quant").fake_quant_bwd(
         v.data_ptr(), s.data_ptr(), g.data_ptr(), dv.data_ptr(),
-        partials.data_ptr(), n, float(qmin), float(qmax), blocks, _stream())
+        partials.data_ptr(), n, n_s, float(qmin), float(qmax), blocks,
+        _stream())
     _raise_on(rc, "fake_quant_bwd")
     launches["fake_quant_bwd"] += 1
-    return dv, partials.sum()
+    return dv, (partials.sum() if n_s == 1 else partials.sum(dim=1))
 
 
 class _FakeQuant(torch.autograd.Function):
@@ -493,13 +502,15 @@ class _FakeQuant(torch.autograd.Function):
     def backward(ctx, g):
         v, s = ctx.saved_tensors
         dv, ds = fake_quant_bwd(v, s, g.contiguous(), ctx.qmin, ctx.qmax)
+        # one sum per scale, in ``s``'s shape ((E, 1, 1) for an expert stack)
         return dv, ds.reshape(s.shape).to(s.dtype), None, None
 
 
 def fake_quant(v: torch.Tensor, s: torch.Tensor, qmin: float,
                qmax: float) -> torch.Tensor:
-    """Differentiable LSQ fake-quant through the kernels. ``s`` is the
-    one-element scale after the floor and the grad-scale chain, so autograd
+    """Differentiable LSQ fake-quant through the kernels. ``s`` is the scale
+    after the floor and the grad-scale chain (one element, or one per
+    leading slice as :func:`fake_quant_fwd` takes it), so autograd
     multiplies ds by the grad-scale factor on the way back to the bank."""
     return _FakeQuant.apply(v, s, qmin, qmax)
 

@@ -53,17 +53,23 @@ def fake_quant_ref(v: torch.Tensor, s: torch.Tensor, qmin: float,
 
 def fake_quant_grads_ref(v: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
                          qmin: float, qmax: float):
-    """LSQ backward (Esser et al.): ``(dv, ds)``. dv passes g strictly
-    inside the clip range; ds sums ``g * (round(v/s) - v/s)`` inside and
-    ``g * clip(v/s)`` outside (before the grad-scale factor)."""
-    s = torch.clamp(s.to(torch.float32), min=1e-9)
-    vs = v.to(torch.float32) / s
+    """LSQ backward (Esser et al.): ``(dv, ds)``, with the scales of
+    :func:`fake_quant_ref` (scale i over the i-th of n_s equal contiguous
+    slices of ``v``). dv passes g strictly inside the clip range; ds sums
+    ``g * (round(v/s) - v/s)`` inside and ``g * clip(v/s)`` outside (before
+    the grad-scale factor), one sum per slice: a scalar at n_s = 1, else
+    ``(n_s,)``."""
+    n_s = s.numel()
+    sf = torch.clamp(s.to(torch.float32).reshape(n_s, 1), min=1e-9)
+    vs = v.to(torch.float32).reshape(n_s, -1) / sf
+    g2 = g.reshape(n_s, -1)
     inside = (vs > qmin) & (vs < qmax)
-    dv = torch.where(inside, g, torch.zeros_like(g))
+    dv = torch.where(inside, g2, torch.zeros_like(g2))
     c = torch.clamp(vs, qmin, qmax)
     dsd = torch.where(inside, torch.round(c) - vs, c)
-    ds = (g.to(torch.float32) * dsd).sum()
-    return dv.to(v.dtype), ds
+    terms = g2.to(torch.float32) * dsd
+    ds = terms.sum() if n_s == 1 else terms.sum(dim=1)
+    return dv.reshape(v.shape).to(v.dtype), ds
 
 
 def kv_slice_len(S: int, window: Optional[int], q_block: int, kv_block: int):

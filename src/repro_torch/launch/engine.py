@@ -124,15 +124,6 @@ def check_kv_layout(cfg: ModelConfig, kv_layout: str) -> None:
             f"kv_layout='paged' on a schedule with {sorted(bad)} sites "
             "(recurrent state beside the pages, chunked append through the "
             "wkv state) comes with a later slice; serve it over the ring")
-    if kv_layout == "paged" and _has_moe(cfg):
-        raise NotImplementedError(
-            "kv_layout='paged' on a MoE schedule (chunked append prefill "
-            "through the routed experts) comes with a later slice; serve it "
-            "over the ring")
-
-
-def _has_moe(cfg: ModelConfig) -> bool:
-    return any(s.kind == "moe" for s in lm.iter_sites(cfg))
 
 
 def check_speculate(cfg: ModelConfig, k: int) -> None:
@@ -154,11 +145,6 @@ def check_speculate(cfg: ModelConfig, k: int) -> None:
         raise ValueError(
             "speculate > 0 does not support sliding-window archs: "
             "the ring window overwrites rows a rollback would need")
-    if _has_moe(cfg):
-        raise NotImplementedError(
-            "speculate > 0 on a MoE schedule (the verify pass through the "
-            "routed experts) comes with a later slice; serve it token at a "
-            "time")
 
 
 @dataclasses.dataclass
@@ -273,17 +259,31 @@ class LMAdapter:
         return lm.apply_decode(params, self.cfg, tok, pos, state, self.bits,
                                self.ctx, table=self._table_for(params))
 
-    def init_state(self, batch, capacity, dtype, per_slot=True, device=None):
+    def init_state(self, batch, capacity, dtype, per_slot=True, device=None,
+                   layout=None):
         # recurrent state in the compute dtype: a float64 evaluation keeps
         # its carried state float64
         return lm.init_decode_state(
             self.cfg, batch, capacity, dtype=dtype, per_slot=per_slot,
             kv_quant="int8" if self.ctx.kv_quant == "int8" else "none",
-            device=device,
+            layout=layout, device=device,
             rec_dtype=torch.promote_types(dtype, self.ctx.compute_dtype))
 
     def state_per_slot(self, row):
         return lm.decode_state_per_slot(row)
+
+
+class PagedLMAdapter(LMAdapter):
+    """The fake-quant graph over pooled int8 pages: ``LMAdapter`` with the
+    chunked append of the paged layout, so a paged run has a reference
+    that prefills as it does (a MoE chunk's pad rows attend the slot's
+    pages and compete for an expert's capacity, so which tokens it drops
+    depends on the pool's history: ``serve.moe_over_pages``)."""
+
+    def append(self, params, tok, pos, slot: int, last_idx: int, states):
+        return lm.apply_append(params, self.cfg, tok, pos, slot, last_idx,
+                               states, self.bits, self.ctx,
+                               table=self._table_for(params))
 
 
 class _Slot:

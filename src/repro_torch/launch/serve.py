@@ -68,7 +68,7 @@ from repro_torch.core.policy import MPQPolicy
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch.engine import DecodeEngine, EngineConfig, \
-    check_kv_layout, check_speculate, decisive_prefix
+    PagedLMAdapter, check_kv_layout, check_speculate, decisive_prefix
 from repro_torch.launch.scheduler import POLICIES, Request
 from repro_torch.models import lm
 from repro_torch.models.quant_layers import QuantContext
@@ -382,17 +382,15 @@ def make_context(cfg) -> QuantContext:
 def build_session(cfg, params, policy: MPQPolicy, *, kv: str = "int8",
                   speculate: int = 0, draft_bits: int = 2, site_source=None):
     """Pack ``policy`` into a ``QuantizedSession`` (a ``SpecSession`` with
-    its ``draft_bits`` draft pack when ``speculate`` > 0); a plain
-    session takes ``site_source`` (each site's params made when it is
-    packed), a speculative one packs two trees from ``params``."""
+    its ``draft_bits`` draft pack when ``speculate`` > 0). ``site_source``
+    makes each site's params when it is packed (under both policies of a
+    speculative session)."""
     from repro_torch.runtime.session import QuantizedSession, SpecSession
     kv_quant = "int8" if kv == "int8" else "none"
     if speculate:
-        if site_source is not None:
-            raise ValueError("a speculative session packs its target and "
-                             "draft trees from params, not a site source")
         return SpecSession(cfg, params, policy, make_context(cfg),
-                           kv_quant=kv_quant, draft_w_bits=draft_bits)
+                           kv_quant=kv_quant, draft_w_bits=draft_bits,
+                           site_source=site_source)
     return QuantizedSession(cfg, params, policy, make_context(cfg),
                             kv_quant=kv_quant, site_source=site_source)
 
@@ -471,24 +469,36 @@ def compare_spec(out, base, base_out, min_margin: float = 1e-2):
 def reference_engine(cfg, params, policy: MPQPolicy, reqs, *, slots: int,
                      cache_len: int, prefill_chunk: int = 0, device=None,
                      compute_dtype=torch.float32, kv: str = "int8",
-                     bucket_prompts: bool = False):
-    """The fake-quant graph (``LMAdapter``) through the same engine (ring
-    layout), with int8 KV slots referenced as quantize-dequantize in fp
-    (``kv="fp"``: plain fp rows); ``compute_dtype`` float64 evaluates the
-    same graph at higher precision (the control). On the card it runs the
-    kernels' plain versions (``ops.plain_on_cuda``): a reference computes
-    in plain PyTorch, and the float64 control reaches ``wkv``, whose kernel
-    takes float32 only."""
+                     bucket_prompts: bool = False, kv_layout: str = "ring",
+                     page_size: int = 8):
+    """The fake-quant graph (``LMAdapter``) through the same engine, with
+    int8 KV slots referenced as quantize-dequantize in fp (``kv="fp"``:
+    plain fp rows); ``compute_dtype`` float64 evaluates the same graph at
+    higher precision (the control). ``kv_layout="paged"`` serves it over
+    pooled int8 pages (``PagedLMAdapter``), attended on the dequant-fp
+    route, so it prefills as the served run does. On the card it
+    runs the kernels' plain versions (``ops.plain_on_cuda``): a reference
+    computes in plain PyTorch, and the float64 control reaches ``wkv``,
+    whose kernel takes float32 only."""
     ctx = dataclasses.replace(make_context(cfg), compute_dtype=compute_dtype)
-    eng = DecodeEngine(params, cfg, lm.bits_from_policy(cfg, policy), ctx,
-                       device=device,
-                       ecfg=EngineConfig(slots=slots, cache_len=cache_len,
-                                         prefill_chunk=prefill_chunk,
-                                         kv_quant="fake" if kv == "int8"
-                                         else "none",
-                                         bucket_prompts=bucket_prompts))
+    bits = lm.bits_from_policy(cfg, policy)
+    paged = kv_layout == "paged"
+    ecfg = EngineConfig(slots=slots, cache_len=cache_len,
+                        prefill_chunk=prefill_chunk,
+                        kv_quant="fake" if kv == "int8" else "none",
+                        bucket_prompts=bucket_prompts)
+    adapter = None
+    if paged:
+        ctx = dataclasses.replace(ctx, kv_quant="int8")
+        adapter = PagedLMAdapter(cfg, bits, ctx)
+        ecfg = dataclasses.replace(ecfg, kv_quant="int8", kv_layout="paged",
+                                   page_size=page_size)
+    eng = DecodeEngine(params, cfg, bits, ctx, adapter=adapter,
+                       device=device, ecfg=ecfg)
     eng.submit_all(reqs)
-    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+    with ops.plain_on_cuda(*ops.PLAIN_KERNELS), \
+            dispatch.force_route("decode_attn",
+                                 "dequant-fp" if paged else None):
         return eng, eng.run()
 
 
@@ -657,28 +667,48 @@ def measured_epoch(args, cfg, eng, label: str, streamer):
     return report
 
 
+def moe_over_pages(cfg, kv_layout: str) -> bool:
+    """Whether a serving run's tokens depend on its schedule: a MoE
+    schedule over pages routes each append chunk's pad rows beside its
+    prompt tokens, through a capacity set by the chunk, and a pad row
+    (position -1, no key admitted) attends the slot's whole gathered view,
+    rows that earlier requests left in its pages included."""
+    return kv_layout == "paged" and any(s.kind == "moe"
+                                        for s in lm.iter_sites(cfg))
+
+
 def compare_schedules(args, scfg: ServeConfig, eng, out, fixed, fixed_out):
     """``--compare``: the continuous run ``eng``/``out`` against the same
     requests under the fixed schedule. Token-at-a-time decode must give the
     same tokens (every step runs all slots, so each row sees the same
     shapes); speculative rounds take other shapes under the other schedule,
     so there the tokens must agree on every decisive step
-    (``decisive_prefix``). Returns the decode steps saved."""
+    (``decisive_prefix``). A MoE schedule over pages (``moe_over_pages``)
+    prints the rids that differ and why instead of exiting. Returns the
+    decode steps saved."""
     cont = eng.stats
     saved = fixed.stats.decode_steps - cont.decode_steps
+    routed = moe_over_pages(eng.cfg, eng.ecfg.kv_layout)
     if eng.ecfg.speculate:
         same, total, n, bad = compare_spec(out, fixed, fixed_out)
-        if bad:
-            raise SystemExit(f"token mismatch vs fixed batch on a decisive "
-                             f"step: rids {bad}")
         what = (f"tokens equal the fixed batch's on {n} decisive steps "
                 f"({same} of {total} identical)")
+        if bad and not routed:
+            raise SystemExit(f"token mismatch vs fixed batch on a decisive "
+                             f"step: rids {bad}")
     else:
         bad = [rid for rid, c in out.items()
                if fixed_out[rid].tokens != c.tokens]
-        if bad:
-            raise SystemExit(f"token mismatch vs fixed batch: rids {bad}")
         what = "token-identical with fixed batch"
+        if bad and not routed:
+            raise SystemExit(f"token mismatch vs fixed batch: rids {bad}")
+    if bad:
+        what = (f"tokens differ from the fixed batch's in rids {bad}: a MoE "
+                "schedule over pages routes each append chunk's pad rows "
+                "beside its tokens, and a pad row attends the rows earlier "
+                "requests left in the slot's pages, so the tokens an "
+                "expert's capacity drops depend on the pool's history (as "
+                "in the reference's paged engine)")
     print(f"{what}; {saved} decode steps saved ({cont.decode_steps} vs "
           f"{fixed.stats.decode_steps})")
     if scfg.chip is not None:
@@ -758,10 +788,17 @@ def serve_packed(args, scfg: ServeConfig, cfg, params, reqs, dev):
         print("note: --compare has no effect with --schedule fixed "
               "(nothing to compare the fixed path against)")
     if args.check:
+        # a MoE run over pages is held to the reference served over pages
+        # under the same schedule: the pool's history decides which tokens
+        # an expert drops (moe_over_pages)
+        layout = ("paged" if moe_over_pages(cfg, scfg.kv_layout)
+                  else "ring")
         n, bad, _ = check_greedy(cfg, params, policy, reqs, out, kv=scfg.kv,
                                  slots=scfg.slots,
                                  cache_len=scfg.resolved_cache_len,
-                                 prefill_chunk=eng.prefill_chunk, device=dev)
+                                 prefill_chunk=eng.prefill_chunk, device=dev,
+                                 kv_layout=layout,
+                                 page_size=scfg.page_size)
         if bad:
             raise SystemExit(f"packed runtime diverged from the fake-quant "
                              f"reference on decisive steps: rids {bad}")
@@ -874,7 +911,7 @@ def replay_on_dequant_routes(res, dev):
     return replay, out
 
 
-def check_elastic(res, dev):
+def check_elastic(res, dev, reference: bool = True):
     """Hold an elastic run (``serve_elastic``'s result) to each variant, over
     the requests that variant served (gates, raising SystemExit):
 
@@ -891,8 +928,10 @@ def check_elastic(res, dev):
     decisive steps (``check_greedy``'s float64 control), recorded and not
     gated: on the card the kernels' exact integer sums are a third float
     evaluation, which parts from the float32 and float64 references on
-    near-ties (top-2 margins of a few hundredths). Returns {variant: its
-    rids, decisive steps compared, rids that parted on one}."""
+    near-ties (top-2 margins of a few hundredths). ``reference=False``
+    skips the reference engines where they feed only that record (over
+    pages on the card). Returns {variant: its rids, decisive steps
+    compared, rids that parted on one (None without the reference)}."""
     from repro_torch.runtime.session import QuantizedSession
 
     cfg, params, eng, out = (res["eng"].cfg, res["params"], res["eng"],
@@ -921,6 +960,9 @@ def check_elastic(res, dev):
             raise SystemExit(
                 f"elastic variant {pid} diverged from its single-policy "
                 f"packed engine on rids {bad}")
+        if not (reference or exact):
+            checks[pid] = dict(rids=sorted(rids), decisive=None, parted=None)
+            continue
         ref, ref_out = reference_engine(cfg, params, bank.policies[pid], sub,
                                         **kw)
         bad = [rid for rid in rids

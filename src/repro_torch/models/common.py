@@ -8,12 +8,42 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
+# rows of the norms' reductions, the MoE router's product and an expert
+# stack's einsum are padded to a multiple of this: on the card a
+# reduction's and a GEMM's kernel, and with it the order of a row's sum,
+# follow the number of rows, so padded a decode step (one row a slot) and
+# a speculative verify pass (k + 1 rows a slot) of up to ROW_ALIGN rows
+# compute each row's statistics and products in the same order
+ROW_ALIGN = 128
+
+
+def pad_rows(x: torch.Tensor, dim: int, align: int = ROW_ALIGN
+             ) -> torch.Tensor:
+    """``x`` with zero rows appended along ``dim`` up to a multiple of
+    ``align``."""
+    extra = -x.shape[dim] % align
+    if not extra:
+        return x
+    # F.pad lists (before, after) pairs from the last dim back
+    return F.pad(x, (0, 0) * (x.dim() - 1 - dim) + (0, extra))
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean(dim=-1, keepdim=True)`` taken over ``x``'s rows padded with
+    zeros to a multiple of ``ROW_ALIGN`` (the padded rows' means are
+    dropped)."""
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    return pad_rows(flat, 0).mean(dim=-1)[:flat.shape[0]].reshape(
+        lead + (1,))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """Normalise in f32, cast back to x's dtype, THEN multiply the scale (in
     that dtype) -- the reference's order."""
     dt = x.dtype
     x32 = x.to(torch.float32)
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    var = row_mean(x32 * x32)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
 
 
@@ -21,8 +51,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     dt = x.dtype
     x32 = x.to(torch.float32)
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    mu = row_mean(x32)
+    var = row_mean((x32 - mu).square())
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return y.to(dt) * scale.to(dt) + bias.to(dt)
 

@@ -789,6 +789,20 @@ def apply_verify(params, cfg: ModelConfig, tokens, pos, states, bits,
     return lm_head(x, params, cfg, ctx, table), new_states
 
 
+def apply_append(params, cfg: ModelConfig, tokens, pos, slot: int,
+                 last_idx: int, states, bits, ctx: QuantContext, table=None):
+    """Chunked (paged) prefill of the fake-quant graph for ONE slot:
+    ``tokens (1, C)`` at absolute positions ``pos (C,)`` (-1 on pad rows,
+    which the cache write drops) into that slot's pages. Returns (logits of
+    row ``last_idx`` (1, V), new states)."""
+    x = embed_inputs(params, cfg, tokens, ctx, table)
+    x, new_states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg,
+                                 ctx, mode="append", states=states, pos=pos,
+                                 slot=slot)
+    logits = lm_head(x[:, last_idx:last_idx + 1], params, cfg, ctx, table)
+    return logits[:, 0], new_states
+
+
 # ===========================================================================
 # decode state
 # ===========================================================================

@@ -18,6 +18,18 @@ ascending expert order, starting from zero -- the order in which the
 reference's scatter-add sums them on the CPU (index order, expert-major),
 and the same from run to run on the card, where a scatter-add with
 repeated indices sums in no fixed order.
+
+The router's and the expert stacks' float32 products run over rows padded
+with zeros to a multiple of ``common.ROW_ALIGN`` (the capacity's
+alignment; ``common.pad_rows``, ``quant_layers.einsum_rows``), as the
+norms' reductions do: the card's GEMM picks its kernel, and with it the
+order of a row's sum, by shape, so padded, a decode step (one row a slot)
+and a speculative verify pass (k + 1 rows a slot) of up to 128 rows give
+a token the same router logits and expert rows, as the integer matmul
+kernels' exact sums do. The padding is added after the activation
+fake-quant (its LSQ grad-scale factor counts the real rows, as the
+reference's) and dropped after the product: the values are the
+reference's.
 """
 from __future__ import annotations
 
@@ -26,7 +38,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, pad_rows
 from repro_torch.models.quant_layers import QuantContext, qdense_init, qeinsum
 
 
@@ -105,8 +117,9 @@ def route(xf: torch.Tensor, router_w: torch.Tensor, moe: MoEConfig,
     the gates renormalised over the k, the Switch-style aux, and each
     expert's top-C tokens by gate (C from T: ``capacity``)."""
     E, K = moe.n_experts, moe.top_k
-    logits = torch.einsum("td,de->te", xf.to(torch.float32),
-                          router_w.to(torch.float32))
+    T = xf.shape[0]
+    logits = torch.einsum("td,de->te", pad_rows(xf.to(torch.float32), 0),
+                          router_w.to(torch.float32))[:T]
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
     top_w, top_i = torch.topk(probs, K, dim=-1)                 # (T, K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)

@@ -23,7 +23,17 @@ from repro_torch.core.quantizer import (
     init_scale_same,
     lsq_grad_scale_factor,
 )
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, pad_rows
+
+
+def einsum_rows(eqn: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eqn, x, w)``; an expert stack's (``"ec..."``) over its
+    C rows padded with zeros to a multiple of ``common.ROW_ALIGN`` and cut
+    back, so that calls of up to ``ROW_ALIGN`` rows run one GEMM shape."""
+    if not eqn.startswith("ec"):
+        return torch.einsum(eqn, x, w)
+    C = x.shape[1]
+    return torch.einsum(eqn, pad_rows(x, 1), w)[:, :C]
 
 
 @dataclass(frozen=True)
@@ -147,8 +157,8 @@ def qeinsum(eqn: str, x: torch.Tensor, p, bits, ctx: QuantContext
         return packed_qeinsum(eqn, x, p, ctx)
     w_idx = None if bits is None else bits["w"]
     a_idx = None if bits is None else bits["a"]
-    return torch.einsum(eqn, _maybe_quant_a(x, p, a_idx, ctx),
-                        _maybe_quant_w(p, w_idx, ctx))
+    return einsum_rows(eqn, _maybe_quant_a(x, p, a_idx, ctx),
+                       _maybe_quant_w(p, w_idx, ctx))
 
 
 def qeinsum_pinned(eqn: str, x: torch.Tensor, p, ctx: QuantContext,

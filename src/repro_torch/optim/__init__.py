@@ -9,11 +9,14 @@ An ``Optimizer`` is (init, update); ``update`` maps (grads, state, params)
   * ``masked`` -- freeze subsets of the tree (paper section 3.4's
     freeze-backbone indicator training)
 
-The op order is the reference's (``repro.optim``), including ``masked``
-zeroing frozen gradients before the wrapped optimizer clips, so the clip
-norm covers only the trainable leaves. A tree is a tensor or a dict of
-trees; leaves are visited in sorted key order, as JAX flattens dicts.
-Everything is functional: new tensors, no in-place update.
+The op order is the reference's (``repro.optim``); ``masked`` hands the
+wrapped optimizer the trainable leaves only, so its clip norm covers only
+them, as the reference's zeroed frozen gradients do. A tree is a tensor or
+a dict of trees; leaves are visited in sorted key order, as JAX flattens
+dicts. Everything is functional: new tensors, no in-place update. An
+update runs leaf by leaf (the clip scale, the moments and the update of
+one leaf together), so no clipped tree or frozen leaf's zero state is
+ever held whole: at full width a tree is gigabytes.
 """
 from __future__ import annotations
 
@@ -93,10 +96,27 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     g = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+    scale = _clip_scale(g, max_norm)
     return tree_map(lambda leaf: leaf * scale.to(leaf.dtype), tree), g
+
+
+def _clipped(grads, max_norm: Optional[float]) -> Callable:
+    """leaf -> the leaf as ``clip_by_global_norm`` would return it."""
+    if max_norm is None:
+        return lambda g: g
+    scale = _clip_scale(global_norm(grads), max_norm)
+    return lambda g: g * scale.to(g.dtype)
+
+
+def _unzip(tree, n: int):
+    """A tree of n-tuples -> n trees."""
+    return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
 
 
 # ---------------------------------------------------------------------------
@@ -117,11 +137,14 @@ def sgd(lr, momentum: float = 0.9,
                         tree_map(torch.zeros_like, params))
 
     def update(grads, state, params=None):
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
-        mom = tree_map(lambda m, g: momentum * m + g, state.momentum, grads)
+        clip = _clipped(grads, clip_norm)
         lr_t = sched(state.step)
-        updates = tree_map(lambda m: -lr_t.to(m.dtype) * m, mom)
+
+        def leaf(m, g):
+            m = momentum * m + clip(g)
+            return m, -lr_t.to(m.dtype) * m
+
+        mom, updates = _unzip(tree_map(leaf, state.momentum, grads), 2)
         return updates, SGDState(state.step + 1, mom)
 
     return Optimizer(init, update)
@@ -149,25 +172,25 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                           zeros(params), zeros(params))
 
     def update(grads, state, params):
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+        clip = _clipped(grads, clip_norm)
         t = state.step + 1
         tf = t.to(torch.float32)
         bc1 = 1 - b1 ** tf
         bc2 = 1 - b2 ** tf
-        g32 = tree_map(lambda g: g.to(torch.float32), grads)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state.m, g32)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state.v, g32)
         lr_t = sched(state.step)
 
-        def upd(path, m_, v_, p):
+        def leaf(path, g, m_, v_, p):
+            g = clip(g).to(torch.float32)
+            m_ = b1 * m_ + (1 - b1) * g
+            v_ = b2 * v_ + (1 - b2) * g * g
             u = -(lr_t * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps))
             decay = wd_mask(path, p) if wd_mask is not None else p.dim() >= 2
             if weight_decay and decay:
                 u = u - lr_t * weight_decay * p.to(torch.float32)
-            return u.to(p.dtype)
+            return m_, v_, u.to(p.dtype)
 
-        updates = tree_map_with_path(upd, m, v, params)
+        m, v, updates = _unzip(tree_map_with_path(
+            leaf, grads, state.m, state.v, params), 3)
         return updates, AdamWState(t, m, v)
 
     return Optimizer(init, update)
@@ -182,22 +205,45 @@ def indicator_only_mask(path, leaf) -> bool:
     return p.endswith("s_w") or p.endswith("s_a")
 
 
+def _select(tree, keep: Callable, path: tuple = ()):
+    """The subtree of the leaves where ``keep(path, leaf)``, in the same
+    key paths (None where nothing is kept)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            sub = _select(tree[k], keep, path + (k,))
+            if sub is not None:
+                out[k] = sub
+        return out or None
+    return tree if keep(path, tree) else None
+
+
 def masked(opt: Optimizer, trainable: Callable) -> Optimizer:
-    """Zero gradients (before the wrapped optimizer, so its clip sees only
-    the trainable leaves) and updates where ``trainable(path, leaf)`` is
-    False."""
+    """The wrapped optimizer over the leaves where ``trainable(path,
+    leaf)`` only (its state and its clip norm cover them alone, as the
+    reference's zeroed gradients leave them); every other leaf's update is
+    zero (a broadcast zero: a frozen backbone holds no state and no zero
+    tree)."""
+
+    def init(params):
+        return opt.init(_select(params, trainable))
 
     def update(grads, state, params):
-        grads = tree_map_with_path(
-            lambda path, g: g if trainable(path, g) else torch.zeros_like(g),
-            grads)
-        updates, state = opt.update(grads, state, params)
-        updates = tree_map_with_path(
-            lambda path, u: u if trainable(path, u) else torch.zeros_like(u),
-            updates)
-        return updates, state
+        sub, state = opt.update(_select(grads, trainable), state,
+                                _select(params, trainable))
 
-    return Optimizer(opt.init, update)
+        def fill(path, g):
+            if not trainable(path, g):
+                return torch.zeros((), dtype=g.dtype,
+                                   device=g.device).expand(g.shape)
+            u = sub
+            for k in path:
+                u = u[k]
+            return u
+
+        return tree_map_with_path(fill, grads), state
+
+    return Optimizer(init, update)
 
 
 def apply_updates(params, updates):

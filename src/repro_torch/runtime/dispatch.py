@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.core.quantizer import fake_quant, lsq_grad_scale_factor
+from repro_torch.models.quant_layers import einsum_rows
 from repro_torch.runtime.packing import PackedLinear
 
 
@@ -287,7 +288,7 @@ def _kernel_form(eqn: str) -> bool:
 def _impl_dequant_fp(eqn: str, x: torch.Tensor, pl: PackedLinear, ctx
                      ) -> torch.Tensor:
     xq = act_fake_quant(x, pl, ctx).to(ctx.compute_dtype)
-    return torch.einsum(eqn, xq, pl.dequant(ctx.compute_dtype))
+    return einsum_rows(eqn, xq, pl.dequant(ctx.compute_dtype))
 
 
 def _kernel_call(x: torch.Tensor, pl: PackedLinear, ctx, matmul

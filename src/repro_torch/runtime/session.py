@@ -71,6 +71,14 @@ def _get_path(tree, path: Tuple[str, ...]):
     return tree
 
 
+def _copy_dicts(tree):
+    """``tree``'s nested dicts copied, its leaves shared: one site's params
+    packed under another policy without touching the first."""
+    if isinstance(tree, dict):
+        return {k: _copy_dicts(v) for k, v in tree.items()}
+    return tree
+
+
 def _set_path(tree, path: Tuple[str, ...], leaf):
     for k in path[:-1]:
         tree = tree[k]
@@ -123,44 +131,56 @@ class QuantizedSession:
         # the engine's metrics registry (it assigns this at build and
         # reset): _forward counts its activation-quantize reuse there
         self.metrics = None
-        # per-projection pack-time health, measured in _build_params from
+        # per-projection pack-time health, measured in _pack_trees from
         # the weights and the scales the packing used
-        self.pack_health: Dict[str, Dict[str, float]] = {}
-        self.params = self._build_params(params)
+        trees = self._pack_trees(params, [policy] + self._side_policies())
+        self.params, self.pack_health = trees[0]
+        self.side_trees = trees[1:]
         self.table = pinned_table(params["embed"], self.ctx)
 
     # -- construction -------------------------------------------------------
-    def _build_params(self, params) -> Dict[str, Any]:
+    def _side_policies(self) -> List[MPQPolicy]:
+        """Policies packed beside the served one, each into a tree of its
+        own (``side_trees``), from the same site params: a speculative
+        session's draft."""
+        return []
+
+    def _pack_trees(self, params, policies: List[MPQPolicy]
+                    ) -> List[Tuple[Dict[str, Any], Dict[str, Dict]]]:
+        """(packed tree, pack health) for each of ``policies``. Each site's
+        params are taken once (``site_source`` is called once a site) and
+        packed under every policy before the next site."""
         by_site: Dict[Tuple[str, int], List] = {}
         for q in self.qlayers:
             by_site.setdefault((q.segment, q.unit), []).append(q)
-        out: Dict[str, Any] = {k: params[k] for k in params
-                               if k not in ("prefix", "body", "suffix")}
-        sites_p: Dict[str, Any] = {}
+        outer = {k: params[k] for k in params
+                 if k not in ("prefix", "body", "suffix")}
+        outs = [(dict(outer, sites={}), {}) for _ in policies]
         for site in self.sites:
             key = lm.site_key(site.gidx)
-            sp = (self.site_source(site) if self.site_source is not None
-                  else lm.site_params(params, site))
-            packed_paths: List[Tuple[str, ...]] = []
-            for q in by_site[(site.segment, site.unit)]:
-                leaf = _get_path(sp, q.path)
-                wb = int(self.policy.w_bits[q.name])
-                s_w = effective_weight_scale(leaf["s_w"], self._lut[wb],
-                                             leaf["w"].numel(), wb,
-                                             w_ndim=leaf["w"].dim())
-                a_idx = self._lut[int(self.policy.a_bits[q.name])]
-                pl = packing.pack_linear(
-                    leaf["w"], wb, s_w, int(self.policy.a_bits[q.name]),
-                    leaf["s_a"][..., a_idx],
-                    a_signed=self.cfg.quant_act_signed)
-                self.pack_health[q.name] = obs_health.site_health(
-                    leaf["w"], wb, pl.scale)
-                _set_path(sp, q.path, pl)
-                packed_paths.append(q.path)
-            _tag_act_groups(sp, packed_paths, key)
-            sites_p[key] = sp
-        out["sites"] = sites_p
-        return out
+            src = (self.site_source(site) if self.site_source is not None
+                   else lm.site_params(params, site))
+            for policy, (tree, health) in zip(policies, outs):
+                sp = _copy_dicts(src)
+                packed_paths: List[Tuple[str, ...]] = []
+                for q in by_site[(site.segment, site.unit)]:
+                    leaf = _get_path(src, q.path)
+                    wb = int(policy.w_bits[q.name])
+                    s_w = effective_weight_scale(leaf["s_w"], self._lut[wb],
+                                                 leaf["w"].numel(), wb,
+                                                 w_ndim=leaf["w"].dim())
+                    a_idx = self._lut[int(policy.a_bits[q.name])]
+                    pl = packing.pack_linear(
+                        leaf["w"], wb, s_w, int(policy.a_bits[q.name]),
+                        leaf["s_a"][..., a_idx],
+                        a_signed=self.cfg.quant_act_signed)
+                    health[q.name] = obs_health.site_health(
+                        leaf["w"], wb, pl.scale)
+                    _set_path(sp, q.path, pl)
+                    packed_paths.append(q.path)
+                _tag_act_groups(sp, packed_paths, key)
+                tree["sites"][key] = sp
+        return outs
 
     # -- accounting ---------------------------------------------------------
     def packed_bytes(self) -> int:
@@ -295,25 +315,24 @@ class SpecSession(QuantizedSession):
     (the emitted tokens are its greedy tokens) and ``draft_params`` under
     the uniform low-bit :func:`draft_policy`, which only proposes tokens.
     Both run through the same adapter methods; the engine drafts with
-    ``draft_params`` and verifies with ``params``."""
+    ``draft_params`` and verifies with ``params``. A ``site_source`` hands
+    each site over once; it is packed under both policies before the
+    next."""
 
     def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
                  ctx: Optional[QuantContext] = None, *,
-                 kv_quant: str = "int8", draft_w_bits: int = 2):
+                 kv_quant: str = "int8", draft_w_bits: int = 2,
+                 site_source=None):
         lm.check_decodes(cfg)
         self.draft_w_bits = int(draft_w_bits)
         self.policy_draft = draft_policy(policy, lm.enumerate_qlayers(cfg),
                                          cfg.bits, self.draft_w_bits)
-        super().__init__(cfg, params, policy, ctx, kv_quant=kv_quant)
-        # the second tree through the same packing, with the draft policy
-        # (and a health record of its own) active for the call
-        target_health = self.pack_health
-        self.policy, self.pack_health = self.policy_draft, {}
-        try:
-            self.draft_params = self._build_params(params)
-            self.draft_pack_health = self.pack_health
-        finally:
-            self.policy, self.pack_health = policy, target_health
+        super().__init__(cfg, params, policy, ctx, kv_quant=kv_quant,
+                         site_source=site_source)
+        (self.draft_params, self.draft_pack_health), = self.side_trees
+
+    def _side_policies(self) -> List[MPQPolicy]:
+        return [self.policy_draft]
 
     def draft_bytes(self) -> int:
         """Measured device bytes of the draft tree's packed codes: what a
@@ -358,7 +377,7 @@ class ElasticSession(QuantizedSession):
     trained weights and indicator banks, one packed tree per ``MPQPolicy``
     variant (e.g. 3/4/6-bit average budgets searched over the same banks,
     ``launch.elastic.build_variant_bank``). Every variant packs once at
-    build, through the policy swap ``SpecSession`` packs its draft with;
+    build, through ``_pack_trees``, as ``SpecSession`` packs its draft;
     ``set_active`` then hands the engine a resident pre-packed tree, so
     nothing is packed on the serving path.
 
@@ -409,15 +428,9 @@ class ElasticSession(QuantizedSession):
             pid: (self.route_counts if pid == active else dispatch.Counts())
             for pid, _ in items}
         for pid, pol in items:
-            if pid == active:
-                continue
-            keep_policy, keep_health = self.policy, self.pack_health
-            self.policy, self.pack_health = pol, {}
-            try:
-                self.variants[pid] = self._build_params(params)
-                self.variant_pack_health[pid] = self.pack_health
-            finally:
-                self.policy, self.pack_health = keep_policy, keep_health
+            if pid != active:
+                (self.variants[pid], self.variant_pack_health[pid]), = \
+                    self._pack_trees(params, [pol])
 
     # -- variant bank -------------------------------------------------------
     def params_for(self, pid: str):

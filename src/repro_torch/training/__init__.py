@@ -54,6 +54,7 @@ def make_train_step(cfg: ModelConfig, ctx: QuantContext,
         metrics = _detached(metrics)
         metrics["grad_norm"] = optim.global_norm(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
+        del grads           # one gradient tree less beside the new params
         params = optim.apply_updates(params, updates)
         return params, opt_state, metrics
 

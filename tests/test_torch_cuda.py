@@ -936,8 +936,121 @@ def test_fake_quant_fwd_with_a_scale_per_slice(dev, bits, shape):
     assert torch.equal(out, ref.fake_quant_ref(v, s, qmin, qmax))
     sf = torch.clamp(s, min=1e-9)
     assert torch.equal(out, torch.round(torch.clamp(v / sf, qmin, qmax)) * sf)
-    with pytest.raises(NotImplementedError, match="per slice"):
-        ops.fake_quant_bwd(v, s, v, qmin, qmax)
+    # the backward takes the same scales in one launch
+    n0 = ops.launches["fake_quant_bwd"]
+    dv, ds = ops.fake_quant_bwd(v, s, v, qmin, qmax)
+    torch.cuda.synchronize()
+    assert ops.launches["fake_quant_bwd"] == n0 + 1
+    assert dv.shape == v.shape and ds.shape == (shape[0],)
+
+
+def _ds_tol_per_slice(v, s, g, qmin, qmax, ds_plain):
+    """``_ds_tol`` for each slice of a scale per leading slice: 1e-4 of
+    |ds| plus 1e-6 of the slice's sum |g * dsd| (float32 sums in another
+    order)."""
+    n_s = s.numel()
+    sf = torch.clamp(s.reshape(n_s, 1), min=1e-9)
+    vs = v.reshape(n_s, -1) / sf
+    inside = (vs > qmin) & (vs < qmax)
+    c = torch.clamp(vs, qmin, qmax)
+    terms = (g.reshape(n_s, -1)
+             * torch.where(inside, torch.round(c) - vs, c)).abs().sum(1)
+    return 1e-4 * ds_plain.abs() + 1e-6 * terms
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("shape", [(64, 2048, 1408), (64, 256, 2048),
+                                   (64, 4, 2048), (8, 3, 5), (6, 1),
+                                   (3, 7, 2, 9)])
+def test_fake_quant_bwd_with_a_scale_per_slice(dev, bits, shape):
+    """The LSQ backward with a scale per leading slice (deepseek's (64, 1,
+    1) per-expert scale over an expert stack (64, 2048, 1408) and its
+    training expert input (64, 256, 2048); ragged slices that take the
+    scalar path): one launch, dv bit for bit the plain version, one ds per
+    slice within ``_ds_tol_per_slice``; a zero scale meets the 1e-9
+    floor."""
+    rng = np.random.default_rng(bits * 10 + len(shape))
+    v = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(
+        np.float32)).to(dev)
+    # an output gradient with a mean, so each ds is a well-conditioned sum
+    g = torch.from_numpy((1 + 0.5 * rng.standard_normal(shape)).astype(
+        np.float32)).to(dev)
+    qmin, qmax = float(-2 ** (bits - 1)), float(2 ** (bits - 1) - 1)
+    s_shape = (shape[0],) + (1,) * (len(shape) - 1)
+    s = torch.from_numpy(rng.uniform(0.02, 0.4, s_shape).astype(
+        np.float32) / qmax).to(dev)
+    s[1] = 0.0
+    n0 = ops.launches["fake_quant_bwd"]
+    dv, ds = ops.fake_quant_bwd(v, s, g, qmin, qmax)
+    torch.cuda.synchronize()
+    assert ops.launches["fake_quant_bwd"] == n0 + 1
+    dv_p, ds_p = ref.fake_quant_grads_ref(v, s, g, qmin, qmax)
+    assert torch.equal(dv, dv_p)
+    assert ds.shape == ds_p.shape == (shape[0],)
+    assert bool(((ds - ds_p).abs()
+                 <= _ds_tol_per_slice(v, s, g, qmin, qmax, ds_p)).all())
+    # one scale: the scalar ds of before
+    one = s[2].reshape(())
+    dv1, ds1 = ops.fake_quant_bwd(v, one, g, qmin, qmax)
+    dv1_p, ds1_p = ref.fake_quant_grads_ref(v, one, g, qmin, qmax)
+    assert ds1.dim() == 0 and torch.equal(dv1, dv1_p)
+    assert abs(float(ds1) - float(ds1_p)) <= _ds_tol(v, one, g, qmin, qmax,
+                                                     ds1_p)
+
+
+def test_moe_qat_step_through_the_kernels_matches_plain(dev):
+    """One QAT step of deepseek-moe-16b's smoke config cut to 2 layers (the
+    dense layer and one MoE layer of 8 experts) on the card: through the
+    fake-quant kernels (the expert stacks' weights and inputs with a scale
+    per expert) and through their plain versions. The forward is bit for
+    bit, so the loss is equal; the gradients within 1e-4 (relative L2 of
+    each leaf: ds sums in another order), every expert bank's included; the
+    updated params after one AdamW step within 1e-5."""
+    from repro_torch import optim, training
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.models.quant_layers import QuantContext
+    from repro_torch.training import value_and_grad
+    cfg = smoke_config("deepseek-moe-16b").scaled(n_layers=2)
+    ctx = QuantContext.make(cfg.bits, cfg.quant_act_signed,
+                            compute_dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in SyntheticLM(cfg).batch(0, 2, 64).items()}
+    bits = lm.bits_uniform(cfg, 1)
+    params = lm.init_params(cfg, seed=0, device=dev)
+
+    def leaves(tree, pre=""):
+        out = {}
+        for k, v in tree.items():
+            key = f"{pre}/{k}" if pre else k
+            out.update(leaves(v, key) if isinstance(v, dict) else {key: v})
+        return out
+
+    def run():
+        ops.reset_launches()
+        loss, _, g = value_and_grad(
+            lambda p: lm.loss_fn(p, cfg, batch, bits, ctx, remat=False),
+            params)
+        opt = optim.adamw(3e-3, clip_norm=1.0)
+        step = training.make_train_step(cfg, ctx, opt, bits, remat=False)
+        new, _, _ = step(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        return loss, leaves(g), leaves(new), dict(ops.launches)
+
+    lk, gk, pk, nk = run()
+    with ops.plain_on_cuda("fake_quant_fwd", "fake_quant_bwd"):
+        lp, gp, pp, np_ = run()
+    assert nk["fake_quant_bwd"] > 0 and np_["fake_quant_bwd"] == 0
+    assert torch.equal(lk, lp)
+    banks = [k for k in gp if "/moe/" in k and k.endswith(("s_w", "s_a"))
+             and "shared" not in k]
+    assert len(banks) == 6
+    for k in gp:
+        rel = float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30))
+        assert rel <= 1e-4, (k, rel)
+    for k in pp:
+        torch.testing.assert_close(pk[k], pp[k], rtol=1e-5, atol=1e-7)
 
 
 def test_moe_combine_and_expert_layer_repeat_bit_for_bit(dev):

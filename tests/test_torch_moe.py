@@ -261,7 +261,8 @@ def test_combine_sums_in_expert_order_and_repeats():
 def test_fake_quant_ref_per_slice_matches_reference(shape):
     """The plain per-slice fake-quant (one scale for each leading slice, the
     wrapper's trailing-ones form) equals the reference's broadcasting
-    ``fake_quant`` bit for bit, and one scale is the old plain version."""
+    ``fake_quant`` bit for bit, and one scale is the old plain version; the
+    backward takes the same scales."""
     rng = np.random.default_rng(len(shape))
     v = _f32(rng, *shape) * 3
     s = rng.uniform(0.05, 0.5, (shape[0],) + (1,) * (len(shape) - 1)) \
@@ -277,8 +278,11 @@ def test_fake_quant_ref_per_slice_matches_reference(shape):
                        torch.round(torch.clamp(tv / one, -8, 7)) * one)
     with pytest.raises(TypeError, match="leading"):
         ops.fq_scale_slices(tv, ts.reshape(-1))
-    with pytest.raises(NotImplementedError, match="per slice"):
-        ops.fake_quant_bwd(tv, ts, tv, -8.0, 7.0)
+    # the backward takes the same scales: one ds per slice
+    dv, ds = ops.fake_quant_bwd(tv, ts, tv, -8.0, 7.0)
+    assert dv.shape == tv.shape and ds.shape == (shape[0],)
+    with pytest.raises(TypeError, match="leading"):
+        ops.fake_quant_bwd(tv, ts.reshape(-1), tv, -8.0, 7.0)
 
 
 def test_packed_expert_route_bitwise_equals_fake_quant_graph():
@@ -440,20 +444,3 @@ def test_site_source_packs_site_by_site(world):
     for pa, pb in zip(la, lb):
         assert torch.equal(pa.codes, pb.codes)
         assert torch.equal(pa.scale, pb.scale)
-
-
-def test_pages_and_speculation_refuse_moe_for_a_later_slice(world):
-    """The port serves MoE over the ring only: pages and speculation raise
-    the later-slice refusal (not the reference's attention-only one), in
-    the engine and the CLI."""
-    tcfg = world["tcfg"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        teng.check_kv_layout(tcfg, "paged")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        teng.check_speculate(tcfg, 2)
-    teng.check_kv_layout(tcfg, "ring")
-    teng.check_speculate(tcfg, 0)
-    for flags in (["--kv-layout", "paged"], ["--speculate", "2"]):
-        with pytest.raises(SystemExit, match="later slice"):
-            tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu"]
-                        + flags)
