@@ -153,7 +153,9 @@ In order:
    tokens unchanged; the off / on repeats are cut for the time limit);
    then budgeted on
    the device table the first run measured (``--chip-table``): the tokens
-   unchanged, both chunks printed. Last, the 8 requests over pooled pages
+   unchanged, both chunks printed (these two runs serve the continuous
+   schedule only: their fixed-schedule reruns are cut for the time
+   limit). Last, the 8 requests over pooled pages
    sharing 128 prompt tokens, speculating (``--speculate 4 --draft-bits
    2`` on a policy file the CLI wrote): the trace reconciles (prefix
    hits, one ``spec_verify`` per round), ``spec.accept_len`` holds one
@@ -269,7 +271,7 @@ In order:
     card beside its packing, so each MoE site's seeded params are made on
     the card when ``SpecSession(site_source=...)`` packs it, under the
     target policy and the 2-bit draft policy of phase 17, and dropped
-    before the next (``moe_site_source``): one pack serves phases 15-17;
+    before the next (``site_source``): one pack serves phases 15-17;
     the host's MemTotal and MemAvailable are printed. First the combine at deepseek's shapes (4
     tokens, and 256 whose capacity of 128 drops picks): two equal calls
     bit for bit equal, and equal to the CPU's evaluation. Gates: (a) the
@@ -289,8 +291,9 @@ In order:
     equal. Printed: tok/s, step and prefill p50, peak device memory, the
     profiled step's device-busy share and the phase's seconds. At 28
     layers the float32 tree and a reference engine do not fit beside the
-    packed session: no reference comparison there. Then at 3 layers (the
-    dense layer and two MoE layers) at full width: the run through every
+    packed session: no reference comparison there. Then at 2 layers (the
+    dense layer and one MoE layer; 3 before the vision phase, cut for the
+    time limit) at full width: the run through every
     kernel token for token the same session on the matmuls' plain
     versions, and the run on the dequant-fp matmul route equal to the
     fake-quant reference on every decisive step (``serve.compare_greedy``
@@ -302,7 +305,7 @@ In order:
     matmul and fake-quant kernels launched, no kernel-eligible projection
     on dequant-fp; prefix hits and fewer tokens prefilled than the ring
     phase; a clean pool; packed bytes exactly the policy's; no host sync
-    in a paged decode step. Then phase 15's 3-layer gates over pages: the
+    in a paged decode step. Then phase 15's 2-layer gates over pages: the
     all-kernel run token for token the plain-matmul run, the dequant-fp
     run equal on decisive steps to the fake-quant reference served over
     pages under the same schedule (an append chunk's pad rows attend the
@@ -313,7 +316,9 @@ In order:
     ``speculate=4`` and its 2-bit draft, the first wave of phases 15 and
     16 (4 requests, one a slot into fresh caches: the time limit; over
     pages a later admission's chunk has pad rows that attend the rows
-    another history left in its pages, ROADMAP §3). Gates as phase 6:
+    another history left in its pages, ROADMAP §3), each to 16 new tokens
+    held to the first 16 of the token-at-a-time run's (32 before the
+    vision phase, cut for the time limit). Gates as phase 6:
     tokens equal that layout's token-at-a-time run on every decisive
     step, 28 verify launches a round and no one-token
     launch in the verify pass, no sync inside a round, a clean pool and
@@ -331,6 +336,47 @@ In order:
     with 64 scales, and 4 ``flash_fwd`` at G 1, hd 128; then gate (e) at 3
     layers, printed at 4. Printed: step ms, the ILP's ms, peak memory, a
     profiled QAT step.
+19. vision phase: llama-3.2-vision-11b at its published widths and depth
+    (48 sites: 8 x (5 self-attention layers, then a gated cross-attention
+    layer over 1600 image tokens); d_model 4096, 32 query heads on 8 kv
+    heads of 128, gated-silu d_ff 14336, vocab 128256, untied head;
+    seeded random weights, 11.53 B parameters, 46.1 GB in float32) under
+    ``demo_mixed_policy`` (336 projections), every cross layer's
+    ``gate_attn`` and ``gate_mlp`` set to ``VISION_GATE`` (the reference
+    inits them to 0, and tanh(0) = 0 would make the tokens independent
+    of the image); each site made on the card and packed before the next
+    (``site_source``). First the kernel rows at its shapes: both matmuls
+    at M = 4 on its decode projections, the int8 one at M = 1600 on the
+    image K/V projection, decode attention at KV 8, G 4 over the 320-row
+    ring. Then the serve phase's 8 requests over 4 slots and a 320-row
+    ring, each carrying one of two seeded (1600, 1280) patch-embedding
+    images (slots serve both in turn). Gates: (a) the ring kernels and
+    the pinned fake-quant launched, no other layout's, no kernel-eligible
+    projection on dequant-fp; one prefill launches a matmul kernel per
+    projection (336: the cross layers' wk / wv on the image, at M = 1600)
+    and 4 fake-quant (the image projection's and the head's weight and
+    input); one decode step launches 320 matmul kernels (every projection
+    but the cross layers' wk / wv, whose K/V the slot's state holds), 40
+    ``decode_attn_quant`` (one per self-attention layer) and 2 fake-quant
+    (the head), and under the profiler ``DECODE_STEP_LAUNCHES["vision"]``
+    kernels in all; (b) no host synchronisation inside a decode step; (c)
+    finite prefill and decode logits, two equal decode steps bit for bit
+    equal; (d) the image is read: request 0's prefill logits under the two
+    images differ (printed), and with the gates at 0 they are bit for bit
+    equal; (e) packed bytes exactly the policy's; (f) at one unit of the
+    pattern (5 self-attention layers and a cross layer) at full width, as
+    phase 15's 2-layer gates: the all-kernel run token for token the
+    plain-matmul run, the dequant-fp run equal on decisive steps to the
+    fake-quant reference with its float64 control (at 48 sites the two
+    reference engines would take the phase past its time budget).
+    Printed: tok/s, step and prefill p50, peak device memory, a profiled
+    decode step's launches and busy share.
+
+For the vision phase's time, earlier phases were cut (each named where it
+applies): the kernel rows' timed launches (``KERNEL_REPS``, 40 to 20),
+the MoE token gates' depth (``MOE_CUT``, 3 to 2 layers), the serve CLI's
+fixed-schedule reruns under ``--no-trace`` and ``--chip-table``, and the
+MoE speculative phases' new tokens (``MOE_SPEC_GEN``, 32 to 16).
 
 Every phase's seconds and the script's are printed as ``[time]`` lines.
 Any failure exits non-zero. The line before the last is a JSON object with
@@ -338,6 +384,7 @@ one entry per kernel; the last is ``{"ok": true, "device": {...}}``. The
 per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -345,6 +392,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -472,10 +520,10 @@ RGEMMA_ATTN = [("recurrentgemma-2b", 1, 10, 2048, 2048, 256),
 # query head each (G = 1), the serve phase's 320-row ring
 DEEPSEEK_ATTN = [("deepseek-moe-16b", 16, 1, None, MAIN_SC, 128)]
 # the MoE phase: its arch, the depth of its token gates (the dense layer
-# and two MoE layers), and the per-expert fake-quant cases: deepseek's
+# and one MoE layer, cut for the script's time limit), and the per-expert fake-quant cases: deepseek's
 # (64 experts, 4 tokens a decode step of 4 slots, d_model) expert input,
 # and one (64, 2048, 1408) expert weight stack
-MOE_ARCH, MOE_CUT = "deepseek-moe-16b", 3
+MOE_ARCH, MOE_CUT = "deepseek-moe-16b", 2
 FQ_EXPERT_SHAPES = [(64, 4, 2048), (64, 2048, 1408)]
 # the backward with a scale per expert in MoE training: one expert weight
 # stack, and the expert input of B*S = 2048 tokens (capacity 256 each)
@@ -484,6 +532,9 @@ FQ_EXPERT_BWD_SHAPES = [(64, 2048, 1408), (64, 256, 2048)]
 # layers; 28 layers' weights, gradients and AdamW moments take ~262 GB),
 # and the depth of its gate (e)
 MOE_TRAIN_LAYERS, MOE_TRAIN_CUT = 4, 3
+# the MoE speculative phases' new tokens a request (cut for the script's
+# time limit)
+MOE_SPEC_GEN = GEN // 2
 # hybrid serve phase: the serve phase's 8 requests and one long one whose
 # prefill takes the flash kernel at hd 256 (2560 tokens: a multiple of the
 # 512-row q block past the 2048-token threshold, past the window), over
@@ -500,12 +551,27 @@ TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
 # the audio phase's arch and the depth of its gate (e)
 AUDIO_ARCH, AUDIO_CUT = "hubert-xlarge", 2
 # kernel launches of one profiled Qwen3-0.6B decode step over the ring and
-# over pages, and of one RecurrentGemma-2B and one DeepSeek-MoE-16B step
-# over the ring: one launch per matmul and attention call (and, for the
-# MoE step, per expert input's fake-quant), no more
+# over pages, and of one RecurrentGemma-2B, DeepSeek-MoE-16B and
+# Llama-3.2-Vision-11B step over the ring: one launch per matmul and
+# attention call (and, for the MoE step, per expert input's fake-quant), no
+# more
 DECODE_STEP_LAUNCHES = {"serve": 4707, "paged": 5239, "hybrid": 3548,
-                        "moe": 7858}
+                        "moe": 7858, "vision": 7038}
+# the vision phase: its arch, the depth of its token gates (one unit of the
+# pattern: 5 self-attention layers and a cross layer), the value every cross
+# layer's gate_attn and gate_mlp is set to (the reference inits them to 0,
+# and tanh(0) = 0 would hide the image), and its kernel rows: the (K, N) of
+# its decode projections on the kernels (wq and wo, wk / wv of the self
+# layers at 8 kv heads, mlp_wi / wg, mlp_wo), the image K/V projection
+# (n_image_tokens rows, once per admission) and its decode attention (KV 8,
+# G 4 over the 320-row ring)
+VISION_ARCH, VISION_CUT, VISION_GATE = "llama-3.2-vision-11b", 5, 0.5
+VISION_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+VISION_IMG_M, VISION_IMG_KN = 1600, (4096, 1024)
+VISION_ATTN = [("llama-3.2-vision-11b", 8, 4, None, MAIN_SC, 128)]
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
+# event-timed launches of a kernel row (cut for the script's time limit)
+KERNEL_REPS = 20
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
 # layers: loss rtol, and per-gradient-leaf relative L2, the reference's ds
 # rtol 1e-3 (tests/test_kernels.py:55). It holds only while every quantizer
@@ -532,7 +598,7 @@ def gate(ok: bool, what: str) -> None:
         raise GateError(what)
 
 
-def cuda_ms(torch, fn, flush, reps: int = 40, warmup: int = 5,
+def cuda_ms(torch, fn, flush, reps: Optional[int] = None, warmup: int = 5,
             clean: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each after an L2
     flush (the serving path reads every weight cold). A spin kernel of
@@ -544,7 +610,7 @@ def cuda_ms(torch, fn, flush, reps: int = 40, warmup: int = 5,
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(reps or KERNEL_REPS):
         torch.cuda._sleep(SPIN_CYCLES)
         if clean:
             flush.max()
@@ -642,67 +708,72 @@ def print_kernel_resources(_build, ops) -> None:
         gate(local == 0 or not name.startswith("wkv"), f"{name} spills")
 
 
+def matmul_row(torch, ops, ref, flush, dev, w4: bool, M: int, K: int,
+               N: int) -> dict:
+    """One matmul kernel (``w4``: the nib4 one) at (M, K, N) on seeded codes:
+    bit for bit its plain version, then timed beside it and, for int8,
+    ``torch._int_mm``; the plain version runs fewer timed reps at the
+    shapes of 2**24 weights or more."""
+    name = "quant_matmul_w4" if w4 else "quant_matmul"
+    g = torch.Generator(device=dev).manual_seed(K * 31 + N + M)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    if w4:
+        w = torch.randint(0, 256, (K // 2, N), generator=g, device=dev,
+                          dtype=torch.uint8)
+    else:
+        w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+    s_x = torch.tensor(0.0173, device=dev)
+    s_w = torch.tensor([0.0391], device=dev)
+    kern = ops.quant_matmul_w4 if w4 else ops.quant_matmul
+    plain = ref.quant_matmul_w4_ref if w4 else ref.quant_matmul_ref
+    out = kern(x, w, s_x, s_w)
+    want = plain(x, w, s_x, s_w)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    gate(torch.equal(out, want),
+         f"{name} M={M} K={K} N={N} differs from its plain version (max "
+         f"|err| {err})")
+    lib_ms = None
+    if not w4:
+        # torch._int_mm takes M > 16 only: the decode shape is timed with x
+        # zero-padded to 32 rows
+        xm = x if M > 16 else torch.cat([x, x.new_zeros((32 - M, K))])
+        lib_ms = cuda_ms(torch, lambda: torch._int_mm(xm, w), flush)
+    n_bytes = M * K + w.numel() + 8 + M * N * 4
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * M * K * N, INT8_OPS_PER_S)
+    # the decode rows of the two serve shapes also after a flush that
+    # leaves the L2 clean
+    clean_ms = cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush,
+                       clean=True) \
+        if M == 4 and (K, N) in (MAIN_KN, RWKV6_KN[1]) else None
+    row = dict(
+        name=name, shape=f"M={M} K={K} N={N}", max_abs_err=err,
+        clean_l2_ms=clean_ms,
+        ms=cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush),
+        plain_ms=cuda_ms(torch, lambda: plain(x, w, s_x, s_w), flush,
+                         reps=KERNEL_REPS if K * N < 1 << 24 else 10),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        main=(M == 4 and (K, N) == MAIN_KN))
+    print(f"[kernel] {name:16s} M={M:<3d} K={K:<4d} N={N:<4d} "
+          f"err={err:.1e} ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+          f"lib={lib_ms if lib_ms is None else round(lib_ms, 4)} "
+          f"bound={b_ms:.4f}({b_by})"
+          + ("" if clean_ms is None else f" clean-L2={clean_ms:.4f}"),
+          flush=True)
+    return row
+
+
 def matmul_phase(torch, ops, ref, flush, dev):
     """Both matmul kernels at M = 4 (decode: ``qmm_int8``'s split-K route)
     and M = 128 (prefill: its tensor-core route) over the Qwen3-0.6B,
     RWKV6-7B, StarCoder2-7B and RecurrentGemma-2B projection shapes, bit
     for bit their plain versions; the plain versions run fewer timed reps
     at the shapes of 2**24 weights or more."""
-    rows = []
-    for w4 in (False, True):
-        name = "quant_matmul_w4" if w4 else "quant_matmul"
-        for M in (4, PREFILL_M):
-            for K, N in MATMUL_KN:
-                g = torch.Generator(device=dev).manual_seed(K * 31 + N + M)
-                x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
-                                  dtype=torch.int8)
-                if w4:
-                    w = torch.randint(0, 256, (K // 2, N), generator=g,
-                                      device=dev, dtype=torch.uint8)
-                else:
-                    w = torch.randint(-128, 128, (K, N), generator=g,
-                                      device=dev, dtype=torch.int8)
-                s_x = torch.tensor(0.0173, device=dev)
-                s_w = torch.tensor([0.0391], device=dev)
-                kern = ops.quant_matmul_w4 if w4 else ops.quant_matmul
-                plain = ref.quant_matmul_w4_ref if w4 else ref.quant_matmul_ref
-                out = kern(x, w, s_x, s_w)
-                want = plain(x, w, s_x, s_w)
-                torch.cuda.synchronize()
-                err = float((out - want).abs().max())
-                gate(torch.equal(out, want),
-                     f"{name} M={M} K={K} N={N} differs from its plain "
-                     f"version (max |err| {err})")
-                lib_ms = None
-                if not w4:
-                    # torch._int_mm takes M > 16 only: the decode shape is
-                    # timed with x zero-padded to 32 rows
-                    xm = x if M > 16 else torch.cat(
-                        [x, x.new_zeros((32 - M, K))])
-                    lib_ms = cuda_ms(torch, lambda: torch._int_mm(xm, w), flush)
-                n_bytes = M * K + w.numel() + 8 + M * N * 4
-                b_ms, b_by = bound_ms(n_bytes, 2.0 * M * K * N, INT8_OPS_PER_S)
-                # the decode rows of the two serve shapes also after a
-                # flush that leaves the L2 clean
-                clean_ms = cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush,
-                                   clean=True) \
-                    if M == 4 and (K, N) in (MAIN_KN, RWKV6_KN[1]) else None
-                rows.append(dict(
-                    name=name, shape=f"M={M} K={K} N={N}", max_abs_err=err,
-                    clean_l2_ms=clean_ms,
-                    ms=cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush),
-                    plain_ms=cuda_ms(torch, lambda: plain(x, w, s_x, s_w),
-                                     flush, reps=40 if K * N < 1 << 24
-                                     else 10),
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    main=(M == 4 and (K, N) == MAIN_KN)))
-                print(f"[kernel] {name:16s} M={M:<3d} K={K:<4d} N={N:<4d} "
-                      f"err={err:.1e} ms={rows[-1]['ms']:.4f} "
-                      f"plain={rows[-1]['plain_ms']:.4f} "
-                      f"lib={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-                      f"bound={b_ms:.4f}({b_by})"
-                      + ("" if clean_ms is None
-                         else f" clean-L2={clean_ms:.4f}"), flush=True)
+    rows = [matmul_row(torch, ops, ref, flush, dev, w4, M, K, N)
+            for w4 in (False, True) for M in (4, PREFILL_M)
+            for K, N in MATMUL_KN]
     # the nib4 kernel beside the int8 one at each (M, K, N) of this run
     by_shape = {(r["name"], r["shape"]): r for r in rows}
     not_slower = 0
@@ -730,92 +801,99 @@ def matmul_phase(torch, ops, ref, flush, dev):
 
 
 def attn_phase(torch, ops, ref, flush, dev):
-    import torch.nn.functional as F
-    rows = []
-    B = 4
     cases = [("qwen3-0.6b", 8, 2, None, Sc, 128) for Sc in (320, 4096)] + \
         [(arch, KV, G, w, Sc, 128) for arch, KV, G, w in WIDE_GQA
          for Sc in (320, 4096)] + RGEMMA_ATTN + DEEPSEEK_ATTN
-    for arch, KV, G, window, Sc, hd in cases:
-        H = KV * G
-        r = np.random.default_rng(Sc + (G if G > 2 else 0))
-        q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, 3 * Sc], np.int32)
-        pos = np.full((B, Sc), -1, np.int32)
-        for b in range(B):                     # wrapped ring: slot t % Sc
-            for t in range(max(0, q_pos[b] + 1 - Sc), q_pos[b] + 1):
-                pos[b, t % Sc] = t
-        pos[1, r.integers(0, Sc, Sc // 5)] = -1          # evicted slots
-        g = torch.Generator(device=dev).manual_seed(
-            Sc + (G if G > 2 else 0))
-        kc = torch.randint(-127, 128, (B, Sc, KV, hd), generator=g,
-                           device=dev, dtype=torch.int8)
-        vc = torch.randint(-127, 128, (B, Sc, KV, hd), generator=g,
-                           device=dev, dtype=torch.int8)
-        ks = torch.rand((B, Sc, KV), generator=g, device=dev) * 0.02 + 1e-3
-        vs = torch.rand((B, Sc, KV), generator=g, device=dev) * 0.02 + 1e-3
-        q = torch.randn((B, 1, H, hd), generator=g, device=dev)
-        pos_t = torch.from_numpy(pos).to(dev)
-        qp = torch.from_numpy(q_pos).to(dev)
-        args = (q, kc, ks, vc, vs, pos_t, qp)
-        out = ops.decode_attn_quant(*args, window=window)
-        tag = f"{arch} Sc={Sc} KV={KV} G={G} window={window} hd={hd}"
+    return [decode_attn_row(torch, ops, ref, flush, dev, *c) for c in cases]
 
-        def plain():
-            qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
-            return ref.decode_attn_quant_ref(qf, kc, ks, vc, vs, pos_t, qp,
-                                             window)
 
-        want = plain().reshape(out.shape)
-        # the kernel's own q * hd**-0.5 gives the bits of the pre-scale the
-        # wrapper launched before: a launch on the pre-scaled q with scale 1
-        prescaled = ops._quant_attn("decode_attn_quant", q * (hd ** -0.5),
-                                    kc, ks, vc, vs, pos_t, qp, None, window,
-                                    q_scale=1.0)
-        torch.cuda.synchronize()
-        err = float((out - want).abs().max())
-        gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
-             f"decode_attn_quant {tag} differs from its plain version "
-             f"(max |err| {err})")
-        gate(bool(torch.equal(out, prescaled)),
-             f"decode_attn_quant {tag}: the in-kernel q scale differs from "
-             "the pre-scaled launch")
-        # yardstick: SDPA on the dequantized cache under the same mask
-        kd = (kc.float() * ks[..., None]).permute(0, 2, 1, 3).contiguous()
-        vd = (vc.float() * vs[..., None]).permute(0, 2, 1, 3).contiguous()
-        valid = (pos_t >= 0) & (pos_t <= qp[:, None])
-        if window is not None:
-            valid &= qp[:, None] - pos_t < window
-        mask = valid[:, None, None, :]
-        qh = q.permute(0, 2, 1, 3).contiguous()
+def decode_attn_row(torch, ops, ref, flush, dev, arch, KV, G, window, Sc,
+                    hd) -> dict:
+    """``decode_attn_quant`` at B = 4 over a wrapped Sc-row int8 ring with
+    evicted rows: within rtol 2e-5 / atol 2e-6 of its plain version, bit
+    for bit a launch on q pre-scaled on the card, timed beside the plain
+    version and SDPA on the dequantized cache."""
+    import torch.nn.functional as F
+    B = 4
+    H = KV * G
+    r = np.random.default_rng(Sc + (G if G > 2 else 0))
+    q_pos = np.array([Sc + 37, Sc - 1, Sc // 2, 3 * Sc], np.int32)
+    pos = np.full((B, Sc), -1, np.int32)
+    for b in range(B):                     # wrapped ring: slot t % Sc
+        for t in range(max(0, q_pos[b] + 1 - Sc), q_pos[b] + 1):
+            pos[b, t % Sc] = t
+    pos[1, r.integers(0, Sc, Sc // 5)] = -1          # evicted slots
+    g = torch.Generator(device=dev).manual_seed(
+        Sc + (G if G > 2 else 0))
+    kc = torch.randint(-127, 128, (B, Sc, KV, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, Sc, KV, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((B, Sc, KV), generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((B, Sc, KV), generator=g, device=dev) * 0.02 + 1e-3
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    args = (q, kc, ks, vc, vs, pos_t, qp)
+    out = ops.decode_attn_quant(*args, window=window)
+    tag = f"{arch} Sc={Sc} KV={KV} G={G} window={window} hd={hd}"
 
-        def sdpa():
-            return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask,
-                                                  enable_gqa=True)
+    def plain():
+        qf = q.reshape(B, KV, G, hd) * (hd ** -0.5)
+        return ref.decode_attn_quant_ref(qf, kc, ks, vc, vs, pos_t, qp,
+                                         window)
 
-        lib = sdpa().permute(0, 2, 1, 3)
-        gate(bool(torch.allclose(lib, out, rtol=1e-3, atol=1e-4)),
-             "SDPA yardstick disagrees with the kernel")
-        # this run's work: positions read in full, then only the rows that
-        # each slot's query position and window admit
-        n_rows, att = attn_work(pos, q_pos, window)
-        n_bytes = (B * Sc * 4 + n_rows * (2 * KV * hd + 2 * KV * 4)
-                   + B * H * hd * 4 + B * 4 + B * H * hd * 4)
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att, F32_OPS_PER_S)
-        rows.append(dict(
-            name="decode_attn_quant", shape=f"B={B} {tag}",
-            max_abs_err=err,
-            ms=cuda_ms(torch, lambda: ops.decode_attn_quant(
-                *args, window=window), flush),
-            plain_ms=cuda_ms(torch, plain, flush),
-            library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
-            bound_by=b_by, main=Sc == MAIN_SC and G == 2,
-            q_scale_bitwise=True, split=attn_split(ops, B, KV, Sc, G=G)))
-        print(f"[kernel] decode_attn_quant {tag} err={err:.1e} "
-              f"{split_str(rows[-1]['split'])} "
-              f"ms={rows[-1]['ms']:.4f} plain={rows[-1]['plain_ms']:.4f} "
-              f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
-              flush=True)
-    return rows
+    want = plain().reshape(out.shape)
+    # the kernel's own q * hd**-0.5 gives the bits of the pre-scale the
+    # wrapper launched before: a launch on the pre-scaled q with scale 1
+    prescaled = ops._quant_attn("decode_attn_quant", q * (hd ** -0.5),
+                                kc, ks, vc, vs, pos_t, qp, None, window,
+                                q_scale=1.0)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    gate(bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)),
+         f"decode_attn_quant {tag} differs from its plain version "
+         f"(max |err| {err})")
+    gate(bool(torch.equal(out, prescaled)),
+         f"decode_attn_quant {tag}: the in-kernel q scale differs from "
+         "the pre-scaled launch")
+    # yardstick: SDPA on the dequantized cache under the same mask
+    kd = (kc.float() * ks[..., None]).permute(0, 2, 1, 3).contiguous()
+    vd = (vc.float() * vs[..., None]).permute(0, 2, 1, 3).contiguous()
+    valid = (pos_t >= 0) & (pos_t <= qp[:, None])
+    if window is not None:
+        valid &= qp[:, None] - pos_t < window
+    mask = valid[:, None, None, :]
+    qh = q.permute(0, 2, 1, 3).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib = sdpa().permute(0, 2, 1, 3)
+    gate(bool(torch.allclose(lib, out, rtol=1e-3, atol=1e-4)),
+         "SDPA yardstick disagrees with the kernel")
+    # this run's work: positions read in full, then only the rows that
+    # each slot's query position and window admit
+    n_rows, att = attn_work(pos, q_pos, window)
+    n_bytes = (B * Sc * 4 + n_rows * (2 * KV * hd + 2 * KV * 4)
+               + B * H * hd * 4 + B * 4 + B * H * hd * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * H * hd * att, F32_OPS_PER_S)
+    row = dict(
+        name="decode_attn_quant", shape=f"B={B} {tag}",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.decode_attn_quant(
+            *args, window=window), flush),
+        plain_ms=cuda_ms(torch, plain, flush),
+        library_ms=cuda_ms(torch, sdpa, flush), bound_ms=b_ms,
+        bound_by=b_by, main=Sc == MAIN_SC and G == 2,
+        q_scale_bitwise=True, split=attn_split(ops, B, KV, Sc, G=G))
+    print(f"[kernel] decode_attn_quant {tag} err={err:.1e} "
+          f"{split_str(row['split'])} "
+          f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+          f"sdpa={row['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
+          flush=True)
+    return row
 
 
 def _paged_pool(r, B, P, ps):
@@ -2063,7 +2141,8 @@ def profile_decode_step(torch, sess, dev, label="serve", layout=None,
     time, device time and that of the kernels named in ``watch``. With a
     paged ``layout`` each slot maps pages of its own. The
     steps labelled in ``DECODE_STEP_LAUNCHES`` (Qwen3-0.6B's, ring and
-    pages; RecurrentGemma-2B's; DeepSeek-MoE-16B's) launch exactly that
+    pages; RecurrentGemma-2B's; DeepSeek-MoE-16B's; Llama-3.2-Vision-11B's)
+    launch exactly that
     many kernels: one launch per matmul and attention call."""
     st = sess.init_state(SLOTS, cache_len, torch.float32, device=dev,
                          layout=layout)
@@ -2970,12 +3049,12 @@ def serve_cli_phase(torch, ops, dev, card):
     del ring, eng
     torch.cuda.empty_cache()
 
-    # 2. the trace's cost: the same run untraced (on, off; the repeats of
-    # PRs 19-25, on, off, off, on against the host's drift within a call,
-    # are cut for the script's time limit)
+    # 2. the trace's cost: the same run untraced (on, off; the repeats on,
+    # off, off, on against the host's drift within a call, and the fixed
+    # schedule's rerun are cut for the script's time limit)
     p50 = {"on": [res["ring"]["decode_step_p50_ms"]], "off": []}
     for mode in ("off",):
-        run = _serve_cli(serve, base + ["--compare"] + (
+        run = _serve_cli(serve, base + (
             ["--no-trace"] if mode == "off" else []))
         gate((run["eng"].trace is None) == (mode == "off") and {
             r: c.tokens for r, c in run["completions"].items()} == tokens,
@@ -2989,8 +3068,9 @@ def serve_cli_phase(torch, ops, dev, card):
     res["trace_on_off"] = dict(order=["on", "off"], decode_step_p50_ms=p50)
 
     # 3. the same, budgeted on the measured table: only the chunk moves
+    # (the fixed schedule's rerun cut for the script's time limit)
     cal_run = _serve_cli(serve, base + [
-        "--compare", "--chip-table", str(out / "device_table.json")])
+        "--chip-table", str(out / "device_table.json")])
     ceng = cal_run["eng"]
     ctoks = {r: c.tokens for r, c in cal_run["completions"].items()}
     gate(ctoks == tokens, "[cli] tokens under the measured table differ from "
@@ -3002,7 +3082,7 @@ def serve_cli_phase(torch, ops, dev, card):
           f"(trace on)", flush=True)
     res["calibrated"] = dict(
         prefill_chunk=ceng.prefill_chunk,
-        default_prefill_chunk=cal_run["fixed"].prefill_chunk,
+        default_prefill_chunk=res["ring"]["prefill_chunk"],
         decode_step_p50_ms=cd["decode_step_p50_ms"],
         decode_steps=ceng.stats.decode_steps)
     del cal_run, ceng
@@ -3710,28 +3790,35 @@ def moe_combine_check(torch, dev, cfg):
     return res
 
 
-def moe_site_source(torch, lm, cfg, dev, seed=0):
-    """(the params outside the layer sites, a site source): the embedding,
-    the dense first layer, the final norm and the untied head made at
-    once, each MoE site's seeded params made on the card when the session
-    packs it (``QuantizedSession(site_source=...)``), so the 65.5 GB
-    float32 tree never exists whole beside its packing."""
-    fd = cfg.moe.first_dense_layers
-    outer = lm.init_params(cfg.scaled(n_layers=fd), seed=seed, device=dev)
+def site_source(torch, lm, cfg, dev, seed=0, prep=None):
+    """(the params outside the body and suffix sites, a site source): the
+    embedding (and a vision config's image projection), the prefix layers
+    (deepseek's dense first layer), the final norm and the untied head
+    made at once, each other site's seeded params made on the card when
+    the session packs it (``QuantizedSession(site_source=...)``) and
+    handed to ``prep(params)`` first, so a float32 tree too large
+    for the card beside its packing (deepseek-moe-16b's 65.5 GB) never
+    exists whole."""
+    n_prefix = len(lm.build_schedule(cfg).prefix)
+    outer = lm.init_params(cfg.scaled(n_layers=n_prefix), seed=seed,
+                           device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def source(site):
         if site.segment.startswith("prefix."):
             return lm.site_params(outer, site)
-        return lm.layer_init(gen, cfg, site.kind, device=dev)
+        p = lm.layer_init(gen, cfg, site.kind, device=dev)
+        if prep is not None:
+            prep(p)
+        return p
 
     return outer, source
 
 
-def moe_engine(torch, sess, dev, reqs, layout="ring", speculate=0):
-    """Drain ``reqs`` through an engine over ``sess`` (the MoE phases' one
-    site-by-site pack) on ``layout``, the serve phase's slots, ring rows
-    and prefill chunk: (engine, completions, wall seconds)."""
+def packed_engine(torch, sess, dev, reqs, layout="ring", speculate=0):
+    """Drain ``reqs`` through an engine over ``sess`` (a site-by-site pack
+    of the MoE or vision phases) on ``layout``, the serve phase's slots,
+    ring rows and prefill chunk: (engine, completions, wall seconds)."""
     from repro_torch.launch.engine import DecodeEngine, EngineConfig
     eng = DecodeEngine(sess.params, sess.cfg, None, sess.ctx, adapter=sess,
                        device=dev, ecfg=EngineConfig(
@@ -3800,7 +3887,7 @@ def moe_serve_phase(torch, ops, dev, card):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     t0 = time.perf_counter()
-    outer, source = moe_site_source(torch, lm, cfg, dev)
+    outer, source = site_source(torch, lm, cfg, dev)
     # the target and the speculative phases' 2-bit draft, each site made
     # once and packed under both policies before the next
     sess = serve.build_session(cfg, outer, policy, speculate=SPEC_K,
@@ -3809,7 +3896,7 @@ def moe_serve_phase(torch, ops, dev, card):
     pack_s = time.perf_counter() - t0
     del outer
     with fresh_route_counts(sess) as routes:
-        eng, out, wall = moe_engine(torch, sess, dev, reqs)
+        eng, out, wall = packed_engine(torch, sess, dev, reqs)
     launches = {k: ops.launches[k] for k in SERVE_KERNELS
                 + ("fake_quant_fwd",)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3910,8 +3997,8 @@ def moe_serve_phase(torch, ops, dev, card):
     torch.cuda.empty_cache()
     t_full = time.perf_counter() - t_phase
 
-    # (b) the token gates at the dense layer and two MoE layers, full width
-    greedy, unstable_cut = moe_cut_gates(torch, ops, dev, cfg, reqs, "ring",
+    # (b) the token gates at the dense layer and one MoE layer, full width
+    greedy, unstable_cut = cut_gates(torch, ops, dev, cfg, reqs, "ring",
                                          "moe")
     t_all = time.perf_counter() - t_phase
     print(f"[moe] phase {t_all:.1f}s ({t_full:.1f}s at full depth); {card}",
@@ -3946,21 +4033,26 @@ def no_sync(torch, fn, what):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def moe_cut_gates(torch, ops, dev, cfg, reqs, layout, label):
-    """deepseek-moe-16b at full width cut to ``MOE_CUT`` layers (the dense
-    layer and two MoE layers) over ``layout``: the run through every kernel
-    token for token the same session on the matmuls' plain versions, and
-    the run on the dequant-fp matmul route equal to the fake-quant
-    reference served over the same layout under the same schedule on every
-    decisive step, with its float64 control; the all-kernel run against
-    the reference printed. Returns (per-run comparisons, the rids where
-    the reference's float32 and float64 evaluations part)."""
+def cut_gates(torch, ops, dev, cfg, reqs, layout, label, n_layers=MOE_CUT,
+              prep=None):
+    """``cfg`` at full width cut to ``n_layers`` layers (deepseek-moe-16b:
+    the dense layer and one MoE layer; llama-3.2-vision-11b: one unit of
+    its pattern) over ``layout``, the seeded params handed to
+    ``prep(params)`` first: the run through every kernel token for token
+    the same session on the matmuls' plain versions, and the run on the
+    dequant-fp matmul route equal to the fake-quant reference served over
+    the same layout under the same schedule on every decisive step, with
+    its float64 control; the all-kernel run against the reference
+    printed. Returns (per-run comparisons, the rids where the reference's
+    float32 and float64 evaluations part)."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.runtime import dispatch
 
-    cut = cfg.scaled(n_layers=MOE_CUT)
+    cut = cfg.scaled(n_layers=n_layers)
     params = lm.init_params(cut, seed=0, device=dev)
+    if prep is not None:
+        prep(params)
     policy_cut = serve.demo_mixed_policy(cut)
     kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
               device=dev, kv_layout=layout, page_size=PAGE_SIZE)
@@ -3973,7 +4065,7 @@ def moe_cut_gates(torch, ops, dev, cfg, reqs, layout, label):
     def served(what):
         n0 = {k: ops.launches[k] for k in mm + (attn, "fake_quant_fwd")}
         with fresh_route_counts(sess) as routes:
-            _, o, _ = moe_engine(torch, sess, dev, reqs, layout)
+            _, o, _ = packed_engine(torch, sess, dev, reqs, layout)
         n = {k: ops.launches[k] - n0[k] for k in n0}
         print(f"[{label}] {cut.n_layers} layers, {what}: launches {n}, "
               f"routes {routes.routes}", flush=True)
@@ -4056,7 +4148,7 @@ def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     with fresh_route_counts(sess) as routes:
-        eng, out, wall = moe_engine(torch, sess, dev, reqs, "paged")
+        eng, out, wall = packed_engine(torch, sess, dev, reqs, "paged")
     launches = {k: ops.launches[k] for k in SERVE_KERNELS
                 + ("fake_quant_fwd",)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4121,7 +4213,7 @@ def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
           "sync", flush=True)
     del st0
     t_full = time.perf_counter() - t_phase
-    greedy, unstable = moe_cut_gates(torch, ops, dev, cfg, reqs, "paged",
+    greedy, unstable = cut_gates(torch, ops, dev, cfg, reqs, "paged",
                                      "moe-paged")
     t_all = time.perf_counter() - t_phase
     print(f"[moe-paged] phase {t_all:.1f}s ({t_full:.1f}s at full depth); "
@@ -4159,13 +4251,17 @@ def moe_spec_phase(torch, ops, dev, card, sess, layout, base):
     # caches (the script's time limit; and over pages a later admission's
     # chunk has pad rows that attend the rows another history left in its
     # pages and compete for an expert's capacity: ROADMAP §3)
-    reqs = reqs[:SLOTS]
+    # and each to MOE_SPEC_GEN new tokens, held to the first MOE_SPEC_GEN
+    # of the token-at-a-time run's (the script's time limit)
+    reqs = [r._replace(max_new=MOE_SPEC_GEN) for r in reqs[:SLOTS]]
+    base_out = {rid: dataclasses.replace(c, tokens=c.tokens[:MOE_SPEC_GEN])
+                for rid, c in base_out.items()}
     rids = {r.rid for r in reqs}
     paged_hits = sum(ev.args["tokens"] for ev in base_eng.trace.events
                      if ev.name == "prefix_hit" and ev.args["rid"] in rids)
     ops.reset_launches()                         # counts: the main path only
     with spec_probe(torch, ops) as rec, fresh_route_counts(sess) as routes:
-        eng, out, wall = moe_engine(torch, sess, dev, reqs, layout,
+        eng, out, wall = packed_engine(torch, sess, dev, reqs, layout,
                                     speculate=SPEC_K)
     launches = {k: ops.launches[k] for k in SERVE_KERNELS
                 + ("fake_quant_fwd",)}
@@ -4212,7 +4308,8 @@ def moe_spec_phase(torch, ops, dev, card, sess, layout, base):
          f"{sorted(rids)}")
     for r in reqs:
         toks = out[r.rid].tokens
-        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+        gate(len(toks) == MOE_SPEC_GEN
+             and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     same, total, compared, bad = serve.compare_spec(out, base_eng, base_out)
     print(f"[{label}] tokens vs token-at-a-time over the {layout}: {same} of "
@@ -4256,6 +4353,267 @@ def moe_train_phase(torch, ops, dev):
     res["vs_plain"] = vs_plain_gates(torch, ops, dev, MOE_ARCH, MOE_TRAIN_CUT,
                                      "moe-train", full=MOE_TRAIN_LAYERS)
     return launches, res
+
+
+def vision_requests(cfg):
+    """The serve phase's 8 requests, each carrying one of two seeded
+    (n_image_tokens, 1280) float32 patch-embedding images (alternating, so
+    every slot serves both in turn), and the two images."""
+    rng = np.random.default_rng(1280)
+    imgs = [rng.standard_normal((cfg.n_image_tokens, 1280)).astype(np.float32)
+            for _ in range(2)]
+    reqs = [r._replace(extra_inputs={"img": imgs[r.rid % 2]})
+            for r in serve_requests(cfg)]
+    return reqs, imgs
+
+
+def set_cross_gates(tree, value: float = VISION_GATE) -> None:
+    """Every cross layer's ``gate_attn`` and ``gate_mlp`` in ``tree`` (one
+    site's params or a whole param tree) set to ``value`` in place: the
+    reference inits them to 0, which hides the image."""
+    for k, v in tree.items():
+        if k in ("gate_attn", "gate_mlp"):
+            v.fill_(value)
+        elif isinstance(v, dict):
+            set_cross_gates(v, value)
+
+
+@contextlib.contextmanager
+def cross_gates(torch, sess, value: float):
+    """The packed session's cross-layer gates set to ``value`` for the
+    scope (the packed tree's gate tensors swapped, then restored)."""
+    keys = [k for k, sp in sess.params["sites"].items() if "gate_attn" in sp]
+    keep = {k: {g: sess.params["sites"][k][g] for g in ("gate_attn",
+                                                          "gate_mlp")}
+            for k in keys}
+    for k in keys:
+        for g, t in keep[k].items():
+            sess.params["sites"][k][g] = torch.full_like(t, value)
+    try:
+        yield
+    finally:
+        for k in keys:
+            sess.params["sites"][k].update(keep[k])
+
+
+def vision_kernel_rows(torch, ops, ref, dev):
+    """The ring kernels at llama-3.2-vision-11b's shapes: both matmuls at
+    M = 4 on its decode projections, the int8 one at M = 1600 on the
+    image K/V projection, decode attention at KV 8, G 4 over the 320-row
+    ring; each held to its plain version and timed beside it."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = [matmul_row(torch, ops, ref, flush, dev, w4, 4, K, N)
+            for w4 in (False, True) for K, N in VISION_KN]
+    rows.append(matmul_row(torch, ops, ref, flush, dev, False, VISION_IMG_M,
+                           *VISION_IMG_KN))
+    rows += [decode_attn_row(torch, ops, ref, flush, dev, *c)
+             for c in VISION_ATTN]
+    del flush
+    return rows
+
+
+def vision_serve_phase(torch, ops, ref, dev, card):
+    """llama-3.2-vision-11b at full width and depth over the ring (module
+    docstring, phase 19). Returns (kernel rows, launches, results)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.session import summarize
+
+    t_phase = time.perf_counter()
+    rows = vision_kernel_rows(torch, ops, ref, dev)
+    t_rows = time.perf_counter() - t_phase
+    cfg = get_config(VISION_ARCH)
+    sites = lm.iter_sites(cfg)
+    n_cross = sum(s.kind == "cross" for s in sites)
+    n_self = len(sites) - n_cross
+    ql = lm.enumerate_qlayers(cfg)
+    n_params = lm.param_count(lm.init_params(cfg, device="meta"))
+    policy = serve.demo_mixed_policy(cfg)
+    reqs, imgs = vision_requests(cfg)
+    sched = lm.build_schedule(cfg)
+    print(f"[vision] {cfg.name}: {len(sites)} sites, {sched.pattern} x "
+          f"{sched.repeats} ({n_self} self-attention, {n_cross} gated "
+          f"cross-attention over {cfg.n_image_tokens} image tokens), "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"(G={cfg.n_heads // cfg.n_kv_heads}) head_dim={cfg.hd} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab}; {len(ql)} projections, "
+          f"{n_params} parameters ({4 * n_params / 1e9:.1f} GB f32); every "
+          f"cross layer's gate_attn and gate_mlp set to {VISION_GATE} (the "
+          f"reference's init of 0 hides the image); {card}", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    outer, source = site_source(torch, lm, cfg, dev, prep=set_cross_gates)
+    sess = serve.build_session(cfg, outer, policy, site_source=source)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    del outer
+    with fresh_route_counts(sess) as routes:
+        eng, out, wall = packed_engine(torch, sess, dev, reqs)
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS
+                + ("fake_quant_fwd",)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    print(f"[vision] packed site by site (seeded init) in {pack_s:.2f}s; "
+          f"ring KV: {len(out)} requests (2 images) in {wall:.2f}s wall: "
+          f"prefill p50 {d['prefill_p50_ms']:.2f} ms, decode step p50 "
+          f"{d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.1f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens, {st.prefill_tokens} prompt "
+          f"tokens); peak device memory {peak_gb:.2f} GB; {card}",
+          flush=True)
+    print(f"[vision] launches {launches}; routes {routes.routes}", flush=True)
+    # (a) the ring kernels and the pinned fake-quant launched, no other
+    # layout's; no kernel-eligible projection on dequant-fp
+    gate(all(launches[k] > 0 for k in RING_KERNELS + ("fake_quant_fwd",))
+         and not any(launches[k] for k in SERVE_KERNELS
+                     if k not in RING_KERNELS),
+         f"vision serving launched {launches}")
+    gate(routes.eligible_fp == 0,
+         f"{routes.eligible_fp} kernel-eligible matmuls ran dequant-fp")
+    gate(set(routes.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {routes.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    # (e) packed bytes exactly the policy's
+    s = summarize(sess)
+    print(f"[vision] packed weights {s['packed_bytes']} B vs policy "
+          f"{s['policy_bytes']:.0f} B (x{s['packed_vs_policy']:.4f})",
+          flush=True)
+    gate(s["packed_bytes"] == s["policy_bytes"],
+         f"packed bytes {s['packed_bytes']} B, the policy's "
+         f"{s['policy_bytes']:.0f} B")
+
+    # one prefill: every projection on a matmul kernel (the cross layers'
+    # wk / wv once, at M = n_image_tokens), the pinned image projection's
+    # and head's weight and input on fake-quant
+    def prefill(img, tokens=reqs[0].tokens):
+        return sess.prefill(sess.params, {
+            "tokens": torch.as_tensor(tokens, device=dev)[None],
+            "img": torch.as_tensor(img, device=dev)[None]},
+            prefill_cap=CACHE_LEN)
+
+    prefill(imgs[0])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    pre_logits, row = prefill(imgs[0])
+    torch.cuda.synchronize()
+    pre = {k: ops.launches[k] for k in ("quant_matmul", "quant_matmul_w4",
+                                         "decode_attn_quant",
+                                         "fake_quant_fwd")}
+    want_pre = {"quant_matmul+w4": len(ql), "fake_quant_fwd": 4}
+    got_pre = {"quant_matmul+w4": pre["quant_matmul"]
+               + pre["quant_matmul_w4"],
+               "fake_quant_fwd": pre["fake_quant_fwd"]}
+    print(f"[vision] one prefill ({len(reqs[0].tokens)} tokens, one image): "
+          f"launches {pre}", flush=True)
+    gate(got_pre == want_pre,
+         f"one prefill launched {got_pre}, expected {want_pre}")
+    gate(bool(torch.isfinite(pre_logits).all()), "non-finite prefill logits")
+    # (d) the image is read: the same prompt under the two images, with
+    # the gates at VISION_GATE and at 0
+    other, _ = prefill(imgs[1])
+    diff = float((pre_logits - other).abs().max())
+    with cross_gates(torch, sess, 0.0):
+        z0, _ = prefill(imgs[0])
+        z1, _ = prefill(imgs[1])
+    torch.cuda.synchronize()
+    print(f"[vision] the image is read: request 0's prefill logits under "
+          f"the two images differ by max |diff| {diff:.4f} with the gates "
+          f"at {VISION_GATE}; with them at 0 they are bit for bit "
+          f"{'equal' if torch.equal(z0, z1) else 'DIFFERENT'}", flush=True)
+    gate(diff > 1e-3, f"the image moved the prefill logits by {diff} only")
+    gate(torch.equal(z0, z1),
+         "with the gates at 0 the prefill logits depend on the image")
+    del other, z0, z1
+
+    # (a) one decode step launches what the schedule implies: every
+    # projection but the cross layers' wk / wv on a matmul kernel, one
+    # attention launch a self-attention layer, two fake-quant launches for
+    # the untied pinned head; the slots read request 0's image K/V
+    state = sess.init_state(SLOTS, CACHE_LEN, torch.float32, device=dev)
+    for site in sites:
+        if site.kind == "cross":
+            key = lm.site_key(site.gidx)
+            for t, r in zip(state["sites"][key], row["sites"][key]):
+                t.copy_(r.expand_as(t))
+    want_step = {"quant_matmul+w4": len(ql) - 2 * n_cross,
+                 "decode_attn_quant": n_self, "fake_quant_fwd": 2}
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + 200
+    ops.reset_launches()
+    with fresh_route_counts(sess) as counts:
+        logits, _ = sess.decode(sess.params, tok, pos, state)
+        again, _ = sess.decode(sess.params, tok, pos, state)
+        torch.cuda.synchronize()
+    step = {k: ops.launches[k] // 2 for k in ("quant_matmul",
+                                               "quant_matmul_w4",
+                                               "decode_attn_quant",
+                                               "fake_quant_fwd")}
+    got_step = {"quant_matmul+w4": step["quant_matmul"]
+                + step["quant_matmul_w4"],
+                "decode_attn_quant": step["decode_attn_quant"],
+                "fake_quant_fwd": step["fake_quant_fwd"]}
+    print(f"[vision] one decode step: launches {step}, routes "
+          f"{ {k: v // 2 for k, v in counts.routes['matmul'].items()} }",
+          flush=True)
+    gate(counts.eligible_fp == 0 and "dequant-fp" not in
+         counts.routes["matmul"],
+         f"one decode step ran matmuls dequant-fp: {counts.routes}")
+    gate(got_step == want_step,
+         f"one decode step launched {got_step}, expected {want_step}")
+    # (c) finite logits; the step is deterministic on the card
+    gate(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    gate(torch.equal(logits, again),
+         "two equal vision decode steps gave different logits")
+    # (b) no host sync inside a decode step
+    no_sync(torch, lambda: sess.decode(sess.params, tok, pos, state),
+            "a vision decode step")
+    print("[vision] one decode step under sync-debug 'error': no host sync; "
+          "prefill and decode logits finite, two equal steps bit for bit "
+          "equal", flush=True)
+    prof = profile_decode_step(
+        torch, sess, dev, "vision",
+        watch=("decode_attn_quant_kernel", "qmm_splitk_kernel",
+               "qmm_w4_splitk_kernel", "fq_fwd_kernel"))
+    del state, logits, again, pre_logits, row, sess, eng
+    torch.cuda.empty_cache()
+    t_full = time.perf_counter() - t_phase
+    # (f) the token gates at one unit of the pattern, full width: the
+    # reference engines (float32 and float64) at 48 sites would take the
+    # phase past its time budget
+    print(f"[vision] cut: the token gates run at {VISION_CUT} layers (one "
+          f"unit: {VISION_CUT} self-attention layers and a cross layer, "
+          "full width), not at 48 sites: two reference engines (float32 "
+          "and float64) over the 46.1 GB float32 tree would take the "
+          "phase past its time budget", flush=True)
+    greedy, unstable = cut_gates(torch, ops, dev, cfg, reqs, "ring",
+                                 "vision", n_layers=VISION_CUT,
+                                 prep=set_cross_gates)
+    t_all = time.perf_counter() - t_phase
+    print(f"[vision] phase {t_all:.1f}s (kernel rows {t_rows:.1f}s, full "
+          f"depth {t_full - t_rows:.1f}s); {card}", flush=True)
+    res = dict(
+        parameters=n_params, projections=len(ql), pack_s=pack_s,
+        wall_s=wall, peak_mem_gb=peak_gb,
+        prefill_p50_ms=d["prefill_p50_ms"],
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, prefill_launches=pre,
+        decode_step_launches=step, decode_step_profile=prof,
+        image_logit_diff=diff, gate_value=VISION_GATE,
+        cut_layers=VISION_CUT, cut_greedy=greedy,
+        cut_reference_unstable_rids=unstable,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"],
+        phase_s=t_all, kernel_rows_s=t_rows)
+    return rows, launches, res
 
 
 def main() -> int:
@@ -4380,6 +4738,12 @@ def main() -> int:
     mt_res["launches"] = mt_launches
     torch.cuda.empty_cache()
     lap("moe-train")
+    vision_rows, vision_launches, vision_res = vision_serve_phase(
+        torch, ops, ref, dev, card)
+    rows += vision_rows
+    vision_res["launches"] = vision_launches
+    torch.cuda.empty_cache()
+    lap("vision")
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -4420,6 +4784,10 @@ def main() -> int:
                       f"moe-spec-{layout}": ms_res[layout]["launches"][k]}
     for k in TRAIN_KERNELS:
         by_path[k]["moe-train"] = mt_launches[k]
+    # the vision family's serving path: the ring kernels, and the pinned
+    # image projection's and head's fake-quant
+    for k in RING_KERNELS + ("fake_quant_fwd",):
+        by_path[k]["vision"] = vision_launches[k]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -4443,7 +4811,7 @@ def main() -> int:
          "starcoder_serve": starcoder_res, "hybrid_serve": hybrid_res,
          "audio_train": audio_res, "moe_serve": moe_res,
          "moe_paged_serve": mp_res, "moe_spec_serve": ms_res,
-         "moe_train": mt_res,
+         "moe_train": mt_res, "vision_serve": vision_res,
          "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))

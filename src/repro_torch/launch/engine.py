@@ -112,13 +112,22 @@ from repro_torch.runtime import kv_cache as qkv
 def check_kv_layout(cfg: ModelConfig, kv_layout: str) -> None:
     """Whether ``cfg``'s schedule can serve over ``kv_layout``: the paged
     layout serves attention-only schedules without a window (as the
-    reference, which refuses windowed archs on pages)."""
+    reference, which refuses windowed archs on pages) and without
+    cross-attention sites (the reference's paged admission drops a
+    request's image, and its prefill then fails)."""
     dispatch.ROUTES.validate("kv_layout", kv_layout)
     if kv_layout == "paged" and lm.attn_window(cfg):
         raise ValueError(
             "kv_layout='paged' does not support sliding-window "
             "archs: a window evicts mid-page, breaking page sharing")
-    bad = {s.kind for s in lm.iter_sites(cfg)} - set(lm.ATTN_KINDS)
+    kinds = {s.kind for s in lm.iter_sites(cfg)}
+    if kv_layout == "paged" and "cross" in kinds:
+        raise ValueError(
+            "kv_layout='paged' does not support cross-attention schedules: "
+            "the reference's paged admission drops a request's "
+            "extra_inputs (the image), so its chunked prefill has no image "
+            "K/V to attend; serve it over the ring")
+    bad = kinds - set(lm.ATTN_KINDS)
     if kv_layout == "paged" and bad:
         raise NotImplementedError(
             f"kv_layout='paged' on a schedule with {sorted(bad)} sites "
@@ -724,6 +733,10 @@ class DecodeEngine:
             if blen > plen:
                 toks = np.pad(toks, (0, blen - plen))
         tokens = torch.as_tensor(toks, device=self.device)[None, :]
+        if req.extra_inputs:        # e.g. a vision request's image
+            tokens = dict({k: torch.as_tensor(v, device=self.device)[None]
+                           for k, v in req.extra_inputs.items()},
+                          tokens=tokens)
         ts_admit = self._now()
         t0 = time.perf_counter()
         logits, row = self.adapter.prefill(

@@ -1,5 +1,6 @@
 """Attention: GQA with RoPE'd inputs for training and prefill
-(``self_attention``), the one-token decode path over fp / int8 ring KV
+(``self_attention``), text queries over image K/V (``cross_attention``,
+unmasked), the one-token decode path over fp / int8 ring KV
 caches and the paged int8 layout, the S-token speculative verify pass
 (``verify_attention``), and the chunked append prefill of one paged slot
 (``append_attention``).
@@ -68,6 +69,16 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Text queries (B, S, H, hd) over the image tokens' K/V (B, N, KV,
+    hd), no mask: ``direct_attention`` at every position, as the
+    reference computes it (outside any kernel)."""
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    return direct_attention(q, k, v, q_pos, k_pos, causal=False, window=None)
 
 
 # ---------------------------------------------------------------------------

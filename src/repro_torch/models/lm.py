@@ -4,7 +4,10 @@ attention (recurrentgemma; serving) and the audio family's encoder
 (hubert: bidirectional attention over frame embeddings from the stub
 frontend, a sinusoid position table, no rope; training only) and the MoE
 family's layers (deepseek-moe, mixtral: attention, then the routed experts
-of ``models.moe`` beside always-on shared experts; leading dense layers).
+of ``models.moe`` beside always-on shared experts; leading dense layers)
+and the vision family's text decoder (llama-3.2-vision: self-attention
+layers with a gated cross-attention layer after every ``cross_attn_every``
+of them, its queries over the image's patch embeddings; serving).
 
 A config expands into a *schedule*: ``prefix`` layers, a repeating
 ``pattern`` whose params are stacked ``repeats`` times on a leading axis
@@ -30,9 +33,11 @@ and ``append`` (a prefill chunk of one paged slot); an RWKV6 or RG-LRU
 layer runs ``prefill`` and ``decode`` (``train`` without state). Decode
 state is ``{"sites": {"<gidx>": state}}``: a KV cache per attention site,
 the tuple ``(x_prev time-mix, wkv, x_prev channel-mix)`` per rwkv site,
-``(conv_buf, h)`` per rec site; ``rollback_decode_state`` rewinds the
-caches past a rejected draft. A hybrid config's attention is local: its
-window is ``local_window`` (``attn_window``).
+``(conv_buf, h)`` per rec site, the image's ``(k, v)`` per cross site
+(projected once by the prefill, read by every decode step);
+``rollback_decode_state`` rewinds the caches past a rejected draft. A
+hybrid config's attention is local: its window is ``local_window``
+(``attn_window``).
 """
 from __future__ import annotations
 
@@ -60,6 +65,9 @@ from repro_torch.models.quant_layers import (QuantContext,
 from repro_torch.runtime import kv_cache as qkv
 
 # the layer kinds whose first sub-block is self-attention over a KV cache
+# (a ``cross`` layer attends the image's K/V instead: its state is neither
+# paged nor rolled back, so the engine's layout and speculation checks,
+# which read this tuple, refuse it)
 ATTN_KINDS = ("attn", "dense", "moe")
 MOE_AUX_COEF = 0.01
 
@@ -75,22 +83,21 @@ class Schedule(NamedTuple):
 
 
 class LayerSite(NamedTuple):
-    kind: str          # attn | dense | moe | rwkv | rec
+    kind: str          # attn | dense | moe | cross | rwkv | rec
     segment: str       # "prefix.0" | "body.2" | "suffix.1"
     unit: int          # repeat index within body, else 0
     gidx: int          # global execution index
 
 
 def build_schedule(cfg: ModelConfig) -> Schedule:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder, moe, rwkv (ssm), "
-            f"hybrid and audio families only (family {cfg.family!r} comes "
-            "with a later slice)")
     L = cfg.n_layers
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         return Schedule(("dense",) * fd, ("moe",), L - fd, ())
+    if cfg.family == "vlm":
+        cae = cfg.cross_attn_every
+        return Schedule((), ("attn",) * cae + ("cross",), L // cae,
+                        ("attn",) * (L % cae))
     if cfg.family == "hybrid":
         bp = tuple(cfg.block_pattern)
         return Schedule((), bp, L // len(bp), bp[:L % len(bp)])
@@ -159,7 +166,7 @@ def layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
         p.update(rec.rwkv_init(gen, d, cfg.n_heads, cfg.rwkv_head_dim, ff,
                                cfg.bits, stacked=stacked, device=device))
         return p
-    if kind not in ATTN_KINDS + ("rec",):
+    if kind not in ATTN_KINDS + ("rec", "cross"):
         raise NotImplementedError(f"layer kind {kind!r}")
 
     def qd_(i, o):
@@ -185,6 +192,11 @@ def layer_init(gen, cfg: ModelConfig, kind: str, *, stacked=(), device=None):
     p["mlp_wo"] = qd_(ff, d)
     if cfg.mlp_gated:
         p["mlp_wg"] = qd_(d, ff)
+    if kind == "cross":
+        # tanh(0) = 0: a fresh cross layer adds nothing until trained
+        for g in ("gate_attn", "gate_mlp"):
+            p[g] = torch.zeros(tuple(stacked), dtype=torch.float32,
+                               device=device)
     return p
 
 
@@ -206,6 +218,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
         w = embed_init(gen, cfg.vocab, cfg.d_model, device=device)
         params = {"embed": {
             "w": w, "s_w8": init_scale_from_stats(w, bit_range(8, True)[1])}}
+    if cfg.family == "vlm":              # image patch embeddings -> d_model
+        params["img_proj"] = pinned_init(gen, FRONTEND_DIMS["vision_stub"],
+                                         cfg.d_model, device=device)
     params["prefix"] = {str(i): layer_init(gen, cfg, k, device=device)
                         for i, k in enumerate(sched.prefix)}
     params["body"] = {str(p): layer_init(gen, cfg, k, stacked=(sched.repeats,),
@@ -248,12 +263,13 @@ def _kind_qdefs(cfg: ModelConfig, kind: str):
         defs = [(("rg", name), i, o, 1, i * o, i * o, "rec")
                 for name, i, o in (("wx", d, W), ("wgate", d, W),
                                    ("wo", W, d))]
-    elif kind in ATTN_KINDS:
+    elif kind in ATTN_KINDS + ("cross",):
+        qk = "cross" if kind == "cross" else "attn"
         defs = [
-            (("wq",), d, qd, 1, d * qd, d * qd, "attn"),
-            (("wk",), d, kvd, 1, d * kvd, d * kvd, "attn"),
-            (("wv",), d, kvd, 1, d * kvd, d * kvd, "attn"),
-            (("wo",), qd, d, 1, qd * d, qd * d, "attn")]
+            (("wq",), d, qd, 1, d * qd, d * qd, qk),
+            (("wk",), d, kvd, 1, d * kvd, d * kvd, qk),
+            (("wv",), d, kvd, 1, d * kvd, d * kvd, qk),
+            (("wo",), qd, d, 1, qd * d, qd * d, qk)]
         if kind == "moe":
             return defs + [(("moe",) + path, i, o, n, macs, w, "moe")
                            for path, i, o, n, macs, w, _k
@@ -363,25 +379,34 @@ def _sinusoid_pos(S: int, d: int, dtype, device) -> torch.Tensor:
 
 
 def embed_inputs(params, cfg: ModelConfig, inputs, ctx: QuantContext,
-                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Input embeddings (B, S, D). ``inputs`` is a batch dict (``tokens``;
-    the audio frontend's ``feats`` (B, S, 512)) or a token tensor. Tokens
-    read the 8-bit pinned table (the hybrid family scales them by
-    sqrt(d_model), gemma's, the factor first rounded to the activation
-    dtype as the reference rounds it); frames go through the 8-bit pinned
-    projection, plus the sinusoid position table."""
+                 table: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(input embeddings (B, S, D), image embeddings (B, N, D) or None).
+    ``inputs`` is a batch dict (``tokens``; the audio frontend's ``feats``
+    (B, S, 512); a vision config's ``img`` (B, N, 1280) patch embeddings)
+    or a token tensor. Tokens read the 8-bit pinned table (the hybrid
+    family scales them by sqrt(d_model), gemma's, the factor first rounded
+    to the activation dtype as the reference rounds it); frames go through
+    the 8-bit pinned projection, plus the sinusoid position table; the
+    image through the pinned ``img_proj``."""
     dev = params["embed"]["w"].device
     if cfg.frontend == "audio_stub":
         feats = torch.as_tensor(inputs["feats"], device=dev)
         x = qeinsum_pinned("bsf,fd->bsd", feats.to(ctx.compute_dtype),
                            params["embed"], ctx)
-        return x + _sinusoid_pos(x.shape[1], cfg.d_model, x.dtype, dev)
+        return x + _sinusoid_pos(x.shape[1], cfg.d_model, x.dtype, dev), None
     tokens = inputs["tokens"] if isinstance(inputs, dict) else inputs
     x = embed_lookup_pinned(torch.as_tensor(tokens, device=dev),
                             params["embed"], ctx, table)
     if cfg.family == "hybrid":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
-    return x
+    img_x = None
+    if cfg.family == "vlm" and isinstance(inputs, dict) \
+            and inputs.get("img") is not None:
+        img = torch.as_tensor(inputs["img"], device=dev)
+        img_x = qeinsum_pinned("bnf,fd->bnd", img.to(ctx.compute_dtype),
+                               params["img_proj"], ctx)
+    return x, img_x
 
 
 def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
@@ -509,7 +534,51 @@ def _attn_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
     return x + out, new_state
 
 
-def _mlp_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext):
+def _cross_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
+                    mode: str, state, img_x):
+    """Gated cross-attention residual sub-block: the text's queries over
+    the image's K/V, unmasked and without rope, the output scaled by
+    tanh(``gate_attn``). ``train`` and ``prefill`` project K and V from the
+    image embeddings ``img_x`` (B, N, D) (``prefill`` returns them as the
+    site's state); ``decode`` reads them from ``state``. Returns (x,
+    new_state)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
+    q = qeinsum("bsd,de->bse", h, p["wq"], _bget(bits, "wq"), ctx)
+    q = q.reshape(B, S, H, hd)
+    if mode == "decode":
+        k, v = state
+        new_state = state
+    elif mode in ("train", "prefill"):
+        if img_x is None:
+            raise ValueError(
+                f"{cfg.name}: a cross-attention site needs the image: pass "
+                "the patch embeddings as inputs['img'] (a request's "
+                "extra_inputs={'img': ...})")
+        k = qeinsum("bnd,de->bne", img_x, p["wk"], _bget(bits, "wk"), ctx)
+        v = qeinsum("bnd,de->bne", img_x, p["wv"], _bget(bits, "wv"), ctx)
+        k = k.reshape(B, -1, KV, hd)
+        v = v.reshape(B, -1, KV, hd)
+        if cfg.qk_norm:
+            k = _qk_rms(k, p["k_norm"], cfg.norm_eps)
+        new_state = (k, v) if mode == "prefill" else None
+    else:
+        raise NotImplementedError(
+            f"cross-attention sites run train, prefill and decode; mode "
+            f"{mode!r} (speculative verify, paged append) is refused by the "
+            "engine")
+    if cfg.qk_norm:
+        q = _qk_rms(q, p["q_norm"], cfg.norm_eps)
+    out = attn.cross_attention(q, k, v).reshape(B, S, H * hd)
+    out = qeinsum("bse,ed->bsd", out, p["wo"], _bget(bits, "wo"), ctx)
+    return x + out * torch.tanh(p["gate_attn"]).to(out.dtype), new_state
+
+
+def _mlp_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext,
+                  gate_key: Optional[str] = None):
+    """Pre-norm MLP residual sub-block; a cross layer's output is scaled by
+    tanh(``p[gate_key]``)."""
     h = apply_norm(x, p["norm2"], cfg.norm_type, cfg.norm_eps)
     hi = qeinsum("bsd,df->bsf", h, p["mlp_wi"], _bget(bits, "mlp_wi"), ctx)
     if cfg.mlp_gated:
@@ -517,8 +586,10 @@ def _mlp_sublayer(x, p, bits, cfg: ModelConfig, ctx: QuantContext):
         hi = activation(cfg.act)(hg) * hi
     else:
         hi = activation(cfg.act)(hi)
-    return x + qeinsum("bsf,fd->bsd", hi, p["mlp_wo"], _bget(bits, "mlp_wo"),
-                       ctx)
+    out = qeinsum("bsf,fd->bsd", hi, p["mlp_wo"], _bget(bits, "mlp_wo"), ctx)
+    if gate_key is not None:
+        out = out * torch.tanh(p[gate_key]).to(out.dtype)
+    return x + out
 
 
 def _rwkv_layer(x, p, bits, cfg: ModelConfig, ctx: QuantContext, mode: str,
@@ -559,13 +630,18 @@ def _rec_layer(x, p, bits, cfg: ModelConfig, ctx: QuantContext, mode: str,
 
 
 def apply_layer(kind: str, x, p, bits, cfg: ModelConfig, ctx: QuantContext, *,
-                mode: str, state=None, pos=None, prefill_cap=None, slot=None):
+                mode: str, state=None, pos=None, prefill_cap=None, slot=None,
+                img_x=None):
     """One residual layer. Returns (x, new_state, aux): aux the MoE layer's
-    load-balance loss (None for every other kind)."""
+    load-balance loss (None for every other kind). ``img_x`` is the image
+    embeddings a cross layer projects in ``train`` and ``prefill``."""
     if kind == "rwkv":
         return _rwkv_layer(x, p, bits, cfg, ctx, mode, state) + (None,)
     if kind == "rec":
         return _rec_layer(x, p, bits, cfg, ctx, mode, state) + (None,)
+    if kind == "cross":
+        x, st = _cross_sublayer(x, p, bits, cfg, ctx, mode, state, img_x)
+        return _mlp_sublayer(x, p, bits, cfg, ctx, "gate_mlp"), st, None
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     x, st = _attn_sublayer(x, p, bits, cfg, ctx, mode, state, pos, prefill_cap,
@@ -583,12 +659,12 @@ def _add_aux(aux, a):
 
 
 def run_sites(x, sites, cfg: ModelConfig, ctx: QuantContext, *, mode: str,
-              states=None, pos=None, prefill_cap=None, slot=None):
+              states=None, pos=None, prefill_cap=None, slot=None, img_x=None):
     """Run ``sites`` -- ``[(LayerSite, params, bits)]`` in execution order --
-    and collect their new decode state under ``{"sites": {key: ...}}``.
-    Returns (x, new_states, aux): aux the MoE layers' losses summed in
-    execution order, as the reference accumulates them (None without MoE
-    layers)."""
+    and collect their new decode state under ``{"sites": {key: ...}}``
+    (``img_x``: the image embeddings, for cross sites). Returns (x,
+    new_states, aux): aux the MoE layers' losses summed in execution order,
+    as the reference accumulates them (None without MoE layers)."""
     new_states = {"sites": {}}
     aux = None
     for site, p, b in sites:
@@ -596,7 +672,7 @@ def run_sites(x, sites, cfg: ModelConfig, ctx: QuantContext, *, mode: str,
         st = None if states is None else states["sites"][key]
         x, st, a = apply_layer(site.kind, x, p, b, cfg, ctx, mode=mode,
                                state=st, pos=pos, prefill_cap=prefill_cap,
-                               slot=slot)
+                               slot=slot, img_x=img_x)
         aux = _add_aux(aux, a)
         new_states["sites"][key] = st
     return x, new_states, aux
@@ -618,8 +694,8 @@ def lm_head(x, params, cfg: ModelConfig, ctx: QuantContext,
 
 
 def map_caches(states, fn):
-    """``fn`` applied to every KV cache of a decode state; recurrent site
-    state passes through."""
+    """``fn`` applied to every KV cache of a decode state; recurrent and
+    cross site state passes through."""
     return {"sites": {k: fn(c) if isinstance(c, qkv.CACHE_TYPES) else c
                       for k, c in states["sites"].items()}}
 
@@ -685,7 +761,8 @@ def reference_sites(params, bits, cfg: ModelConfig):
     return out
 
 
-def run_sites_remat(x, sites, cfg: ModelConfig, ctx: QuantContext):
+def run_sites_remat(x, sites, cfg: ModelConfig, ctx: QuantContext,
+                    img_x=None):
     """``run_sites`` in ``train`` mode with each body unit's sites under
     activation checkpointing, the reference's granularity (it wraps each
     ``lax.scan`` step of the body in ``jax.checkpoint``): the backward
@@ -700,7 +777,8 @@ def run_sites_remat(x, sites, cfg: ModelConfig, ctx: QuantContext):
 
     def unit(group):
         def run(h):
-            out, _, a = run_sites(h, group, cfg, ctx, mode="train")
+            out, _, a = run_sites(h, group, cfg, ctx, mode="train",
+                                  img_x=img_x)
             return out, a
         return run
 
@@ -714,7 +792,8 @@ def run_sites_remat(x, sites, cfg: ModelConfig, ctx: QuantContext):
             x, a = checkpoint(unit(group), x, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, _, a = run_sites(x, group, cfg, ctx, mode="train")
+            x, _, a = run_sites(x, group, cfg, ctx, mode="train",
+                                img_x=img_x)
         aux = _add_aux(aux, a)
     return x, aux
 
@@ -724,12 +803,12 @@ def apply_train(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
     """Full-sequence logits. Returns (logits (B, S, V) f32, aux loss).
     ``remat`` recomputes each body unit in the backward
     (``run_sites_remat``), as the reference checkpoints its scan body."""
-    x = embed_inputs(params, cfg, inputs, ctx)
+    x, img_x = embed_inputs(params, cfg, inputs, ctx)
     sites = reference_sites(params, bits, cfg)
     if remat:
-        x, aux = run_sites_remat(x, sites, cfg, ctx)
+        x, aux = run_sites_remat(x, sites, cfg, ctx, img_x)
     else:
-        x, _, aux = run_sites(x, sites, cfg, ctx, mode="train")
+        x, _, aux = run_sites(x, sites, cfg, ctx, mode="train", img_x=img_x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_head(x, params, cfg, ctx), aux
@@ -757,11 +836,13 @@ def loss_fn(params, cfg: ModelConfig, inputs, bits, ctx: QuantContext,
 
 def apply_prefill(params, cfg: ModelConfig, tokens, bits, ctx: QuantContext,
                   prefill_cap=None, true_len=None, table=None):
-    """Prompt pass of the fake-quant graph. Returns (last-position logits
-    (B, V), decode state with shared positions)."""
-    x = embed_inputs(params, cfg, tokens, ctx, table)
+    """Prompt pass of the fake-quant graph (``tokens``: a token tensor, or
+    a batch dict with a vision config's ``img``). Returns (last-position
+    logits (B, V), decode state with shared positions)."""
+    x, img_x = embed_inputs(params, cfg, tokens, ctx, table)
     x, states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg, ctx,
-                             mode="prefill", prefill_cap=prefill_cap)
+                             mode="prefill", prefill_cap=prefill_cap,
+                             img_x=img_x)
     return finish_prefill(x, states, params, cfg, ctx, true_len, table)
 
 
@@ -770,7 +851,7 @@ def apply_decode(params, cfg: ModelConfig, token, pos, states, bits,
     """One decode step of the fake-quant graph. token (B, 1); ``pos`` a
     scalar (shared positions) or a (B,) vector (per-slot). Returns (logits
     (B, V), new states)."""
-    x = embed_inputs(params, cfg, token, ctx, table)
+    x, _ = embed_inputs(params, cfg, token, ctx, table)
     x, new_states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg,
                                  ctx, mode="decode", states=states, pos=pos)
     return lm_head(x, params, cfg, ctx, table)[:, 0], new_states
@@ -783,7 +864,7 @@ def apply_verify(params, cfg: ModelConfig, tokens, pos, states, bits,
     slots). Writes the S KV rows per slot computed under these params and
     returns (logits (B, S, V), new states): position j's logits and rows
     are what S one-token ``apply_decode`` calls give."""
-    x = embed_inputs(params, cfg, tokens, ctx, table)
+    x, _ = embed_inputs(params, cfg, tokens, ctx, table)
     x, new_states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg,
                                  ctx, mode="verify", states=states, pos=pos)
     return lm_head(x, params, cfg, ctx, table), new_states
@@ -795,7 +876,7 @@ def apply_append(params, cfg: ModelConfig, tokens, pos, slot: int,
     ``tokens (1, C)`` at absolute positions ``pos (C,)`` (-1 on pad rows,
     which the cache write drops) into that slot's pages. Returns (logits of
     row ``last_idx`` (1, V), new states)."""
-    x = embed_inputs(params, cfg, tokens, ctx, table)
+    x, _ = embed_inputs(params, cfg, tokens, ctx, table)
     x, new_states, _ = run_sites(x, reference_sites(params, bits, cfg), cfg,
                                  ctx, mode="append", states=states, pos=pos,
                                  slot=slot)
@@ -816,7 +897,9 @@ def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
     paged pool layout is selected. An rwkv site gets zeros ``(x_prev (B, 1,
     D), wkv (B, H, hd, hd), x_prev (B, 1, D))`` in ``rec_dtype`` (default
     ``dtype``), the wkv state in float32 or wider; a rec site ``(conv_buf
-    (B, cw-1, W), h (B, W))``, h in float32 or wider."""
+    (B, cw-1, W), h (B, W))``, h in float32 or wider; a cross site the
+    image's ``(k, v)``, each ``(B, n_image_tokens, KV, hd)`` in
+    ``rec_dtype``: floating point, never int8 and never windowed."""
     if kind == "rwkv":
         dt = rec_dtype or dtype
         hd, D = cfg.rwkv_head_dim, cfg.d_model
@@ -825,6 +908,10 @@ def init_site_state(cfg: ModelConfig, kind: str, batch: int, capacity: int, *,
                             dtype=torch.promote_types(dt, torch.float32),
                             device=device),
                 torch.zeros((batch, 1, D), dtype=dt, device=device))
+    if kind == "cross":
+        shape = (batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.hd)
+        return tuple(torch.zeros(shape, dtype=rec_dtype or dtype,
+                                 device=device) for _ in range(2))
     if kind == "rec":
         dt = rec_dtype or dtype
         W = cfg.lru_width or cfg.d_model
@@ -855,6 +942,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int, *,
 
 def decode_state_per_slot(states):
     """Widen a prefill-produced decode state to the per-slot layout
-    (recurrent site state carries its batch axis already)."""
+    (recurrent and cross site state carries its batch axis already)."""
     return {"sites": {k: attn.cache_per_slot(c)
                       for k, c in states["sites"].items()}}

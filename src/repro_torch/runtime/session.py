@@ -208,28 +208,35 @@ class QuantizedSession:
         return self.policy_bytes() * 8.0
 
     # -- engine adapter API -------------------------------------------------
-    def _forward(self, params, x, mode, states, pos, prefill_cap, slot=None):
+    def _forward(self, params, x, mode, states, pos, prefill_cap, slot=None,
+                 img_x=None):
+        """The packed sites over ``x`` (``img_x``: the image embeddings a
+        cross site projects in ``prefill``)."""
         sites = [(s, params["sites"][lm.site_key(s.gidx)], None)
                  for s in self.sites]
         with dispatch.counts_scope(self.route_counts), \
                 dispatch.act_reuse_scope() as scope:
             x, new_states, _ = lm.run_sites(
                 x, sites, self.cfg, self.ctx, mode=mode, states=states,
-                pos=pos, prefill_cap=prefill_cap, slot=slot)
+                pos=pos, prefill_cap=prefill_cap, slot=slot, img_x=img_x)
         self.act_quant_reused += scope["hits"]
         if self.metrics is not None and scope["hits"]:
             self.metrics.counter("dispatch.act_reuse_hits").inc(scope["hits"])
         return x, new_states
 
-    def prefill(self, params, tokens, *, prefill_cap, true_len=None):
-        x = lm.embed_inputs(params, self.cfg, tokens, self.ctx, self.table)
+    def prefill(self, params, inputs, *, prefill_cap, true_len=None):
+        """Prompt pass. ``inputs``: a (1, S) token tensor, or a dict with
+        ``tokens`` and a vision config's ``img`` (1, N, 1280), whose K/V
+        each cross site projects once into its state here."""
+        x, img_x = lm.embed_inputs(params, self.cfg, inputs, self.ctx,
+                                   self.table)
         x, states = self._forward(params, x, "prefill", None, None,
-                                  prefill_cap)
+                                  prefill_cap, img_x=img_x)
         return lm.finish_prefill(x, states, params, self.cfg, self.ctx,
                                  true_len, self.table)
 
     def decode(self, params, tok, pos, states):
-        x = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
+        x, _ = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
         x, new_states = self._forward(params, x, "decode", states, pos, None)
         return lm.lm_head(x, params, self.cfg, self.ctx, self.table)[:, 0], \
             new_states
@@ -240,7 +247,7 @@ class QuantizedSession:
         attending rows at positions up to its own, so hidden states and KV
         rows are what S ``decode`` calls give. ``tok``/``pos`` (B, S);
         returns (logits (B, S, V), states)."""
-        x = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
+        x, _ = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
         x, new_states = self._forward(params, x, "verify", states, pos, None)
         return lm.lm_head(x, params, self.cfg, self.ctx, self.table), \
             new_states
@@ -250,7 +257,7 @@ class QuantizedSession:
         model for ONE slot, writing KV rows at absolute positions ``pos``
         ((C,), -1 on pad rows, which the cache write drops) into that
         slot's pages. Returns (logits of row ``last_idx`` (1, V), states)."""
-        x = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
+        x, _ = lm.embed_inputs(params, self.cfg, tok, self.ctx, self.table)
         x, new_states = self._forward(params, x, "append", states, pos, None,
                                       slot=slot)
         logits = lm.lm_head(x[:, last_idx:last_idx + 1], params, self.cfg,

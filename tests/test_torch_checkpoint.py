@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

@@ -1093,6 +1093,56 @@ def test_moe_combine_and_expert_layer_repeat_bit_for_bit(dev):
     assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
 
 
+def test_cross_layer_through_the_kernels_matches_plain(dev, monkeypatch):
+    """One packed cross-attention layer of llama-3.2-vision-11b's smoke
+    config (gates 0.5, so the image moves it) on the card: a prefill of 2
+    prompts of 7 tokens over their 16-token images (the image K/V
+    projections at M = 32, the tensor-core route; the text's at M = 14,
+    split-K), then two decode steps on the image K/V it returned, through
+    the matmul kernels and through their plain versions: the outputs and
+    the image K/V bit for bit (the kernels sum exactly), and the kernels
+    launched as the layer implies (all 7 projections in the prefill; wq,
+    wo and the 3 MLP projections a decode step)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = smoke_config("llama-3.2-vision-11b")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    for g in ("gate_attn", "gate_mlp"):
+        params["body"]["5"][g].fill_(0.5)
+    sess = serve.build_session(cfg, params, serve.demo_mixed_policy(cfg))
+    p = sess.params["sites"][lm.site_key(5)]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 7, cfg.d_model), generator=gen, device=dev)
+    img_x = torch.randn((2, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                        device=dev)
+    xd = [torch.randn((2, 1, cfg.d_model), generator=gen, device=dev)
+          for _ in range(2)]
+    pos = torch.tensor([7, 7], dtype=torch.int32, device=dev)
+
+    def run():
+        n0 = ops.launches["quant_matmul"] + ops.launches["quant_matmul_w4"]
+        out, st, _ = lm.apply_layer("cross", x, p, None, cfg, sess.ctx,
+                                    mode="prefill", img_x=img_x)
+        outs = [out, *st]
+        for t in xd:
+            o, st, _ = lm.apply_layer("cross", t, p, None, cfg, sess.ctx,
+                                      mode="decode", state=st, pos=pos)
+            outs.append(o)
+        torch.cuda.synchronize()
+        return outs, (ops.launches["quant_matmul"]
+                      + ops.launches["quant_matmul_w4"] - n0)
+
+    kern, n_kern = run()
+    monkeypatch.setattr(ops, "quant_matmul", ref.quant_matmul_ref)
+    monkeypatch.setattr(ops, "quant_matmul_w4", ref.quant_matmul_w4_ref)
+    plain, n_plain = run()
+    assert (n_kern, n_plain) == (7 + 2 * 5, 0)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert float((kern[0] - x).abs().max()) > 0
+
+
 def test_fake_quant_kernels_on_unaligned_views(dev):
     """A view 4 bytes into its storage takes the scalar path."""
     rng = np.random.default_rng(11)

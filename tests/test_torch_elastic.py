@@ -15,6 +15,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

@@ -26,6 +26,7 @@ ops may differ.
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

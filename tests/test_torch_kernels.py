@@ -10,6 +10,7 @@ padded block, which the plain version does not have).
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

@@ -30,6 +30,7 @@ speculative engine equals the token-at-a-time engine token for token
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

@@ -22,6 +22,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 PKGS = ("repro", "repro_torch")
 

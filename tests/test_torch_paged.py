@@ -19,6 +19,7 @@ takes the slot's reference first (``PagePool`` docstring,
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 from hypothesis import example, given, settings
 from hypothesis import strategies as st
 

@@ -15,6 +15,7 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 from repro_torch.kernels import _build, ops, ref
 

@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 

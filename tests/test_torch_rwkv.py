@@ -22,6 +22,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

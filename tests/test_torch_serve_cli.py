@@ -8,6 +8,7 @@ import json
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401
 
 from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.core.policy import MPQPolicy as TPolicy

@@ -30,6 +30,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -345,7 +346,7 @@ def _assert_kv_bitwise(sa, sb, what=""):
 
 def _hidden(sess, params, tok, pos, states, mode):
     from repro_torch.models import lm
-    x = lm.embed_inputs(params, sess.cfg, tok, sess.ctx, sess.table)
+    x, _ = lm.embed_inputs(params, sess.cfg, tok, sess.ctx, sess.table)
     return sess._forward(params, x, mode, states, pos, None)
 
 
