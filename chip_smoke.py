@@ -89,20 +89,23 @@ In order:
    one profiled decode step launches 5239 kernels; greedy
    tokens as in (b); prefix hits, and fewer tokens prefilled than the ring
    phase; the page pool consistent and every slot empty after the drain;
-6. speculative serve phases, ring and paged: the same requests as phases 4
-   and 5 with ``speculate=4``, ``draft_bits=2`` (a uniform int2 repack of the
-   same weights drafts, the searched policy verifies). Gates: (a) tokens
-   equal the same run's token-at-a-time phase on every decisive step of it
-   (top-2 margin above 1e-2, ``engine.decisive_prefix``); (b) exactly 28
+6. speculative serve phases, ring and paged: the first wave of phases 4
+   and 5 (4 requests, one a slot into fresh caches, to ``WAVE_GEN`` new
+   tokens; 8 of 32 before the mixtral phase, cut for the time limit) with
+   ``speculate=4``, ``draft_bits=2`` (a uniform int2 repack of the same
+   weights drafts, the searched policy verifies). Gates: (a) tokens equal
+   the first ``WAVE_GEN`` of the token-at-a-time phase's on every
+   decisive step of it (top-2 margin above 1e-2,
+   ``engine.decisive_prefix``); (b) exactly 28
    ``verify_attn_quant[_paged]`` launches per round and no one-token launch
    inside the verify pass; (c) no host synchronisation inside a round
    (``set_sync_debug_mode("error")`` around each); (d) paged: a consistent
-   pool and the paged phase's prefix hits. Then the midflight check (one
-   request, one slot: after four rounds the speculative engine's KV -- pos
-   exactly, codes and scales on valid rows -- is the token-at-a-time
-   engine's at the same length, bit for bit) and the self-draft check (a
-   target policy at the draft's own width: every draft on a decisive step
-   accepted);
+   pool and the paged phase's prefix hits of the same wave. Then the
+   midflight check (one request, one slot: after four rounds the
+   speculative engine's KV -- pos exactly, codes and scales on valid rows
+   -- is the token-at-a-time engine's at the same length, bit for bit)
+   and the self-draft check (a target policy at the draft's own width:
+   every draft on a decisive step accepted);
 7. train gate (e): one ``loss_fn`` + backward at full width, 2 layers, S =
    2048, through the kernels and through their plain versions
    (``ops.plain_on_cuda``), loss and every gradient within ``TRAIN_TOL``:
@@ -266,8 +269,10 @@ In order:
     experts; d_model 2048, 16 heads of 128 on 16 kv heads (G = 1), vocab
     102400, untied head; seeded random weights, 15.95 B searched weights,
     65.5 GB of float32 parameters) under ``demo_mixed_policy`` (277
-    projections, 81 of them expert stacks), the serve phase's 8 requests
-    over 4 slots and a 320-row ring. The float32 tree does not fit the
+    projections, 81 of them expert stacks), the serve phase's first wave
+    (4 requests of ``WAVE_GEN`` new tokens; 8 of 32 before the mixtral
+    phase, cut for the time limit) over 4 slots and a 320-row ring. The
+    float32 tree does not fit the
     card beside its packing, so each MoE site's seeded params are made on
     the card when ``SpecSession(site_source=...)`` packs it, under the
     target policy and the 2-bit draft policy of phase 17, and dropped
@@ -299,8 +304,9 @@ In order:
     fake-quant reference on every decisive step (``serve.compare_greedy``
     with the float64 control);
 16. moe-paged phase: phase 15's session at 28 layers over pooled int8
-    pages, the paged phase's 8 requests (128 shared prompt tokens), 4
-    slots, append chunks of 256. Gates: ``decode_attn_quant_paged``
+    pages, the paged phase's 8 requests (128 shared prompt tokens) of
+    ``WAVE_GEN`` new tokens (32 before the mixtral phase), 4 slots,
+    append chunks of 256. Gates: ``decode_attn_quant_paged``
     launched 28 times a decode step and ``decode_attn_quant`` never, the
     matmul and fake-quant kernels launched, no kernel-eligible projection
     on dequant-fp; prefix hits and fewer tokens prefilled than the ring
@@ -371,12 +377,65 @@ In order:
     reference engines would take the phase past its time budget).
     Printed: tok/s, step and prefill p50, peak device memory, a profiled
     decode step's launches and busy share.
+20. mixtral phase: mixtral-8x7b at its published widths and depth (32
+    MoE layers of 8 routed experts of d_ff 14336, top-2, capacity factor
+    1.25, no shared experts and no dense layer; d_model 4096, 32 query
+    heads on 8 kv heads of 128 (G = 4), a 4096-row sliding window, vocab
+    32000, untied head; seeded random weights, 46.70 B parameters, 186.8
+    GB in float32, which fit neither the card nor the host) under
+    ``demo_mixed_policy`` (224 projections, 96 of them expert stacks),
+    each site made on the card and packed before the next
+    (``site_source``, no prefix). First the kernel rows at its new shapes:
+    decode attention at KV 8, G 4 over a 4096-row ring wrapped past its
+    window, flash at B 1, S 4608, KV 8, G 4, hd 128, causal, window 4096,
+    and the fake-quant forward with 8 scales at the expert inputs of a
+    decode step and of the long prefill ((8, 4, 4096), (8, 4, 14336),
+    (8, 1536, 4096), (8, 1536, 14336)); then the combine at T = 4 and T =
+    4608 (capacity 1536, which drops picks): two calls bit for bit equal,
+    and equal to the CPU's. Then the serve phase's first three prompts
+    (256, 128, 224 tokens) and one of 4608 (9 x the 512-row q block, 512
+    tokens past the window) with ``MIXTRAL_GEN`` (8) new tokens each (cut
+    from ``WAVE_GEN`` for the time limit), over 4 slots of the window's
+    4096 rows and a prefill budget of 4608 tokens.
+    Gates: (a) the ring kernels, ``fake_quant_fwd`` and ``flash_fwd``
+    launched, no paged or verify kernel, flash once a layer (32, the long
+    prefill alone), no kernel-eligible projection on dequant-fp, the
+    decode attention route fused; (b) one decode step (slots of 4096 rows
+    at positions past the window) launches 128 matmul kernels (the
+    attention projections), 32 ``decode_attn_quant`` and one fake-quant
+    per expert input group plus two for the untied pinned head, and runs
+    the 96 expert stacks on dequant-fp; a short prompt's prefill launches
+    no flash, the long one's 32; (c) packed bytes exactly the policy's
+    23,155,703,808 B; (d) a profiled decode step and a profiled 4608-token
+    prefill (their launches, busy share and leading kernels printed); (e)
+    no host synchronisation inside a decode step; (f) finite logits, two
+    equal decode steps bit for bit equal. At 32 layers neither the float32
+    tree nor a reference engine fits: at 2 MoE layers, full width (12.6
+    GB of float32), the token gates of phase 15 over the same prompts to
+    ``WAVE_GEN`` new tokens and slots, and a logit gate on the 256-token
+    prompt and the long one over the prefill and 6 decode steps (the long
+    one's past the window): the session through every kernel bit for bit
+    the same session on the matmuls' plain versions, and the session on
+    the dequant-fp matmul route (decode attention, flash and fake-quant
+    the kernels) within max(2 x the float32 reference's distance from its
+    float64 evaluation, 0.05 x the logits' std) of the float32 reference;
+    the all-kernel session's distance is printed beside that of the
+    fake-quant graph with float64 sums, which the expert routing takes as
+    far from the float32 reference (ROADMAP 3a). Printed: pack seconds,
+    the host's MemTotal and MemAvailable, peak device memory, step p50,
+    tok/s, prefill p50 of the short prompts and the long one's.
 
 For the vision phase's time, earlier phases were cut (each named where it
 applies): the kernel rows' timed launches (``KERNEL_REPS``, 40 to 20),
 the MoE token gates' depth (``MOE_CUT``, 3 to 2 layers), the serve CLI's
 fixed-schedule reruns under ``--no-trace`` and ``--chip-table``, and the
-MoE speculative phases' new tokens (``MOE_SPEC_GEN``, 32 to 16).
+MoE speculative phases' new tokens (``WAVE_GEN``, 32 to 16). For the
+mixtral phase's: the Qwen3-0.6B speculative phases (6) serve the first
+wave to ``WAVE_GEN`` new tokens, as phase 17 does; phase 15's full-depth
+run serves the first wave (4 requests of ``WAVE_GEN`` new tokens, which
+phase 17 compares), and phase 16's 8 requests take ``WAVE_GEN`` new
+tokens; the 2-layer token gates of both keep the 8 requests of ``GEN``
+tokens.
 
 Every phase's seconds and the script's are printed as ``[time]`` lines.
 Any failure exits non-zero. The line before the last is a JSON object with
@@ -532,9 +591,10 @@ FQ_EXPERT_BWD_SHAPES = [(64, 2048, 1408), (64, 256, 2048)]
 # layers; 28 layers' weights, gradients and AdamW moments take ~262 GB),
 # and the depth of its gate (e)
 MOE_TRAIN_LAYERS, MOE_TRAIN_CUT = 4, 3
-# the MoE speculative phases' new tokens a request (cut for the script's
-# time limit)
-MOE_SPEC_GEN = GEN // 2
+# the new tokens a request of the runs that serve one wave of the 4 slots:
+# the speculative phases, the MoE full-depth runs and the mixtral phase
+# (cut for the script's time limit)
+WAVE_GEN = GEN // 2
 # hybrid serve phase: the serve phase's 8 requests and one long one whose
 # prefill takes the flash kernel at hd 256 (2560 tokens: a multiple of the
 # 512-row q block past the 2048-token threshold, past the window), over
@@ -551,12 +611,13 @@ TRAIN_S, IMP_STEPS, QAT_STEPS = 2048, 2, 3
 # the audio phase's arch and the depth of its gate (e)
 AUDIO_ARCH, AUDIO_CUT = "hubert-xlarge", 2
 # kernel launches of one profiled Qwen3-0.6B decode step over the ring and
-# over pages, and of one RecurrentGemma-2B, DeepSeek-MoE-16B and
-# Llama-3.2-Vision-11B step over the ring: one launch per matmul and
+# over pages, and of one RecurrentGemma-2B, DeepSeek-MoE-16B,
+# Llama-3.2-Vision-11B and Mixtral-8x7B step over the ring (as measured on
+# the card): one launch per matmul and
 # attention call (and, for the MoE step, per expert input's fake-quant), no
 # more
 DECODE_STEP_LAUNCHES = {"serve": 4707, "paged": 5239, "hybrid": 3548,
-                        "moe": 7858, "vision": 7038}
+                        "moe": 7858, "vision": 7038, "mixtral": 7857}
 # the vision phase: its arch, the depth of its token gates (one unit of the
 # pattern: 5 self-attention layers and a cross layer), the value every cross
 # layer's gate_attn and gate_mlp is set to (the reference inits them to 0,
@@ -569,6 +630,27 @@ VISION_ARCH, VISION_CUT, VISION_GATE = "llama-3.2-vision-11b", 5, 0.5
 VISION_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 VISION_IMG_M, VISION_IMG_KN = 1600, (4096, 1024)
 VISION_ATTN = [("llama-3.2-vision-11b", 8, 4, None, MAIN_SC, 128)]
+# the mixtral phase: its arch; the depth of its token and logit gates (two
+# MoE layers at full width: 12.6 GB of float32, which fits beside two
+# reference engines); its long prompt (9 x the 512-row q block, 512 tokens
+# past its 4096-row window: its prefill takes the flash kernel with the
+# window, its decode wraps the ring) served beside the serve phase's first
+# three prompts (one wave of the 4 slots);
+# and its kernel rows: decode attention at KV 8, G 4 over a 4096-row ring
+# wrapped past its window, flash at the long prompt's prefill, and the
+# fake-quant forward with 8 scales at the expert inputs (width 4096, and
+# 14336 into the down projection) of a decode step (C = 4) and of the long
+# prefill (C = 1536)
+MIXTRAL_ARCH, MIXTRAL_CUT, MIXTRAL_LONG = "mixtral-8x7b", 2, 4608
+MIXTRAL_SHORT = 3
+# the full-depth run's new tokens a request: WAVE_GEN's ~1.5 s decode steps
+# took the phase past its budget, so it is cut to 8 (the 2-layer gates
+# keep WAVE_GEN)
+MIXTRAL_GEN = WAVE_GEN // 2
+MIXTRAL_ATTN = [("mixtral-8x7b", 8, 4, 4096, 4096, 128)]
+MIXTRAL_FLASH = (MIXTRAL_LONG, True, 4096, 8, 4, 128)
+FQ_MIXTRAL_SHAPES = [(8, 4, 4096), (8, 4, 14336), (8, 1536, 4096),
+                     (8, 1536, 14336)]
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # event-timed launches of a kernel row (cut for the script's time limit)
 KERNEL_REPS = 20
@@ -1270,56 +1352,65 @@ def fake_quant_expert_rows(torch, ops, ref, flush, dev):
     kernel as before); timed at 4 bits beside PyTorch's learnable
     per-channel fake-quant over the expert axis (times only: it multiplies
     by a reciprocal)."""
+    return [r for shape in FQ_EXPERT_SHAPES
+            for r in fake_quant_expert_row(torch, ops, ref, flush, dev,
+                                           shape)] \
+        + fake_quant_expert_bwd_rows(torch, ops, ref, flush, dev)
+
+
+def fake_quant_expert_row(torch, ops, ref, flush, dev, shape):
+    """``fake_quant_fwd`` at ``shape`` with a scale per leading slice and
+    with one scale, every width bit for bit its plain version; the 4-bit
+    row timed (``fake_quant_expert_rows``)."""
     rows = []
-    for shape in FQ_EXPERT_SHAPES:
-        E = shape[0]
-        g_ = torch.Generator(device=dev).manual_seed(shape[1] * 7 + E)
-        v = torch.randn(shape, generator=g_, device=dev) * 0.05
-        spread = torch.rand((E, 1, 1), generator=g_, device=dev) + 0.5
-        for bits in FQ_BITS:
-            qmin, qmax = float(-2 ** (bits - 1)), float(2 ** (bits - 1) - 1)
-            one = (2 * v.abs().mean() / qmax ** 0.5).reshape(1)
-            s = (one * spread).contiguous()             # (E, 1, 1)
-            for label, sc in (("64 scales", s), ("one scale", one)):
-                out = ops.fake_quant_fwd(v, sc, qmin, qmax)
-                want = ref.fake_quant_ref(v, sc, qmin, qmax)
-                torch.cuda.synchronize()
-                err = float((out - want).abs().max())
-                gate(torch.equal(out, want),
-                     f"fake_quant_fwd {shape} {bits}b {label} differs from "
-                     f"its plain version (max |err| {err})")
-            if bits != 4:
-                rows.append(dict(name="fake_quant_fwd",
-                                 shape=f"{shape} {bits}b, {E} scales",
-                                 max_abs_err=err, main=False))
-                continue
-            n = v.numel()
-            zp = torch.zeros(E, device=dev)
-            v2, s1 = v.reshape(E, -1), s.reshape(E)
+    E = shape[0]
+    g_ = torch.Generator(device=dev).manual_seed(shape[1] * 7 + E)
+    v = torch.randn(shape, generator=g_, device=dev) * 0.05
+    spread = torch.rand((E, 1, 1), generator=g_, device=dev) + 0.5
+    for bits in FQ_BITS:
+        qmin, qmax = float(-2 ** (bits - 1)), float(2 ** (bits - 1) - 1)
+        one = (2 * v.abs().mean() / qmax ** 0.5).reshape(1)
+        s = (one * spread).contiguous()             # (E, 1, 1)
+        for label, sc in ((f"{E} scales", s), ("one scale", one)):
+            out = ops.fake_quant_fwd(v, sc, qmin, qmax)
+            want = ref.fake_quant_ref(v, sc, qmin, qmax)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            gate(torch.equal(out, want),
+                 f"fake_quant_fwd {shape} {bits}b {label} differs from "
+                 f"its plain version (max |err| {err})")
+        if bits != 4:
+            rows.append(dict(name="fake_quant_fwd",
+                             shape=f"{shape} {bits}b, {E} scales",
+                             max_abs_err=err, main=False))
+            continue
+        n = v.numel()
+        zp = torch.zeros(E, device=dev)
+        v2, s1 = v.reshape(E, -1), s.reshape(E)
 
-            def lib():
-                return torch._fake_quantize_learnable_per_channel_affine(
-                    v2, s1, zp, 0, int(qmin), int(qmax), 1.0)
+        def lib():
+            return torch._fake_quantize_learnable_per_channel_affine(
+                v2, s1, zp, 0, int(qmin), int(qmax), 1.0)
 
-            b_ms, b_by = bound_ms(8.0 * n + 4.0 * E, 5.0 * n, F32_OPS_PER_S)
-            rows.append(dict(
-                name="fake_quant_fwd", shape=f"{shape} {bits}b, {E} scales",
-                max_abs_err=err,
-                ms=cuda_ms(torch, lambda: ops.fake_quant_fwd(v, s, qmin,
-                                                              qmax), flush),
-                one_scale_ms=cuda_ms(torch, lambda: ops.fake_quant_fwd(
-                    v, one, qmin, qmax), flush),
-                plain_ms=cuda_ms(torch, lambda: ref.fake_quant_ref(
-                    v, s, qmin, qmax), flush),
-                library_ms=cuda_ms(torch, lib, flush), bound_ms=b_ms,
-                bound_by=b_by, main=False))
-            r = rows[-1]
-            print(f"[kernel] fake_quant_fwd  {str(shape):16s} {bits}b, {E} "
-                  f"scales: err={err:.1e} ms={r['ms']:.4f} (one scale "
-                  f"{r['one_scale_ms']:.4f}) plain={r['plain_ms']:.4f} "
-                  f"lib={r['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
-                  flush=True)
-    return rows + fake_quant_expert_bwd_rows(torch, ops, ref, flush, dev)
+        b_ms, b_by = bound_ms(8.0 * n + 4.0 * E, 5.0 * n, F32_OPS_PER_S)
+        rows.append(dict(
+            name="fake_quant_fwd", shape=f"{shape} {bits}b, {E} scales",
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: ops.fake_quant_fwd(v, s, qmin,
+                                                          qmax), flush),
+            one_scale_ms=cuda_ms(torch, lambda: ops.fake_quant_fwd(
+                v, one, qmin, qmax), flush),
+            plain_ms=cuda_ms(torch, lambda: ref.fake_quant_ref(
+                v, s, qmin, qmax), flush),
+            library_ms=cuda_ms(torch, lib, flush), bound_ms=b_ms,
+            bound_by=b_by, main=False))
+        r = rows[-1]
+        print(f"[kernel] fake_quant_fwd  {str(shape):16s} {bits}b, {E} "
+              f"scales: err={err:.1e} ms={r['ms']:.4f} (one scale "
+              f"{r['one_scale_ms']:.4f}) plain={r['plain_ms']:.4f} "
+              f"lib={r['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
+              flush=True)
+    return rows
 
 
 def fake_quant_expert_bwd_rows(torch, ops, ref, flush, dev):
@@ -1413,65 +1504,70 @@ def _attended_pairs(S: int, causal: bool, window) -> int:
 
 
 def flash_phase(torch, ops, ref, flush, dev):
+    return [flash_row(torch, ops, ref, flush, dev, *c) for c in FLASH_CASES]
+
+
+def flash_row(torch, ops, ref, flush, dev, S, causal, window, KV, G, hd):
+    """``flash_fwd`` at B = 1 on seeded q / k / v: out within 2e-5 and lse
+    within 1e-5 of its plain version, timed beside it and SDPA under the
+    same mask."""
     import torch.nn.functional as F
-    rows = []
     B = 1
-    for S, causal, window, KV, G, hd in FLASH_CASES:
-        H = KV * G
-        g_ = torch.Generator(device=dev).manual_seed(S + (window or 0)
-                                                     + causal)
-        q = torch.randn((B, S, KV, G, hd), generator=g_,
-                        device=dev) * hd ** -0.5
-        k = torch.randn((B, S, KV, hd), generator=g_, device=dev)
-        v = torch.randn((B, S, KV, hd), generator=g_, device=dev)
-        kw = dict(causal=causal, window=window)
-        out, lse = ops.flash_fwd(q, k, v, **kw)
-        out_p, lse_p = ref.flash_fwd_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = float((out - out_p).abs().max())
-        err_lse = float((lse - lse_p).abs().max())
-        tag = f"S={S} causal={causal} window={window}"
-        gate(bool(torch.allclose(out, out_p, rtol=2e-5, atol=2e-5)),
-             f"flash_fwd {tag}: out differs (max |err| {err})")
-        gate(bool(torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-5)),
-             f"flash_fwd {tag}: lse differs (max |err| {err_lse})")
-        # yardstick: SDPA in float32 on (B, H, S, hd), the same mask
-        qh = q.reshape(B, S, H, hd).permute(0, 2, 1, 3).contiguous()
-        kh = k.permute(0, 2, 1, 3).contiguous()
-        vh = v.permute(0, 2, 1, 3).contiguous()
-        mask = None
-        if window is not None:
-            pos = torch.arange(S, device=dev)
-            d = pos[:, None] - pos[None, :]
-            mask = (d < window) & ((d >= 0) if causal else True)
+    H = KV * G
+    g_ = torch.Generator(device=dev).manual_seed(S + (window or 0)
+                                                 + causal)
+    q = torch.randn((B, S, KV, G, hd), generator=g_,
+                    device=dev) * hd ** -0.5
+    k = torch.randn((B, S, KV, hd), generator=g_, device=dev)
+    v = torch.randn((B, S, KV, hd), generator=g_, device=dev)
+    kw = dict(causal=causal, window=window)
+    out, lse = ops.flash_fwd(q, k, v, **kw)
+    out_p, lse_p = ref.flash_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((out - out_p).abs().max())
+    err_lse = float((lse - lse_p).abs().max())
+    tag = f"S={S} causal={causal} window={window}"
+    gate(bool(torch.allclose(out, out_p, rtol=2e-5, atol=2e-5)),
+         f"flash_fwd {tag}: out differs (max |err| {err})")
+    gate(bool(torch.allclose(lse, lse_p, rtol=1e-5, atol=1e-5)),
+         f"flash_fwd {tag}: lse differs (max |err| {err_lse})")
+    # yardstick: SDPA in float32 on (B, H, S, hd), the same mask
+    qh = q.reshape(B, S, H, hd).permute(0, 2, 1, 3).contiguous()
+    kh = k.permute(0, 2, 1, 3).contiguous()
+    vh = v.permute(0, 2, 1, 3).contiguous()
+    mask = None
+    if window is not None:
+        pos = torch.arange(S, device=dev)
+        d = pos[:, None] - pos[None, :]
+        mask = (d < window) & ((d >= 0) if causal else True)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask,
-                is_causal=causal and mask is None, scale=1.0,
-                enable_gqa=True)
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask,
+            is_causal=causal and mask is None, scale=1.0,
+            enable_gqa=True)
 
-        lib_out = sdpa().permute(0, 2, 1, 3).reshape(out.shape)
-        gate(bool(torch.allclose(lib_out, out, rtol=1e-3, atol=1e-4)),
-             f"SDPA yardstick disagrees with flash_fwd {tag}")
-        n_bytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B * H * S)
-        n_ops = 4.0 * hd * _attended_pairs(S, causal, window) * B * H
-        b_ms, b_by = bound_ms(n_bytes, n_ops, F32_OPS_PER_S)
-        rows.append(dict(
-            name="flash_fwd", shape=f"B={B} {tag} KV={KV} G={G} hd={hd}",
-            max_abs_err=max(err, err_lse),
-            ms=cuda_ms(torch, lambda: ops.flash_fwd(q, k, v, **kw), flush,
-                       reps=20),
-            plain_ms=cuda_ms(torch, lambda: ref.flash_fwd_ref(q, k, v, **kw),
-                             flush, reps=10),
-            library_ms=cuda_ms(torch, sdpa, flush, reps=20), bound_ms=b_ms,
-            bound_by=b_by, main=(S, causal, window, KV, G, hd) == FLASH_MAIN))
-        print(f"[kernel] flash_fwd {tag:32s} KV={KV} G={G} hd={hd} "
-              f"err={err:.1e}/{err_lse:.1e} "
-              f"ms={rows[-1]['ms']:.4f} plain={rows[-1]['plain_ms']:.4f} "
-              f"sdpa={rows[-1]['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
-              flush=True)
-    return rows
+    lib_out = sdpa().permute(0, 2, 1, 3).reshape(out.shape)
+    gate(bool(torch.allclose(lib_out, out, rtol=1e-3, atol=1e-4)),
+         f"SDPA yardstick disagrees with flash_fwd {tag}")
+    n_bytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B * H * S)
+    n_ops = 4.0 * hd * _attended_pairs(S, causal, window) * B * H
+    b_ms, b_by = bound_ms(n_bytes, n_ops, F32_OPS_PER_S)
+    row = dict(
+        name="flash_fwd", shape=f"B={B} {tag} KV={KV} G={G} hd={hd}",
+        max_abs_err=max(err, err_lse),
+        ms=cuda_ms(torch, lambda: ops.flash_fwd(q, k, v, **kw), flush,
+                   reps=20),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_fwd_ref(q, k, v, **kw),
+                         flush, reps=10),
+        library_ms=cuda_ms(torch, sdpa, flush, reps=20), bound_ms=b_ms,
+        bound_by=b_by, main=(S, causal, window, KV, G, hd) == FLASH_MAIN)
+    print(f"[kernel] flash_fwd {tag:32s} KV={KV} G={G} hd={hd} "
+          f"err={err:.1e}/{err_lse:.1e} "
+          f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+          f"sdpa={row['library_ms']:.4f} bound={b_ms:.4f}({b_by})",
+          flush=True)
+    return row
 
 
 def wkv_ops(B: int, S: int, H: int, hd: int, T: int) -> int:
@@ -2084,12 +2180,16 @@ def audio_phase(torch, ops, dev):
 
 
 def prefill_noise(torch, cfg, params, policy, sess, reqs, dev,
-                  cap=CACHE_LEN, n_dec=0, label="serve"):
+                  cap=CACHE_LEN, n_dec=0, label="serve", variants=None):
     """Max |logit difference| over the vocabulary, per prompt, at prefill
     and at each of ``n_dec`` decode steps after it (every side fed the
-    float32 reference's greedy token, the state each side's own): served
+    float32 reference's greedy tokens, the state each side's own): served
     path vs the float32 fake-quant reference, and that reference vs its
-    float64 evaluation. The references run the kernels' plain versions."""
+    float64 evaluation. ``variants`` (name: a context manager factory)
+    serve the same prompts and tokens again inside each scope: their
+    distances from the float32 reference (``{name}_vs_ref32``) and from
+    the served path (``{name}_vs_served``). The references run the
+    kernels' plain versions."""
     import dataclasses
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -2100,36 +2200,58 @@ def prefill_noise(torch, cfg, params, policy, sess, reqs, dev,
     r32 = LMAdapter(cfg, bits, ctx)
     r64 = LMAdapter(cfg, bits, dataclasses.replace(
         ctx, compute_dtype=torch.float64))
+
+    def dist(got, want):
+        return [float((a - b).abs().max()) for a, b in zip(got, want)]
+
     rows = []
     for r in reqs:
         t = torch.as_tensor(r.tokens, device=dev)[None]
-        lk, sk = sess.prefill(sess.params, t, prefill_cap=cap)
         with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
             l32, s32 = r32.prefill(params, t, prefill_cap=cap)
             l64, s64 = r64.prefill(params, t, prefill_cap=cap)
-        served, ctrl = [], []
-        for i in range(n_dec + 1):
-            served.append(float((lk - l32).abs().max()))
-            ctrl.append(float((l32 - l64.float()).abs().max()))
-            if i == n_dec:
-                break
-            tok = l32.reshape(1, -1).argmax(-1).to(torch.int32)[:, None]
-            p = torch.full((1,), t.shape[1] + i, dtype=torch.int32,
-                           device=dev)
-            lk, sk = sess.decode(sess.params, tok, p, sk)
-            with ops.plain_on_cuda(*ops.PLAIN_KERNELS):
+            ref, feed = [l32], []
+            ctrl = [float((l32 - l64.float()).abs().max())]
+            for i in range(n_dec):
+                tok = l32.reshape(1, -1).argmax(-1).to(torch.int32)[:, None]
+                p = torch.full((1,), t.shape[1] + i, dtype=torch.int32,
+                               device=dev)
+                feed.append((tok, p))
                 l32, s32 = r32.decode(params, tok, p, s32)
                 l64, s64 = r64.decode(params, tok, p, s64)
-        rows.append(dict(
-            rid=r.rid, prompt=t.shape[1], served_vs_ref32=max(served),
-            ref32_vs_ref64=max(ctrl), served_steps=served, ref_steps=ctrl,
-            logit_std=float(l32.std())))
+                ref.append(l32)
+                ctrl.append(float((l32 - l64.float()).abs().max()))
+
+        def served_logits():
+            lk, sk = sess.prefill(sess.params, t, prefill_cap=cap)
+            out = [lk]
+            for tok, p in feed:
+                lk, sk = sess.decode(sess.params, tok, p, sk)
+                out.append(lk)
+            return out
+
+        served = served_logits()
+        row = dict(rid=r.rid, prompt=t.shape[1],
+                   served_vs_ref32=max(dist(served, ref)),
+                   ref32_vs_ref64=max(ctrl), served_steps=dist(served, ref),
+                   ref_steps=ctrl, logit_std=float(l32.std()))
+        for name, scope in (variants or {}).items():
+            with scope():
+                got = served_logits()
+            row[f"{name}_vs_ref32"] = max(dist(got, ref))
+            row[f"{name}_vs_served"] = max(dist(got, served))
+        rows.append(row)
     print(f"[{label}] " + ("prefill" if not n_dec else
                             f"prefill + {n_dec} decode steps")
           + " max|logit diff| served-vs-ref32 / ref32-vs-ref64: "
           + " ".join(f"{x['served_vs_ref32']:.3f}/{x['ref32_vs_ref64']:.3f}"
                      for x in rows)
           + f" (logit std {rows[0]['logit_std']:.3f})", flush=True)
+    for name in variants or {}:
+        print(f"[{label}]   {name}: vs ref32 / vs served "
+              + " ".join(f"{x[name + '_vs_ref32']:.4f}/"
+                         f"{x[name + '_vs_served']:.4f}" for x in rows),
+              flush=True)
     return rows
 
 
@@ -2141,8 +2263,8 @@ def profile_decode_step(torch, sess, dev, label="serve", layout=None,
     time, device time and that of the kernels named in ``watch``. With a
     paged ``layout`` each slot maps pages of its own. The
     steps labelled in ``DECODE_STEP_LAUNCHES`` (Qwen3-0.6B's, ring and
-    pages; RecurrentGemma-2B's; DeepSeek-MoE-16B's; Llama-3.2-Vision-11B's)
-    launch exactly that
+    pages; RecurrentGemma-2B's; DeepSeek-MoE-16B's; Llama-3.2-Vision-11B's;
+    Mixtral-8x7B's) launch exactly that
     many kernels: one launch per matmul and attention call."""
     st = sess.init_state(SLOTS, cache_len, torch.float32, device=dev,
                          layout=layout)
@@ -2653,16 +2775,29 @@ def spec_probe(torch, ops, guard_syncs=True):
             fused, verify, draft
 
 
-def spec_serve_phase(torch, ops, dev, layout, base, paged_hits=None):
-    """The serve phase's requests (``layout`` "ring") or the paged phase's
-    (``layout`` "paged") decoded self-speculatively. ``base`` is that
-    phase's (requests, completions, engine)."""
+def spec_serve_phase(torch, ops, dev, layout, base):
+    """The first wave of the serve phase's requests (``layout`` "ring") or
+    the paged phase's (``layout`` "paged") decoded self-speculatively.
+    ``base`` is that phase's (requests, completions, engine)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     label = f"spec-{layout}"
     reqs, base_out, base_eng = base
+    # the token-at-a-time phase's first wave, one request a slot into fresh
+    # caches, each to WAVE_GEN new tokens held to the first WAVE_GEN of its
+    # run's (8 requests of GEN before the mixtral phase: the script's time
+    # limit)
+    reqs = [r._replace(max_new=WAVE_GEN) for r in reqs[:SLOTS]]
+    base_out = {rid: dataclasses.replace(c, tokens=c.tokens[:WAVE_GEN])
+                for rid, c in base_out.items()}
+    rids = {r.rid for r in reqs}
+    paged_hits = sum(ev.args["tokens"] for ev in base_eng.trace.events
+                     if ev.name == "prefix_hit" and ev.args["rid"] in rids)
+    print(f"[{label}] cut: the first wave, {len(reqs)} requests of "
+          f"{WAVE_GEN} new tokens (8 of {GEN} before the mixtral phase; the "
+          "script's time limit)", flush=True)
     cfg = get_config("qwen3-0.6b")
     params = lm.init_params(cfg, seed=0, device=dev)
     policy = serve.demo_mixed_policy(cfg)
@@ -2718,9 +2853,11 @@ def spec_serve_phase(torch, ops, dev, layout, base, paged_hits=None):
          "dequant-fp")
     gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
          f"decode attention routes {sess.route_counts.routes['decode_attn']}")
+    gate(set(out) == rids, f"served rids {sorted(out)}, expected "
+         f"{sorted(rids)}")
     for r in reqs:
         toks = out[r.rid].tokens
-        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+        gate(len(toks) == WAVE_GEN and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     # (a) the token-at-a-time phase's tokens on its decisive steps
     same, total, compared, bad = serve.compare_spec(out, base_eng, base_out)
@@ -2733,8 +2870,8 @@ def spec_serve_phase(torch, ops, dev, layout, base, paged_hits=None):
     if paged:                                                      # (d)
         eng.pool.check()
         gate(st.prefix_hit_tokens == paged_hits,
-             f"prefix hits {st.prefix_hit_tokens} tokens, paged phase "
-             f"{paged_hits}")
+             f"prefix hits {st.prefix_hit_tokens} tokens, the paged "
+             f"phase's first wave {paged_hits}")
     return launches, dict(
         wall_s=wall, rounds=st.spec_rounds, accept_rate=st.spec_accept_rate,
         drafted=st.spec_draft_tokens, accepted=st.spec_accepted_tokens,
@@ -3756,15 +3893,18 @@ def hybrid_serve_phase(torch, ops, dev, card):
         packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
 
 
-def moe_combine_check(torch, dev, cfg):
-    """The MoE combine at deepseek-moe-16b's shapes (64 experts, top-6,
-    d_model 2048; a decode step of 4 tokens and a 256-token prefill, whose
-    capacity of 128 drops picks): two equal calls on the card bit for bit
-    equal, and equal to the same ops on the CPU (each token's rows added in
-    ascending expert order from zero; IEEE adds in one order)."""
+def moe_combine_check(torch, dev, cfg, calls=(4, 256), label="moe"):
+    """The MoE combine at ``cfg``'s shapes over calls of ``calls`` tokens
+    (deepseek-moe-16b: 64 experts, top-6, d_model 2048; a decode step of 4
+    tokens and a 256-token prefill, whose capacity of 128 drops picks;
+    mixtral-8x7b: 8 experts, top-2, d_model 4096, 4 and 4608 tokens, a
+    capacity of 1536), expert 5 every token's pick: two equal calls on the
+    card bit for bit equal, and equal to the same ops on the CPU (each
+    token's rows added in ascending expert order from zero; IEEE adds in
+    one order)."""
     from repro_torch.models import moe as moe_mod
     res = {}
-    for T in (4, 256):
+    for T in calls:
         g = torch.Generator(device=dev).manual_seed(T)
         xf = torch.randn((T, cfg.d_model), generator=g, device=dev)
         w = torch.randn((cfg.d_model, cfg.moe.n_experts), generator=g,
@@ -3784,7 +3924,7 @@ def moe_combine_check(torch, dev, cfg):
         gate(torch.equal(a.cpu(), c),
              f"the MoE combine at T={T} differs from its CPU evaluation")
         res[T] = dict(capacity=C, dropped_picks=dropped)
-        print(f"[moe] combine T={T} C={C} ({dropped} of "
+        print(f"[{label}] combine T={T} C={C} ({dropped} of "
               f"{T * cfg.moe.top_k} picks dropped): two calls bit for bit "
               f"equal, and equal to the CPU's", flush=True)
     return res
@@ -3815,15 +3955,17 @@ def site_source(torch, lm, cfg, dev, seed=0, prep=None):
     return outer, source
 
 
-def packed_engine(torch, sess, dev, reqs, layout="ring", speculate=0):
+def packed_engine(torch, sess, dev, reqs, layout="ring", speculate=0,
+                  cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK):
     """Drain ``reqs`` through an engine over ``sess`` (a site-by-site pack
-    of the MoE or vision phases) on ``layout``, the serve phase's slots,
-    ring rows and prefill chunk: (engine, completions, wall seconds)."""
+    of the MoE, vision or mixtral phases) on ``layout``, the serve phase's
+    slots, and its ring rows and prefill chunk unless given: (engine,
+    completions, wall seconds)."""
     from repro_torch.launch.engine import DecodeEngine, EngineConfig
     eng = DecodeEngine(sess.params, sess.cfg, None, sess.ctx, adapter=sess,
                        device=dev, ecfg=EngineConfig(
-                           slots=SLOTS, cache_len=CACHE_LEN,
-                           prefill_chunk=PREFILL_CHUNK, kv_quant="int8",
+                           slots=SLOTS, cache_len=cache_len,
+                           prefill_chunk=prefill_chunk, kv_quant="int8",
                            kv_layout=layout, page_size=PAGE_SIZE,
                            speculate=speculate))
     eng.submit_all(reqs)
@@ -3868,7 +4010,12 @@ def moe_serve_phase(torch, ops, dev, card):
     n_params = sum(q.w_params for q in ql)
     res = {"combine": moe_combine_check(torch, dev, cfg)}
     policy = serve.demo_mixed_policy(cfg)
-    reqs = serve_requests(cfg)
+    # the full-depth run serves the first wave, one request a slot, to
+    # WAVE_GEN new tokens (the speculative phases' comparison), cut for
+    # the script's time limit; the token gates at MOE_CUT layers keep all
+    # of the serve phase's requests
+    gate_reqs = serve_requests(cfg)
+    reqs = [r._replace(max_new=WAVE_GEN) for r in gate_reqs[:SLOTS]]
     with open("/proc/meminfo") as f:
         mem = {ln.split(":")[0]: ln.split(":")[1].strip() for ln in f}
     sched = lm.build_schedule(cfg)
@@ -3912,6 +4059,11 @@ def moe_serve_phase(torch, ops, dev, card):
           f"tokens); peak device memory {peak_gb:.2f} GB (the draft tree "
           f"resident); {card}", flush=True)
     print(f"[moe] launches {launches}; routes {routes.routes}", flush=True)
+    print(f"[moe] cut: the full-depth run serves the first wave ({SLOTS} "
+          f"requests of {WAVE_GEN} new tokens, {len(gate_reqs)} of "
+          f"{GEN} before the mixtral phase; the script's time limit); the "
+          f"{MOE_CUT}-layer token gates serve all {len(gate_reqs)}",
+          flush=True)
     # (a) the ring kernels and the per-expert fake-quant launched, no other
     # layout's; no kernel-eligible projection on dequant-fp
     gate(all(launches[k] > 0 for k in RING_KERNELS + ("fake_quant_fwd",))
@@ -3924,7 +4076,8 @@ def moe_serve_phase(torch, ops, dev, card):
          f"decode attention routes {routes.routes['decode_attn']}")
     for r in reqs:
         toks = out[r.rid].tokens
-        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+        gate(len(toks) == WAVE_GEN
+             and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     # (c) packed bytes vs the policy's accounting
     s = summarize(sess)
@@ -3998,8 +4151,8 @@ def moe_serve_phase(torch, ops, dev, card):
     t_full = time.perf_counter() - t_phase
 
     # (b) the token gates at the dense layer and one MoE layer, full width
-    greedy, unstable_cut = cut_gates(torch, ops, dev, cfg, reqs, "ring",
-                                         "moe")
+    greedy, unstable_cut, _ = cut_gates(torch, ops, dev, cfg, gate_reqs,
+                                        "ring", "moe")
     t_all = time.perf_counter() - t_phase
     print(f"[moe] phase {t_all:.1f}s ({t_full:.1f}s at full depth); {card}",
           flush=True)
@@ -4034,17 +4187,24 @@ def no_sync(torch, fn, what):
 
 
 def cut_gates(torch, ops, dev, cfg, reqs, layout, label, n_layers=MOE_CUT,
-              prep=None):
+              prep=None, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              noise=()):
     """``cfg`` at full width cut to ``n_layers`` layers (deepseek-moe-16b:
     the dense layer and one MoE layer; llama-3.2-vision-11b: one unit of
-    its pattern) over ``layout``, the seeded params handed to
-    ``prep(params)`` first: the run through every kernel token for token
-    the same session on the matmuls' plain versions, and the run on the
-    dequant-fp matmul route equal to the fake-quant reference served over
-    the same layout under the same schedule on every decisive step, with
-    its float64 control; the all-kernel run against the reference
-    printed. Returns (per-run comparisons, the rids where the reference's
-    float32 and float64 evaluations part)."""
+    its pattern; mixtral-8x7b: two MoE layers) over ``layout`` (slots of
+    ``cache_len`` rows, a prefill budget of ``prefill_chunk``), the seeded
+    params handed to ``prep(params)`` first: the run through every kernel
+    token for token the same session on the matmuls' plain versions, and
+    the run on the dequant-fp matmul route equal to the fake-quant
+    reference served over the same layout under the same schedule on every
+    decisive step, with its float64 control; the all-kernel run against
+    the reference printed. With ``noise`` (indices into ``reqs``), the
+    hybrid phase's logit gate on those prompts: the session through every
+    kernel within max(2 x the float32 reference's distance from its
+    float64 evaluation, ``HYBRID_LOGIT_FLOOR`` x the logits' std) of the
+    float32 reference over each prefill and 6 decode steps. Returns
+    (per-run comparisons, the rids where the reference's float32 and
+    float64 evaluations part, the logit gate's rows and limit or None)."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.runtime import dispatch
@@ -4054,7 +4214,7 @@ def cut_gates(torch, ops, dev, cfg, reqs, layout, label, n_layers=MOE_CUT,
     if prep is not None:
         prep(params)
     policy_cut = serve.demo_mixed_policy(cut)
-    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+    kw = dict(slots=SLOTS, cache_len=cache_len, prefill_chunk=prefill_chunk,
               device=dev, kv_layout=layout, page_size=PAGE_SIZE)
     mm = ("quant_matmul", "quant_matmul_w4")
     attn = "decode_attn_quant_paged" if layout == "paged" \
@@ -4065,7 +4225,9 @@ def cut_gates(torch, ops, dev, cfg, reqs, layout, label, n_layers=MOE_CUT,
     def served(what):
         n0 = {k: ops.launches[k] for k in mm + (attn, "fake_quant_fwd")}
         with fresh_route_counts(sess) as routes:
-            _, o, _ = packed_engine(torch, sess, dev, reqs, layout)
+            _, o, _ = packed_engine(torch, sess, dev, reqs, layout,
+                                    cache_len=cache_len,
+                                    prefill_chunk=prefill_chunk)
         n = {k: ops.launches[k] - n0[k] for k in n0}
         print(f"[{label}] {cut.n_layers} layers, {what}: launches {n}, "
               f"routes {routes.routes}", flush=True)
@@ -4116,9 +4278,55 @@ def cut_gates(torch, ops, dev, cfg, reqs, layout, label, n_layers=MOE_CUT,
     gate(not g["diverged"] and g["compared"] > 0,
          f"{cut.n_layers} layers, dequant-fp matmuls: greedy tokens diverged "
          f"on decisive steps (rids {g['diverged']}) or none compared")
-    del params, sess, ref, ctrl
+    del ref, ctrl
+    logits = None
+    if noise:
+        # the logit gate as the token gates hold the kernel path (ROADMAP
+        # 3a): every kernel bit for bit the plain-matmul session (exact
+        # sums both), and the session on the dequant-fp matmul route (the
+        # reference's op chain; decode attention, flash and fake-quant the
+        # kernels) within max(2 x float32-vs-float64, HYBRID_LOGIT_FLOOR x
+        # std) of the float32 reference; the exact-sum session's distance
+        # printed beside the fake-quant graph's with float64 sums: on the
+        # card expert routing takes both as far from the float32 reference
+        # (1.5644 and 1.5702 on the 256-token prompt, against 0.3850 for
+        # the float64 evaluation)
+        def exact_sums():
+            stack = contextlib.ExitStack()
+            stack.enter_context(dispatch.force_route("matmul", "dequant-fp"))
+            stack.enter_context(float64_sums(torch, dispatch))
+            return stack
+
+        rows = prefill_noise(
+            torch, cut, params, policy_cut, sess, [reqs[i] for i in noise],
+            dev, cap=cache_len, n_dec=6, label=label, variants={
+                "matmuls on their plain versions": lambda: plain_matmuls(ops),
+                "matmuls dequant-fp": lambda: dispatch.force_route(
+                    "matmul", "dequant-fp"),
+                "dequant-fp with float64 sums": exact_sums})
+        limit = max(2 * max(x["ref32_vs_ref64"] for x in rows),
+                    HYBRID_LOGIT_FLOOR * rows[0]["logit_std"])
+        plain = max(x["matmuls on their plain versions_vs_served"]
+                    for x in rows)
+        worst = max(x["matmuls dequant-fp_vs_ref32"] for x in rows)
+        kern = max(x["served_vs_ref32"] for x in rows)
+        f64 = max(x["dequant-fp with float64 sums_vs_ref32"] for x in rows)
+        print(f"[{label}] {cut.n_layers} layers, logits over prefill + 6 "
+              f"decode steps: every kernel vs the plain-matmul session "
+              f"{plain}; dequant-fp matmuls {worst:.4f} from the float32 "
+              f"reference (limit {limit:.4f}); every kernel {kern:.4f} from "
+              f"it, the graph with float64 sums {f64:.4f} (printed: ROADMAP "
+              "3a)", flush=True)
+        gate(plain == 0.0,
+             f"{cut.n_layers} layers: the matmul kernels' logits differ from "
+             f"their plain versions' by {plain}")
+        gate(worst <= limit,
+             f"{cut.n_layers} layers: dequant-fp logits {worst:.4f} from the "
+             f"float32 reference, beyond {limit:.4f}")
+        logits = dict(rows=rows, limit=limit)
+    del params, sess
     torch.cuda.empty_cache()
-    return greedy, unstable
+    return greedy, unstable, logits
 
 
 def paged_requests(cfg):
@@ -4144,7 +4352,10 @@ def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
 
     t_phase = time.perf_counter()
     cfg = sess.cfg
-    reqs = paged_requests(cfg)
+    # WAVE_GEN new tokens a request (GEN before the mixtral phase: the
+    # script's time limit); the MOE_CUT-layer gates serve GEN
+    gate_reqs = paged_requests(cfg)
+    reqs = [r._replace(max_new=WAVE_GEN) for r in gate_reqs]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     with fresh_route_counts(sess) as routes:
@@ -4166,6 +4377,9 @@ def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
           flush=True)
     print(f"[moe-paged] launches {launches}; routes {routes.routes}",
           flush=True)
+    print(f"[moe-paged] cut: {len(reqs)} requests of {WAVE_GEN} new "
+          f"tokens ({GEN} before the mixtral phase; the script's time "
+          f"limit); the {MOE_CUT}-layer token gates serve {GEN}", flush=True)
     per_step = cfg.n_layers * st.decode_steps
     gate(launches["decode_attn_quant_paged"] == per_step
          and launches["decode_attn_quant"] == 0
@@ -4181,7 +4395,8 @@ def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
          f"decode attention routes {routes.routes['decode_attn']}")
     for r in reqs:
         toks = out[r.rid].tokens
-        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+        gate(len(toks) == WAVE_GEN
+             and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     gate(st.prefix_hit_tokens > 0 and st.prefill_tokens < ring_prefill_tokens,
          f"prefix hits {st.prefix_hit_tokens} tokens, prefilled "
@@ -4213,8 +4428,8 @@ def moe_paged_phase(torch, ops, dev, card, sess, ring_prefill_tokens):
           "sync", flush=True)
     del st0
     t_full = time.perf_counter() - t_phase
-    greedy, unstable = cut_gates(torch, ops, dev, cfg, reqs, "paged",
-                                     "moe-paged")
+    greedy, unstable, _ = cut_gates(torch, ops, dev, cfg, gate_reqs,
+                                    "paged", "moe-paged")
     t_all = time.perf_counter() - t_phase
     print(f"[moe-paged] phase {t_all:.1f}s ({t_full:.1f}s at full depth); "
           f"{card}", flush=True)
@@ -4251,10 +4466,10 @@ def moe_spec_phase(torch, ops, dev, card, sess, layout, base):
     # caches (the script's time limit; and over pages a later admission's
     # chunk has pad rows that attend the rows another history left in its
     # pages and compete for an expert's capacity: ROADMAP §3)
-    # and each to MOE_SPEC_GEN new tokens, held to the first MOE_SPEC_GEN
+    # and each to WAVE_GEN new tokens, held to the first WAVE_GEN
     # of the token-at-a-time run's (the script's time limit)
-    reqs = [r._replace(max_new=MOE_SPEC_GEN) for r in reqs[:SLOTS]]
-    base_out = {rid: dataclasses.replace(c, tokens=c.tokens[:MOE_SPEC_GEN])
+    reqs = [r._replace(max_new=WAVE_GEN) for r in reqs[:SLOTS]]
+    base_out = {rid: dataclasses.replace(c, tokens=c.tokens[:WAVE_GEN])
                 for rid, c in base_out.items()}
     rids = {r.rid for r in reqs}
     paged_hits = sum(ev.args["tokens"] for ev in base_eng.trace.events
@@ -4308,7 +4523,7 @@ def moe_spec_phase(torch, ops, dev, card, sess, layout, base):
          f"{sorted(rids)}")
     for r in reqs:
         toks = out[r.rid].tokens
-        gate(len(toks) == MOE_SPEC_GEN
+        gate(len(toks) == WAVE_GEN
              and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     same, total, compared, bad = serve.compare_spec(out, base_eng, base_out)
@@ -4593,9 +4808,9 @@ def vision_serve_phase(torch, ops, ref, dev, card):
           "full width), not at 48 sites: two reference engines (float32 "
           "and float64) over the 46.1 GB float32 tree would take the "
           "phase past its time budget", flush=True)
-    greedy, unstable = cut_gates(torch, ops, dev, cfg, reqs, "ring",
-                                 "vision", n_layers=VISION_CUT,
-                                 prep=set_cross_gates)
+    greedy, unstable, _ = cut_gates(torch, ops, dev, cfg, reqs, "ring",
+                                    "vision", n_layers=VISION_CUT,
+                                    prep=set_cross_gates)
     t_all = time.perf_counter() - t_phase
     print(f"[vision] phase {t_all:.1f}s (kernel rows {t_rows:.1f}s, full "
           f"depth {t_full - t_rows:.1f}s); {card}", flush=True)
@@ -4611,6 +4826,243 @@ def vision_serve_phase(torch, ops, ref, dev, card):
         image_logit_diff=diff, gate_value=VISION_GATE,
         cut_layers=VISION_CUT, cut_greedy=greedy,
         cut_reference_unstable_rids=unstable,
+        packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"],
+        phase_s=t_all, kernel_rows_s=t_rows)
+    return rows, launches, res
+
+
+def mixtral_requests(cfg, gen=WAVE_GEN):
+    """The serve phase's first ``MIXTRAL_SHORT`` prompts and one of
+    ``MIXTRAL_LONG`` tokens (``SyntheticLM``), ``gen`` new tokens each."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.scheduler import Request
+    long_ = SyntheticLM(cfg).batch(len(PROMPTS), 1, MIXTRAL_LONG)
+    reqs = serve_requests(cfg, MIXTRAL_SHORT) + [Request(
+        rid=MIXTRAL_SHORT, tokens=long_["tokens"][0], max_new=GEN)]
+    return [r._replace(max_new=gen) for r in reqs]
+
+
+def mixtral_kernel_rows(torch, ops, ref, dev):
+    """The kernels at mixtral-8x7b's new shapes (``MIXTRAL_ATTN``,
+    ``MIXTRAL_FLASH``, ``FQ_MIXTRAL_SHAPES``), each held to its plain
+    version and timed beside it and its library call."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = [decode_attn_row(torch, ops, ref, flush, dev, *c)
+            for c in MIXTRAL_ATTN]
+    rows.append(flash_row(torch, ops, ref, flush, dev, *MIXTRAL_FLASH))
+    rows += [r for shape in FQ_MIXTRAL_SHAPES
+             for r in fake_quant_expert_row(torch, ops, ref, flush, dev,
+                                            shape)]
+    del flush
+    return rows
+
+
+def mixtral_serve_phase(torch, ops, ref, dev, card):
+    """mixtral-8x7b at full width and depth over the int8 ring, one prompt
+    past its window (module docstring, phase 20). Returns (kernel rows,
+    launches, results)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import packing
+    from repro_torch.runtime.session import summarize
+
+    t_phase = time.perf_counter()
+    rows = mixtral_kernel_rows(torch, ops, ref, dev)
+    t_rows = time.perf_counter() - t_phase
+    cfg = get_config(MIXTRAL_ARCH)
+    moe = cfg.moe
+    window = lm.attn_window(cfg)
+    G = cfg.n_heads // cfg.n_kv_heads
+    ql = lm.enumerate_qlayers(cfg)
+    n_proj, n_stacks = len(ql), sum(q.n_mats > 1 for q in ql)
+    n_params = lm.param_count(lm.init_params(cfg, device="meta"))
+    res = {"combine": moe_combine_check(torch, dev, cfg,
+                                        calls=(SLOTS, MIXTRAL_LONG),
+                                        label="mixtral")}
+    policy = serve.demo_mixed_policy(cfg)
+    reqs = mixtral_requests(cfg, MIXTRAL_GEN)
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: ln.split(":")[1].strip() for ln in f}
+    sched = lm.build_schedule(cfg)
+    print(f"[mixtral] {cfg.name}: {cfg.n_layers} layers {sched.prefix} + "
+          f"{sched.pattern} x {sched.repeats}, d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} (G={G}) head_dim={cfg.hd}, "
+          f"sliding window {window}; {moe.n_experts} routed experts of d_ff "
+          f"{moe.d_ff}, top-{moe.top_k}, {moe.n_shared} shared; vocab "
+          f"{cfg.vocab}; {n_proj} projections ({n_stacks} expert stacks), "
+          f"{n_params} parameters ({4 * n_params / 1e9:.1f} GB f32); "
+          f"prompts {[len(r.tokens) for r in reqs]}, {MIXTRAL_GEN} new "
+          f"tokens each ({WAVE_GEN} in the {MIXTRAL_CUT}-layer gates; cut "
+          f"for the script's time limit); host MemTotal {mem.get('MemTotal')}, MemAvailable "
+          f"{mem.get('MemAvailable')}; {card}", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                         # counts: the main path only
+    t0 = time.perf_counter()
+    outer, source = site_source(torch, lm, cfg, dev)
+    sess = serve.build_session(cfg, outer, policy, site_source=source)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    del outer
+    with fresh_route_counts(sess) as routes:
+        eng, out, wall = packed_engine(torch, sess, dev, reqs,
+                                       cache_len=window,
+                                       prefill_chunk=MIXTRAL_LONG)
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS
+                + ("fake_quant_fwd", "flash_fwd")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    d = st.as_dict()
+    pre_ms = {ev.args["rid"]: ev.dur * 1e3 for ev in eng.trace.events
+              if ev.name == "prefill"}
+    short_ms = statistics.median(pre_ms[r.rid] for r in reqs[:-1])
+    long_ms = pre_ms[reqs[-1].rid]
+    print(f"[mixtral] packed site by site (seeded init) in {pack_s:.2f}s; "
+          f"ring KV of {window} rows a slot: {len(out)} requests in "
+          f"{wall:.2f}s wall: prefill p50 {d['prefill_p50_ms']:.2f} ms "
+          f"(the short prompts' p50 {short_ms:.2f} ms, the "
+          f"{MIXTRAL_LONG}-token one {long_ms:.2f} ms), decode step p50 "
+          f"{d['decode_step_p50_ms']:.2f} ms, decode "
+          f"{st.decode_tokens_per_s:.2f} tok/s ({st.decode_steps} steps, "
+          f"{st.tokens_generated} tokens, {st.prefill_tokens} prompt "
+          f"tokens); peak device memory {peak_gb:.2f} GB; {card}",
+          flush=True)
+    print(f"[mixtral] launches {launches}; routes {routes.routes}",
+          flush=True)
+    # (a) the ring kernels, the per-expert fake-quant and flash launched, no
+    # other layout's; flash once per layer, in the long prompt's prefill
+    # alone; no kernel-eligible projection on dequant-fp
+    gate(all(launches[k] > 0 for k in RING_KERNELS + ("fake_quant_fwd",))
+         and not any(launches[k] for k in SERVE_KERNELS
+                     if k not in RING_KERNELS),
+         f"mixtral serving launched {launches}")
+    gate(launches["flash_fwd"] == cfg.n_layers,
+         f"flash_fwd launched {launches['flash_fwd']} times, expected "
+         f"{cfg.n_layers} (one a layer in the {MIXTRAL_LONG}-token prefill)")
+    gate(routes.eligible_fp == 0,
+         f"{routes.eligible_fp} kernel-eligible matmuls ran dequant-fp")
+    gate(set(routes.routes["decode_attn"]) == {"fused"},
+         f"decode attention routes {routes.routes['decode_attn']}")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == MIXTRAL_GEN
+             and all(0 <= t < cfg.vocab for t in toks),
+             f"request {r.rid}: bad tokens {toks[:8]}...")
+    # (c) packed bytes exactly the policy's
+    s = summarize(sess)
+    print(f"[mixtral] packed weights {s['packed_bytes']} B vs policy "
+          f"{s['policy_bytes']:.0f} B (x{s['packed_vs_policy']:.4f})",
+          flush=True)
+    gate(s["packed_bytes"] == s["policy_bytes"],
+         f"packed bytes {s['packed_bytes']} B, the policy's "
+         f"{s['policy_bytes']:.0f} B")
+
+    # (b) one decode step's routes and launches, as the schedule implies
+    # them: every attention projection on a matmul kernel, the expert
+    # stacks on dequant-fp, one attention launch a layer over slots of the
+    # window's rows past it, one fake-quant launch per expert input group
+    # and two for the untied pinned head
+    expert_pls = [pl for pl in packing.packed_leaves(sess.params)
+                  if len(pl.shape) == 3]
+    n_fq = len({pl.a_group or id(pl) for pl in expert_pls})
+    pinned = 0 if cfg.tie_embeddings else 2
+    want_step = {"quant_matmul+w4": n_proj - n_stacks,
+                 "decode_attn_quant": cfg.n_layers,
+                 "fake_quant_fwd": n_fq + pinned}
+    state = sess.init_state(SLOTS, window, torch.float32, device=dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.arange(SLOTS, dtype=torch.int32, device=dev) + MIXTRAL_LONG
+    ops.reset_launches()
+    with fresh_route_counts(sess) as counts:
+        logits, _ = sess.decode(sess.params, tok, pos, state)
+        again, _ = sess.decode(sess.params, tok, pos, state)
+        torch.cuda.synchronize()
+    step = {k: ops.launches[k] // 2 for k in ("quant_matmul",
+                                               "quant_matmul_w4",
+                                               "decode_attn_quant",
+                                               "fake_quant_fwd")}
+    got_step = {"quant_matmul+w4": step["quant_matmul"]
+                + step["quant_matmul_w4"],
+                "decode_attn_quant": step["decode_attn_quant"],
+                "fake_quant_fwd": step["fake_quant_fwd"]}
+    fp_step = counts.routes["matmul"].get("dequant-fp", 0) // 2
+    print(f"[mixtral] one decode step: launches {step}, routes "
+          f"{ {k: v // 2 for k, v in counts.routes['matmul'].items()} }",
+          flush=True)
+    gate(fp_step == n_stacks == 3 * cfg.n_layers,
+         f"one decode step ran {fp_step} dequant-fp matmuls, expected the "
+         f"{3 * cfg.n_layers} expert stacks")
+    gate(got_step == want_step,
+         f"one decode step launched {got_step}, expected {want_step}")
+    # (f) finite logits; the step is deterministic on the card
+    gate(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    gate(torch.equal(logits, again),
+         "two equal mixtral decode steps gave different logits")
+    # (e) no host sync inside a decode step
+    no_sync(torch, lambda: sess.decode(sess.params, tok, pos, state),
+            "a mixtral decode step")
+    print("[mixtral] one decode step under sync-debug 'error': no host "
+          "sync; logits finite, two equal steps bit for bit equal",
+          flush=True)
+    del state, logits, again
+    # (d) the profiled step (slots of the window's rows past it); then one
+    # short and the long prompt's prefill: flash once a layer in the long
+    # one alone
+    prof = profile_decode_step(
+        torch, sess, dev, "mixtral",
+        watch=("decode_attn_quant_kernel", "qmm_splitk_kernel",
+               "qmm_w4_splitk_kernel", "fq_fwd_kernel"),
+        cache_len=window, pos0=MIXTRAL_LONG)
+    short = torch.as_tensor(reqs[0].tokens, device=dev)[None]
+    n0 = ops.launches["flash_fwd"]
+    pre_logits, _ = sess.prefill(sess.params, short, prefill_cap=window)
+    torch.cuda.synchronize()
+    gate(ops.launches["flash_fwd"] == n0,
+         f"a {short.shape[1]}-token prefill launched flash_fwd")
+    gate(bool(torch.isfinite(pre_logits).all()), "non-finite prefill logits")
+    t_long = torch.as_tensor(reqs[-1].tokens, device=dev)[None]
+    pre = profile_device(torch, lambda: sess.prefill(
+        sess.params, t_long, prefill_cap=window), top=4,
+        watch=("flash_fwd_kernel", "qmm_mma_kernel", "qmm_w4_mma_kernel",
+               "fq_fwd_kernel"))
+    print_profile("mixtral", f"one {MIXTRAL_LONG}-token prefill", pre)
+    gate(ops.launches["flash_fwd"] - n0 == cfg.n_layers,
+         f"a {MIXTRAL_LONG}-token prefill launched "
+         f"{ops.launches['flash_fwd'] - n0} flash kernels, expected "
+         f"{cfg.n_layers}")
+    print(f"[mixtral] at {cfg.n_layers} layers the float32 tree "
+          f"({4 * n_params / 1e9:.1f} GB) and a fake-quant reference engine "
+          "fit neither the card nor the host: no reference comparison at "
+          "full depth", flush=True)
+    del pre_logits, sess, eng
+    torch.cuda.empty_cache()
+    t_full = time.perf_counter() - t_phase
+    # (b) the token gates and the logit gate over a short prompt and the
+    # long one, at two MoE layers, full width
+    greedy, unstable, noise = cut_gates(
+        torch, ops, dev, cfg, mixtral_requests(cfg), "ring", "mixtral",
+        n_layers=MIXTRAL_CUT,
+        cache_len=window, prefill_chunk=MIXTRAL_LONG,
+        noise=(0, len(reqs) - 1))
+    t_all = time.perf_counter() - t_phase
+    print(f"[mixtral] phase {t_all:.1f}s (kernel rows {t_rows:.1f}s, full "
+          f"depth {t_full - t_rows:.1f}s); {card}", flush=True)
+    res.update(
+        parameters=n_params, projections=n_proj, expert_stacks=n_stacks,
+        window=window, pack_s=pack_s, wall_s=wall, peak_mem_gb=peak_gb,
+        host_mem_total=mem.get("MemTotal"),
+        host_mem_available=mem.get("MemAvailable"),
+        prefill_p50_ms=d["prefill_p50_ms"], prefill_short_p50_ms=short_ms,
+        prefill_long_ms=long_ms,
+        decode_step_p50_ms=d["decode_step_p50_ms"],
+        decode_tokens_per_s=st.decode_tokens_per_s,
+        decode_steps=st.decode_steps, tokens=st.tokens_generated,
+        prefill_tokens=st.prefill_tokens, decode_step_launches=step,
+        decode_step_dequant_fp=fp_step, decode_step_profile=prof,
+        long_prefill_profile=pre, cut_layers=MIXTRAL_CUT, cut_greedy=greedy,
+        cut_reference_unstable_rids=unstable, cut_logits=noise,
         packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"],
         phase_s=t_all, kernel_rows_s=t_rows)
     return rows, launches, res
@@ -4677,7 +5129,7 @@ def main() -> int:
                                                ring_run)
     torch.cuda.empty_cache()
     spec_paged_launches, spec_paged_res = spec_serve_phase(
-        torch, ops, dev, "paged", paged_run, paged_res["prefix_hit_tokens"])
+        torch, ops, dev, "paged", paged_run)
     torch.cuda.empty_cache()
     lap("serve, paged, spec")
     cli_res = serve_cli_phase(torch, ops, dev, card)
@@ -4718,8 +5170,9 @@ def main() -> int:
         moe_serve_phase(torch, ops, dev, card)
     moe_res["launches"] = moe_launches
     lap("moe")
+    # the ring prefills each of the paged phase's 8 prompts whole
     mp_launches, mp_res, mp_base = moe_paged_phase(
-        torch, ops, dev, card, sess, moe_res["prefill_tokens"])
+        torch, ops, dev, card, sess, sum(PROMPTS))
     mp_res["launches"] = mp_launches
     lap("moe-paged")
     ms_res = {}
@@ -4744,6 +5197,12 @@ def main() -> int:
     vision_res["launches"] = vision_launches
     torch.cuda.empty_cache()
     lap("vision")
+    mixtral_rows, mixtral_launches, mixtral_res = mixtral_serve_phase(
+        torch, ops, ref, dev, card)
+    rows += mixtral_rows
+    mixtral_res["launches"] = mixtral_launches
+    torch.cuda.empty_cache()
+    lap("mixtral")
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -4788,6 +5247,10 @@ def main() -> int:
     # image projection's and head's fake-quant
     for k in RING_KERNELS + ("fake_quant_fwd",):
         by_path[k]["vision"] = vision_launches[k]
+    # mixtral's serving path: the ring kernels, the per-expert fake-quant
+    # and flash in the long prompt's prefill
+    for k in RING_KERNELS + ("fake_quant_fwd", "flash_fwd"):
+        by_path[k]["mixtral"] = mixtral_launches[k]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -4812,6 +5275,7 @@ def main() -> int:
          "audio_train": audio_res, "moe_serve": moe_res,
          "moe_paged_serve": mp_res, "moe_spec_serve": ms_res,
          "moe_train": mt_res, "vision_serve": vision_res,
+         "mixtral_serve": mixtral_res,
          "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))

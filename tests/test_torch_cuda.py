@@ -783,6 +783,29 @@ def test_decode_attn_quant_deepseek_shape(dev):
         rtol=2e-5, atol=2e-6)
 
 
+def test_decode_attn_quant_mixtral_shape(dev):
+    """mixtral-8x7b's decode attention: 8 kv heads of 128 with 4 query
+    heads each, over a ring of its 4096-row window wrapped past it (slots
+    at positions 4623, 8191 and 4696 hold the window's last 4096 rows,
+    their ring index the position mod 4096; one slot has not wrapped),
+    with the window applied; within rtol 2e-5 / atol 2e-6 of the plain
+    version, one launch."""
+    B, KV, G, hd, Sc = 4, 8, 4, 128, 4096
+    rng = np.random.default_rng(4096)
+    q_pos = np.array([4608 + 15, 2 * Sc - 1, Sc - 1, 4696], np.int32)
+    kc, ks, vc, vs, pos = _ring(rng, B, Sc, KV, hd, dev, q_pos)
+    assert int(pos[0].max()) == q_pos[0] and int(pos[0, 0]) == 4096
+    q = _q(rng, B, 1, KV * G, hd, dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    n0 = ops.launches["decode_attn_quant"]
+    out = ops.decode_attn_quant(q, kc, ks, vc, vs, pos, qp, window=Sc)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attn_quant"] == n0 + 1
+    torch.testing.assert_close(
+        out, _plain_ring(q, kc, ks, vc, vs, pos, qp[:, None], Sc),
+        rtol=2e-5, atol=2e-6)
+
+
 def test_verify_wrappers_reject_bad_operands(dev):
     rng = np.random.default_rng(6)
     kc, ks, vc, vs, pos = _ring(rng, 2, 64, 2, 64, dev, np.array([10, 20]))
@@ -1091,6 +1114,66 @@ def test_moe_combine_and_expert_layer_repeat_bit_for_bit(dev):
     torch.cuda.synchronize()
     assert ops.launches["fake_quant_fwd"] - n0 == 2 * 3
     assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+
+
+def test_mixtral_moe_layer_through_the_kernels_matches_plain(dev,
+                                                            monkeypatch):
+    """One packed MoE layer of mixtral-8x7b's smoke config (8 experts,
+    top-2, no shared experts, a 64-row window) on the card: an 80-token
+    prefill of 2 prompts (past the window: the ring keeps its last 64
+    rows), then 3 decode steps over the wrapped ring, through the matmul
+    and per-expert fake-quant kernels and through their plain versions,
+    decode attention the kernel on both sides: outputs, ring codes and
+    scales bit for bit (the kernels compute their plain versions' values
+    exactly), and the kernels launched as the layer implies (4 matmuls a
+    call, one fake-quant per expert input group a call, one decode
+    attention a step)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn, lm
+    from repro_torch.runtime import packing
+    cfg = smoke_config("mixtral-8x7b")
+    assert (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.n_shared) == (8, 2, 0)
+    sess = serve.build_session(cfg, lm.init_params(cfg, seed=0, device=dev),
+                               serve.demo_mixed_policy(cfg))
+    p = sess.params["sites"][lm.site_key(1)]
+    stacks = [pl for pl in packing.packed_leaves(p) if len(pl.shape) == 3]
+    n_fq = len({pl.a_group or id(pl) for pl in stacks})
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 80, cfg.d_model), generator=gen, device=dev)
+    xd = [torch.randn((2, 1, cfg.d_model), generator=gen, device=dev)
+          for _ in range(3)]
+    names = ("quant_matmul", "quant_matmul_w4", "fake_quant_fwd",
+             "decode_attn_quant")
+
+    def run():
+        n0 = {k: ops.launches[k] for k in names}
+        out, st, _ = lm.apply_layer("moe", x, p, None, cfg, sess.ctx,
+                                    mode="prefill", prefill_cap=96)
+        assert st.k.shape[1] == cfg.sliding_window
+        st = attn.cache_per_slot(st)
+        outs = [out]
+        for i, t in enumerate(xd):
+            pos = torch.tensor([80 + i, 80 + i], dtype=torch.int32,
+                               device=dev)
+            o, st, _ = lm.apply_layer("moe", t, p, None, cfg, sess.ctx,
+                                      mode="decode", state=st, pos=pos)
+            outs.append(o)
+        torch.cuda.synchronize()
+        return outs + list(st), {k: ops.launches[k] - n0[k] for k in names}
+
+    kern, n_kern = run()
+    monkeypatch.setattr(ops, "quant_matmul", ref.quant_matmul_ref)
+    monkeypatch.setattr(ops, "quant_matmul_w4", ref.quant_matmul_w4_ref)
+    with ops.plain_on_cuda("fake_quant_fwd"):
+        plain, n_plain = run()
+    assert n_kern["quant_matmul"] + n_kern["quant_matmul_w4"] == 4 * 4
+    assert n_kern["fake_quant_fwd"] == 4 * n_fq
+    assert n_kern["decode_attn_quant"] == n_plain["decode_attn_quant"] == 3
+    assert n_plain["quant_matmul"] == n_plain["quant_matmul_w4"] \
+        == n_plain["fake_quant_fwd"] == 0
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b), float((a.double() - b.double()).abs().max())
 
 
 def test_cross_layer_through_the_kernels_matches_plain(dev, monkeypatch):
