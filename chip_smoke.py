@@ -276,7 +276,7 @@ In order:
     card beside its packing, so each MoE site's seeded params are made on
     the card when ``SpecSession(site_source=...)`` packs it, under the
     target policy and the 2-bit draft policy of phase 17, and dropped
-    before the next (``site_source``): one pack serves phases 15-17;
+    before the next (``lm.site_source``): one pack serves phases 15-17;
     the host's MemTotal and MemAvailable are printed. First the combine at deepseek's shapes (4
     tokens, and 256 whose capacity of 128 drops picks): two equal calls
     bit for bit equal, and equal to the CPU's evaluation. Gates: (a) the
@@ -351,7 +351,7 @@ In order:
     ``gate_attn`` and ``gate_mlp`` set to ``VISION_GATE`` (the reference
     inits them to 0, and tanh(0) = 0 would make the tokens independent
     of the image); each site made on the card and packed before the next
-    (``site_source``). First the kernel rows at its shapes: both matmuls
+    (``lm.site_source``). First the kernel rows at its shapes: both matmuls
     at M = 4 on its decode projections, the int8 one at M = 1600 on the
     image K/V projection, decode attention at KV 8, G 4 over the 320-row
     ring. Then the serve phase's 8 requests over 4 slots and a 320-row
@@ -385,7 +385,7 @@ In order:
     GB in float32, which fit neither the card nor the host) under
     ``demo_mixed_policy`` (224 projections, 96 of them expert stacks),
     each site made on the card and packed before the next
-    (``site_source``, no prefix). First the kernel rows at its new shapes:
+    (``lm.site_source``, no prefix). First the kernel rows at its new shapes:
     decode attention at KV 8, G 4 over a 4096-row ring wrapped past its
     window, flash at B 1, S 4608, KV 8, G 4, hd 128, causal, window 4096,
     and the fake-quant forward with 8 scales at the expert inputs of a
@@ -424,6 +424,39 @@ In order:
     far from the float32 reference (ROADMAP 3a). Printed: pack seconds,
     the host's MemTotal and MemAvailable, peak device memory, step p50,
     tok/s, prefill p50 of the short prompts and the long one's.
+21. cli-large phase: the serve CLI (``launch.serve.main``, as phase 9
+    drives it) at full width and depth on the large decoders, each over
+    the int8 ring under ``demo_mixed_policy`` with ``--compare``, 4
+    slots and a 320-row ring (``--cache-len``), requests of 128 prompt
+    tokens (``CLI_LARGE``: 4 requests of 8 new tokens for the dense
+    archs; 2 of 4 for deepseek-moe-16b and 2 of 2 for mixtral-8x7b, whose
+    steps take ~0.5 and ~1.3 s, cut from 4 of 8 and 4 of 4 for the
+    script's time limit):
+    deepseek-moe-16b, mixtral-8x7b and granite-20b (52 layers, d_model
+    6144, 48 query heads on one kv head, plain-gelu d_ff 24576; 20.32 B
+    parameters, 81.3 GB in float32) with ``--site-by-site`` (each site's
+    seeded params made on the card by ``lm.site_source`` when the
+    session packs it), yi-9b (48 layers, d_model 4096, 32 / 4 heads, d_ff
+    11008; 8.83 B parameters, 35.3 GB) whole, through the CLI's fit check
+    on ``meta``. Gates for each run: the CLI's own (token-identical with
+    the fixed batch, the trace against the stats, a finite calibration);
+    every ring kernel launched and no other layout's; no kernel-eligible
+    projection on dequant-fp; the decode attention route fused; one
+    decode step launches ``decode_attn_quant`` once per layer (28, 32, 52,
+    48); packed bytes exactly the policy's (``CLI_LARGE_BYTES``: 7.97,
+    23.16, 9.80, 4.15 GB); peak device memory below the card's; for
+    deepseek-moe-16b and mixtral-8x7b a checksum of the packed codes,
+    scales and activation scales (``packed_checksum``) equal to phase 15's
+    and phase 20's sessions' (the same ``lm.site_source`` at seed 0: the
+    CLI serves the model those phases hold against their references).
+    For yi-9b and granite-20b, which no other phase serves, phase 12's (b)
+    at 2 layers and full width over the serve phase's 8 requests
+    (``exact_sum_gates``): the all-kernel run token for token the
+    plain-matmul run, the dequant-fp run equal on every decisive step to
+    the fake-quant reference, the exact-sum runs printed beside it.
+    Printed for each arch beside the card: init + pack seconds (from the
+    call to ``build_session``'s return), prefill and decode step p50,
+    tok/s, peak device memory.
 
 For the vision phase's time, earlier phases were cut (each named where it
 applies): the kernel rows' timed launches (``KERNEL_REPS``, 40 to 20),
@@ -435,7 +468,8 @@ wave to ``WAVE_GEN`` new tokens, as phase 17 does; phase 15's full-depth
 run serves the first wave (4 requests of ``WAVE_GEN`` new tokens, which
 phase 17 compares), and phase 16's 8 requests take ``WAVE_GEN`` new
 tokens; the 2-layer token gates of both keep the 8 requests of ``GEN``
-tokens.
+tokens. For phase 21's: its MoE runs serve 2 requests, deepseek-moe-16b's
+4 new tokens and mixtral-8x7b's 2 (``CLI_LARGE``).
 
 Every phase's seconds and the script's are printed as ``[time]`` lines.
 Any failure exits non-zero. The line before the last is a JSON object with
@@ -651,6 +685,18 @@ MIXTRAL_ATTN = [("mixtral-8x7b", 8, 4, 4096, 4096, 128)]
 MIXTRAL_FLASH = (MIXTRAL_LONG, True, 4096, 8, 4, 128)
 FQ_MIXTRAL_SHAPES = [(8, 4, 4096), (8, 4, 14336), (8, 1536, 4096),
                      (8, 1536, 14336)]
+# the cli-large phase: each large decoder through ``serve.main`` at full
+# width and depth (arch, --site-by-site, requests of CLI_LARGE_PROMPT
+# tokens, new tokens; the MoE runs cut from 4 requests of 8 and 4 for the
+# script's time limit: their steps take ~0.5 and ~1.3 s), and
+# demo_mixed_policy's packed bytes there (no width needs padding: the
+# card packs exactly these)
+CLI_LARGE = [("deepseek-moe-16b", True, 2, 4), ("mixtral-8x7b", True, 2, 2),
+             ("granite-20b", True, 4, 8), ("yi-9b", False, 4, 8)]
+CLI_LARGE_PROMPT = 128
+CLI_LARGE_BYTES = {"deepseek-moe-16b": 7_967_162_368,
+                   "mixtral-8x7b": 23_155_703_808,
+                   "granite-20b": 9_798_942_720, "yi-9b": 4_150_001_664}
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
 # event-timed launches of a kernel row (cut for the script's time limit)
 KERNEL_REPS = 20
@@ -3315,6 +3361,86 @@ def float64_sums(torch, dispatch):
         dispatch.REGISTRY["dequant-fp"] = saved
 
 
+def exact_sum_gates(torch, ops, dev, cfg, reqs, tag):
+    """A dense arch's token gates at 2 layers and full width,
+    over ``reqs`` through the serve phase's slots, ring and prefill chunk
+    (phase 12's (b)): the all-kernel run token for token the run with both
+    matmuls on their plain versions, and the run with the matmuls on
+    dequant-fp (the attention kernel kept) equal to the fake-quant
+    reference on every decisive step (``serve.check_greedy``'s rule); the
+    exact-sum runs against the reference printed. Lines start with
+    ``tag``. Returns (the cut config, each run's greedy comparison, the
+    rids where the reference's float32 and float64 evaluations part)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import dispatch
+
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
+              device=dev)
+    n_tok = sum(r.max_new for r in reqs)
+    cut = cfg.scaled(n_layers=2)
+    params = lm.init_params(cut, seed=0, device=dev)
+    policy_cut = serve.demo_mixed_policy(cut)
+    mm = ("quant_matmul", "quant_matmul_w4")
+
+    def served(label):
+        n0 = {k: ops.launches[k] for k in mm + ("decode_attn_quant",)}
+        s_, _, o = serve.serve_quantized(cut, params, policy_cut, reqs, **kw)
+        n = {k: ops.launches[k] - n0[k] for k in n0}
+        print(f"{tag} {cut.n_layers} layers, {label}: launches {n}, "
+              f"routes {s_.route_counts.routes}", flush=True)
+        gate(n["decode_attn_quant"] > 0
+             and set(s_.route_counts.routes["decode_attn"]) == {"fused"},
+             f"{label}: attention launched {n}, routes "
+             f"{s_.route_counts.routes}")
+        return o, n
+
+    out_kern, n_kern = served("every kernel")
+    with plain_matmuls(ops):
+        out_plain, n_plain = served("matmuls on their plain versions")
+    with dispatch.force_route("matmul", "dequant-fp"):
+        out_attn, n_attn = served("matmuls dequant-fp")
+        with float64_sums(torch, dispatch):
+            out_f64, n_f64 = served("matmuls dequant-fp, float64 sums")
+    gate(all(n_kern[k] > 0 for k in mm)
+         and not any(n[k] for n in (n_plain, n_attn, n_f64) for k in mm),
+         f"matmul launches: every kernel {n_kern}, controls {n_plain} / "
+         f"{n_attn} / {n_f64}")
+    same_plain = [r.rid for r in reqs
+                  if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
+    print(f"{tag} {cut.n_layers} layers: every kernel vs the matmuls' "
+          f"plain versions: {len(same_plain)} of {len(reqs)} requests token "
+          f"for token", flush=True)
+    gate(len(same_plain) == len(reqs),
+         f"{cut.n_layers} layers: the matmul kernels' served tokens differ "
+         f"from their plain versions' in rids "
+         f"{sorted(set(r.rid for r in reqs) - set(same_plain))}")
+    ref, ref_out = serve.reference_engine(cut, params, policy_cut, reqs, **kw)
+    ctrl, ctrl_out = serve.reference_engine(cut, params, policy_cut, reqs,
+                                            compute_dtype=torch.float64, **kw)
+    greedy = {}
+    for label, o in (("attention kernel, matmuls dequant-fp", out_attn),
+                     ("every kernel", out_kern),
+                     ("matmuls plain", out_plain),
+                     ("matmuls dequant-fp, float64 sums", out_f64)):
+        compared, bad = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
+        same = sum(o[r.rid].tokens == ref_out[r.rid].tokens for r in reqs)
+        greedy[label] = dict(compared=compared, diverged=bad, identical=same)
+        print(f"{tag} {cut.n_layers} layers, full width, {label}: "
+              f"greedy tokens vs fake-quant reference: {compared} of {n_tok} "
+              f"steps decisive and compared, diverged rids {bad}; {same} of "
+              f"{len(reqs)} requests token for token the reference's",
+              flush=True)
+    _, unstable = serve.compare_greedy(ctrl_out, ref, ref_out)
+    print(f"{tag} the reference's float32 and float64 evaluations part "
+          f"on a confident step in rids {unstable}", flush=True)
+    g = greedy["attention kernel, matmuls dequant-fp"]
+    gate(not g["diverged"] and g["compared"] > 0,
+         f"{cut.n_layers} layers, attention kernel: greedy tokens diverged "
+         f"on decisive steps (rids {g['diverged']}) or none compared")
+    return cut, greedy, unstable
+
+
 def starcoder_serve_phase(torch, ops, dev):
     """starcoder2-7b at full width and depth over the ring: 9 query heads
     per kv head, past one query group of the attention kernel (module
@@ -3322,7 +3448,6 @@ def starcoder_serve_phase(torch, ops, dev):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    from repro_torch.runtime import dispatch
     from repro_torch.runtime.session import summarize
 
     cfg = get_config("starcoder2-7b")
@@ -3402,71 +3527,10 @@ def starcoder_serve_phase(torch, ops, dev):
     # so every exact-sum evaluation -- the kernels, their plain versions,
     # and the dequant-fp graph with float64 sums -- parts from it on
     # near-ties (ROADMAP 3)
-    n_tok = sum(len(c.tokens) for c in out.values())
     del sess, eng, params
     torch.cuda.empty_cache()
-    cut = cfg.scaled(n_layers=2)
-    params = lm.init_params(cut, seed=0, device=dev)
-    policy_cut = serve.demo_mixed_policy(cut)
-    mm = ("quant_matmul", "quant_matmul_w4")
-
-    def served(label):
-        n0 = {k: ops.launches[k] for k in mm + ("decode_attn_quant",)}
-        s_, _, o = serve.serve_quantized(cut, params, policy_cut, reqs, **kw)
-        n = {k: ops.launches[k] - n0[k] for k in n0}
-        print(f"[starcoder] {cut.n_layers} layers, {label}: launches {n}, "
-              f"routes {s_.route_counts.routes}", flush=True)
-        gate(n["decode_attn_quant"] > 0
-             and set(s_.route_counts.routes["decode_attn"]) == {"fused"},
-             f"{label}: attention launched {n}, routes "
-             f"{s_.route_counts.routes}")
-        return o, n
-
-    out_kern, n_kern = served("every kernel")
-    with plain_matmuls(ops):
-        out_plain, n_plain = served("matmuls on their plain versions")
-    with dispatch.force_route("matmul", "dequant-fp"):
-        out_attn, n_attn = served("matmuls dequant-fp")
-        with float64_sums(torch, dispatch):
-            out_f64, n_f64 = served("matmuls dequant-fp, float64 sums")
-    gate(all(n_kern[k] > 0 for k in mm)
-         and not any(n[k] for n in (n_plain, n_attn, n_f64) for k in mm),
-         f"matmul launches: every kernel {n_kern}, controls {n_plain} / "
-         f"{n_attn} / {n_f64}")
-    same_plain = [r.rid for r in reqs
-                  if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
-    print(f"[starcoder] {cut.n_layers} layers: every kernel vs the matmuls' "
-          f"plain versions: {len(same_plain)} of {len(reqs)} requests token "
-          f"for token", flush=True)
-    gate(len(same_plain) == len(reqs),
-         f"{cut.n_layers} layers: the matmul kernels' served tokens differ "
-         f"from their plain versions' in rids "
-         f"{sorted(set(r.rid for r in reqs) - set(same_plain))}")
-    ref, ref_out = serve.reference_engine(cut, params, policy_cut, reqs, **kw)
-    ctrl, ctrl_out = serve.reference_engine(cut, params, policy_cut, reqs,
-                                            compute_dtype=torch.float64, **kw)
-    greedy = {}
-    for label, o in (("attention kernel, matmuls dequant-fp", out_attn),
-                     ("every kernel", out_kern),
-                     ("matmuls plain", out_plain),
-                     ("matmuls dequant-fp, float64 sums", out_f64)):
-        compared, bad = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
-        same = sum(o[r.rid].tokens == ref_out[r.rid].tokens for r in reqs)
-        greedy[label] = dict(compared=compared, diverged=bad, identical=same)
-        print(f"[starcoder] {cut.n_layers} layers, full width, {label}: "
-              f"greedy tokens vs fake-quant reference: {compared} of {n_tok} "
-              f"steps decisive and compared, diverged rids {bad}; {same} of "
-              f"{len(reqs)} requests token for token the reference's",
-              flush=True)
-    _, unstable = serve.compare_greedy(ctrl_out, ref, ref_out)
-    print(f"[starcoder] the reference's float32 and float64 evaluations part "
-          f"on a confident step in rids {unstable}", flush=True)
-    g = greedy["attention kernel, matmuls dequant-fp"]
-    gate(not g["diverged"] and g["compared"] > 0,
-         f"{cut.n_layers} layers, attention kernel: greedy tokens diverged "
-         f"on decisive steps (rids {g['diverged']}) or none compared")
-    del params, ref, ctrl
-    torch.cuda.empty_cache()
+    cut, greedy, unstable = exact_sum_gates(torch, ops, dev, cfg, reqs,
+                                            "[starcoder]")
     return launches, dict(
         params=n_params, wall_s=wall, G=G, peak_mem_gb=peak_gb,
         prefill_p50_ms=d["prefill_p50_ms"],
@@ -3930,31 +3994,6 @@ def moe_combine_check(torch, dev, cfg, calls=(4, 256), label="moe"):
     return res
 
 
-def site_source(torch, lm, cfg, dev, seed=0, prep=None):
-    """(the params outside the body and suffix sites, a site source): the
-    embedding (and a vision config's image projection), the prefix layers
-    (deepseek's dense first layer), the final norm and the untied head
-    made at once, each other site's seeded params made on the card when
-    the session packs it (``QuantizedSession(site_source=...)``) and
-    handed to ``prep(params)`` first, so a float32 tree too large
-    for the card beside its packing (deepseek-moe-16b's 65.5 GB) never
-    exists whole."""
-    n_prefix = len(lm.build_schedule(cfg).prefix)
-    outer = lm.init_params(cfg.scaled(n_layers=n_prefix), seed=seed,
-                           device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-
-    def source(site):
-        if site.segment.startswith("prefix."):
-            return lm.site_params(outer, site)
-        p = lm.layer_init(gen, cfg, site.kind, device=dev)
-        if prep is not None:
-            prep(p)
-        return p
-
-    return outer, source
-
-
 def packed_engine(torch, sess, dev, reqs, layout="ring", speculate=0,
                   cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK):
     """Drain ``reqs`` through an engine over ``sess`` (a site-by-site pack
@@ -4034,7 +4073,7 @@ def moe_serve_phase(torch, ops, dev, card):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     t0 = time.perf_counter()
-    outer, source = site_source(torch, lm, cfg, dev)
+    outer, source = lm.site_source(cfg, device=dev)
     # the target and the speculative phases' 2-bit draft, each site made
     # once and packed under both policies before the next
     sess = serve.build_session(cfg, outer, policy, speculate=SPEC_K,
@@ -4042,6 +4081,7 @@ def moe_serve_phase(torch, ops, dev, card):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     del outer
+    res["checksum"] = packed_checksum(torch, sess)   # phase 21's gate
     with fresh_route_counts(sess) as routes:
         eng, out, wall = packed_engine(torch, sess, dev, reqs)
     launches = {k: ops.launches[k] for k in SERVE_KERNELS
@@ -4661,7 +4701,7 @@ def vision_serve_phase(torch, ops, ref, dev, card):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     t0 = time.perf_counter()
-    outer, source = site_source(torch, lm, cfg, dev, prep=set_cross_gates)
+    outer, source = lm.site_source(cfg, device=dev, prep=set_cross_gates)
     sess = serve.build_session(cfg, outer, policy, site_source=source)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
@@ -4901,11 +4941,12 @@ def mixtral_serve_phase(torch, ops, ref, dev, card):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     t0 = time.perf_counter()
-    outer, source = site_source(torch, lm, cfg, dev)
+    outer, source = lm.site_source(cfg, device=dev)
     sess = serve.build_session(cfg, outer, policy, site_source=source)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     del outer
+    res["checksum"] = packed_checksum(torch, sess)   # phase 21's gate
     with fresh_route_counts(sess) as routes:
         eng, out, wall = packed_engine(torch, sess, dev, reqs,
                                        cache_len=window,
@@ -5068,6 +5109,165 @@ def mixtral_serve_phase(torch, ops, ref, dev, card):
     return rows, launches, res
 
 
+@contextlib.contextmanager
+def build_clock(torch, serve):
+    """``serve.build_session`` timed for the scope: the ``perf_counter``
+    reading when it returns, its pack fenced, under ``"t"``."""
+    saved, done = serve.build_session, {}
+
+    def timed(*args, **kw):
+        sess = saved(*args, **kw)
+        torch.cuda.synchronize()
+        done["t"] = time.perf_counter()
+        return sess
+
+    serve.build_session = timed
+    try:
+        yield done
+    finally:
+        serve.build_session = saved
+
+
+def packed_checksum(torch, sess, chunk: int = 1 << 24) -> str:
+    """A digest of a session's packed codes, weight scales and activation
+    scales, every ``PackedLinear`` of its served tree in order: per tensor
+    the sum of its bytes and the sum of each byte times its index mod
+    65521 plus one, exact in int64 on the card (chunks of ``chunk``
+    bytes), then sha256 of those sums on the host."""
+    import hashlib
+    from repro_torch.runtime import packing
+    sums = []
+    for pl in packing.packed_leaves(sess.params):
+        for t in (pl.codes, pl.scale, pl.s_a):
+            b = t.contiguous().reshape(-1).view(torch.uint8)
+            s1 = torch.zeros((), dtype=torch.int64, device=b.device)
+            s2 = torch.zeros((), dtype=torch.int64, device=b.device)
+            for i in range(0, b.numel(), chunk):
+                v = b[i:i + chunk].to(torch.int64)
+                w = torch.arange(i, i + v.numel(), device=b.device) % 65521
+                s1 += v.sum()
+                s2 += (v * (w + 1)).sum()
+            sums += [s1, s2]
+    return hashlib.sha256(
+        torch.stack(sums).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def cli_large_phase(torch, ops, dev, card, checksums):
+    """The serve CLI (``serve.main``) at full width and depth on the large
+    decoders (module docstring, phase 21): deepseek-moe-16b, mixtral-8x7b
+    and granite-20b built and packed site by site, yi-9b whole; then the
+    token gates at 2 layers for the two dense ones. ``checksums``: the
+    ``[moe]`` and ``[mixtral]`` sessions' ``packed_checksum`` by arch.
+    Returns (each kernel's launches over the four runs, results by
+    arch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.session import summarize
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    launches_all = dict.fromkeys(SERVE_KERNELS, 0)
+    res = {}
+    for arch, by_site, n_req, gen in CLI_LARGE:
+        cfg = get_config(arch)
+        label = f"[cli-large] {arch}"
+        argv = ["--arch", arch, "--requests", str(n_req),
+                "--slots", str(SLOTS), "--prompt-len", str(CLI_LARGE_PROMPT),
+                "--gen", str(gen), "--cache-len", str(CACHE_LEN),
+                "--compare"] + (["--site-by-site"] if by_site else [])
+        n_params = lm.param_count(lm.init_params(cfg, device="meta"))
+        print(f"{label}: {cfg.n_layers} layers d_model={cfg.d_model} "
+              f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff}, "
+              f"{n_params} parameters ({4 * n_params / 1e9:.1f} GB f32), "
+              f"{'site by site' if by_site else 'whole tree'}; serve "
+              f"{' '.join(argv)}", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                     # counts: this run only
+        t0 = time.perf_counter()
+        with build_clock(torch, serve) as built:
+            run = _serve_cli(serve, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        build_s = built["t"] - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+        for k in SERVE_KERNELS:
+            launches_all[k] += launches[k]
+        sess, eng = run["sess"], run["eng"]
+        st, routes = eng.stats, sess.route_counts
+        d = st.as_dict()
+        # the CLI's own gates (token-identical with the fixed batch, the
+        # trace against the stats, a finite calibration) exit on failure:
+        # that they ran is the gate here
+        gate("fixed" in run and run["calibration"]["finite"]
+             and eng.trace is not None,
+             f"{label}: --compare's gates did not run")
+        gate(all(launches[k] > 0 for k in RING_KERNELS)
+             and not any(launches[k] for k in SERVE_KERNELS
+                         if k not in RING_KERNELS),
+             f"{label}: the CLI's runs launched {launches}")
+        gate(routes.eligible_fp == 0,
+             f"{label}: {routes.eligible_fp} kernel-eligible matmuls ran "
+             "dequant-fp")
+        gate(set(routes.routes["decode_attn"]) == {"fused"}
+             and eng.decode_attn_route == "fused",
+             f"{label}: decode attention routes {routes.routes['decode_attn']}")
+        for rid, c in run["completions"].items():
+            gate(len(c.tokens) == gen
+                 and all(0 <= t < cfg.vocab for t in c.tokens),
+                 f"{label} request {rid}: bad tokens {c.tokens[:8]}...")
+        s = summarize(sess)
+        gate(s["packed_bytes"] == CLI_LARGE_BYTES[arch] == s["policy_bytes"],
+             f"{label}: packed bytes {s['packed_bytes']} B, the policy's "
+             f"{s['policy_bytes']:.0f} B, expected {CLI_LARGE_BYTES[arch]}")
+        gate(peak < total, f"{label}: peak device memory {peak} B of {total}")
+        step = step_launches(torch, ops, sess, dev)
+        gate(step.get("decode_attn_quant") == cfg.n_layers,
+             f"{label}: one decode step launched {step}, expected "
+             f"{cfg.n_layers} decode_attn_quant")
+        checksum = packed_checksum(torch, sess)
+        if arch in checksums:
+            gate(checksum == checksums[arch],
+                 f"{label}: packed checksum {checksum}, the site-by-site "
+                 f"phase's {checksums[arch]}")
+        res[arch] = dict(
+            site_by_site=by_site, argv=argv, params=n_params,
+            init_pack_s=build_s, wall_s=wall,
+            prefill_p50_ms=d["prefill_p50_ms"],
+            decode_step_p50_ms=d["decode_step_p50_ms"],
+            decode_tokens_per_s=st.decode_tokens_per_s,
+            decode_steps=st.decode_steps,
+            fixed_decode_steps=run["fixed"].stats.decode_steps,
+            prefill_chunk=eng.prefill_chunk, peak_mem_gb=peak / 1e9,
+            launches=launches, decode_step_launches=step,
+            packed_bytes=s["packed_bytes"], checksum=checksum)
+        print(f"{label}: init + pack {build_s:.2f}s ({wall:.2f}s for the "
+              f"CLI with --compare's fixed rerun); prefill p50 "
+              f"{d['prefill_p50_ms']:.2f} ms, decode step p50 "
+              f"{d['decode_step_p50_ms']:.2f} ms, decode "
+              f"{st.decode_tokens_per_s:.2f} tok/s ({st.decode_steps} steps "
+              f"vs {run['fixed'].stats.decode_steps} fixed, "
+              f"{st.tokens_generated} tokens, prefill chunk "
+              f"{eng.prefill_chunk}); peak device memory {peak / 1e9:.2f} "
+              f"GB; {card}", flush=True)
+        print(f"{label}: launches {launches}; one decode step {step}; "
+              f"packed weights {s['packed_bytes']} B = policy; checksum "
+              f"{checksum}" + (f" = the site-by-site phase's"
+                               if arch in checksums else ""), flush=True)
+        del run, sess, eng
+        torch.cuda.empty_cache()
+        if not cfg.moe:
+            # no full-width phase gates the dense ones' tokens: phase 12's
+            # (b) at 2 layers
+            cut, greedy, unstable = exact_sum_gates(
+                torch, ops, dev, cfg, serve_requests(cfg), label)
+            res[arch].update(cut_layers=cut.n_layers, cut_greedy=greedy,
+                             cut_reference_unstable_rids=unstable)
+            torch.cuda.empty_cache()
+    return launches_all, res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5203,6 +5403,11 @@ def main() -> int:
     mixtral_res["launches"] = mixtral_launches
     torch.cuda.empty_cache()
     lap("mixtral")
+    cli_large_launches, cli_large_res = cli_large_phase(
+        torch, ops, dev, card, {MOE_ARCH: moe_res["checksum"],
+                                MIXTRAL_ARCH: mixtral_res["checksum"]})
+    torch.cuda.empty_cache()
+    lap("cli-large")
     # each kernel's launches on the path that runs it: the matmuls and ring
     # attention from the ring serve phase, paged attention from the paged
     # one, the verify kernels from the speculative phases, wkv from the
@@ -5251,6 +5456,9 @@ def main() -> int:
     # and flash in the long prompt's prefill
     for k in RING_KERNELS + ("fake_quant_fwd", "flash_fwd"):
         by_path[k]["mixtral"] = mixtral_launches[k]
+    # the serve CLI's four runs of the large decoders
+    for k in RING_KERNELS:
+        by_path[k]["cli-large"] = cli_large_launches[k]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -5276,6 +5484,7 @@ def main() -> int:
          "moe_paged_serve": mp_res, "moe_spec_serve": ms_res,
          "moe_train": mt_res, "vision_serve": vision_res,
          "mixtral_serve": mixtral_res,
+         "cli_large": cli_large_res,
          "bundle": bundle_res,
          "elastic": elastic_res, "kernels": kernels},
         indent=1, default=str))

@@ -17,7 +17,14 @@ checkpoint of a published model ships with the repository); the policy is a
 searched ``MPQPolicy`` json, e.g. one ``--write-demo-policy`` wrote, or
 ``demo_mixed_policy`` when none is given. ``--uniform-bits B`` serves the
 fake-quant training graph at uniform B bits instead (fp KV), the reference
-package's path without ``--policy``.
+package's path without ``--policy``. ``--site-by-site`` makes each site's
+params when the session packs it and drops them before the next
+(``lm.site_source``), so a model whose float32 tree does not fit the
+device is served (on one 80 GB card: deepseek-moe-16b, mixtral-8x7b,
+granite-20b); it refuses the flags that need the whole tree (``--check``,
+``--elastic``, ``--uniform-bits``). Without it, on a CUDA device, a tree
+whose build would not fit is refused with a message that names the flag
+(``check_whole_tree_fits``).
 
 The engine budgets prefill from the roofline model of its own decode step
 (``dist.roofline.suggest_prefill_chunk``) on the H100 envelope, or on a
@@ -48,6 +55,8 @@ Examples:
   python -m repro_torch.launch.serve --policy searched.json --explain-policy
   python -m repro_torch.launch.serve --smoke --device cpu --speculate 4 \
       --draft-bits 2
+  python -m repro_torch.launch.serve --arch mixtral-8x7b --site-by-site \
+      --requests 4 --prompt-len 128 --gen 4 --cache-len 320 --compare
   python -m repro_torch.launch.serve --smoke --write-demo-policy P
   python -m repro_torch.launch.serve --smoke --device cpu --policy P \
       --elastic --stagger
@@ -377,6 +386,38 @@ def explain_policy(args, cfg):
 def make_context(cfg) -> QuantContext:
     return QuantContext.make(cfg.bits, cfg.quant_act_signed,
                              compute_dtype=torch.float32)
+
+
+def _tensor_bytes(tree) -> List[int]:
+    """The bytes of every tensor leaf of a nested dict tree."""
+    if isinstance(tree, dict):
+        return [b for v in tree.values() for b in _tensor_bytes(v)]
+    return [tree.numel() * tree.element_size()]
+
+
+def whole_tree_peak_bytes(cfg) -> int:
+    """The device bytes ``lm.init_params`` peaks at, counted on ``meta``
+    (nothing allocated): every leaf of the float32 tree, and the leaf being
+    drawn once more (``randn`` beside its scaled copy), at most the tree
+    plus its largest leaf. The packed weights, the KV cache and the calls'
+    temporaries come on top of the tree, so a tree that fits may still not
+    serve; one that does not fit cannot be built."""
+    leaves = _tensor_bytes(lm.init_params(cfg, device="meta"))
+    return sum(leaves) + max(leaves)
+
+
+def check_whole_tree_fits(cfg, capacity: int) -> None:
+    """Refuse the whole-tree build of ``cfg`` on a device of ``capacity``
+    bytes when ``whole_tree_peak_bytes`` exceeds it, naming
+    ``--site-by-site``; the CLI never picks the build for the caller."""
+    need = whole_tree_peak_bytes(cfg)
+    if need > capacity:
+        raise ValueError(
+            f"{cfg.name}: building its whole float32 tree peaks at "
+            f"{need / 1e9:.1f} GB (the tree and its largest leaf again "
+            f"while that is drawn), past the device's {capacity / 1e9:.1f} "
+            "GB; pass --site-by-site to make and pack each site's params "
+            "in turn")
 
 
 def build_session(cfg, params, policy: MPQPolicy, *, kv: str = "int8",
@@ -721,9 +762,12 @@ def compare_schedules(args, scfg: ServeConfig, eng, out, fixed, fixed_out):
     return saved
 
 
-def serve_packed(args, scfg: ServeConfig, cfg, params, reqs, dev):
+def serve_packed(args, scfg: ServeConfig, cfg, params, reqs, dev,
+                 site_source=None):
     """The packed path: ``--policy`` (or the demo policy) packed once and
-    served; the gates of ``--smoke``, ``--compare`` and ``--check``."""
+    served; the gates of ``--smoke``, ``--compare`` and ``--check``.
+    ``site_source`` (``--site-by-site``): each site's params made when it
+    is packed, ``params`` the tree outside the sites."""
     from repro_torch.runtime.session import summarize
 
     policy = (MPQPolicy.load(scfg.policy_path) if scfg.policy_path
@@ -731,7 +775,8 @@ def serve_packed(args, scfg: ServeConfig, cfg, params, reqs, dev):
     try:
         sess = build_session(cfg, params, policy, kv=scfg.kv,
                              speculate=scfg.speculate,
-                             draft_bits=scfg.draft_bits)
+                             draft_bits=scfg.draft_bits,
+                             site_source=site_source)
     except ValueError as e:
         raise SystemExit(f"--policy / --draft-bits: {e}")
     streamer = make_streamer(args)
@@ -1136,6 +1181,13 @@ def main(argv=None):
                     help="also run the fake-quant reference engine (float32 "
                          "and float64) and compare greedy tokens on decisive "
                          "steps (check_greedy)")
+    ap.add_argument("--site-by-site", action="store_true",
+                    help="make each site's seeded params when the session "
+                         "packs it and drop them before the next "
+                         "(lm.site_source), so the whole float32 tree never "
+                         "exists: serves a model whose tree does not fit the "
+                         "device; refuses --check, --elastic and "
+                         "--uniform-bits, which need that tree")
     args = ap.parse_args(argv)
 
     if args.write_demo_policy:
@@ -1175,11 +1227,33 @@ def main(argv=None):
             raise ValueError("--uniform-bits serves the fake-quant graph: "
                              "it takes neither --policy, --speculate nor "
                              "--elastic")
+        if args.site_by_site:
+            for flag, on, why in (
+                    ("--check", args.check, "its fake-quant reference "
+                     "engines run on it"),
+                    ("--elastic", scfg.elastic, "its variant bank packs "
+                     "every variant from it"),
+                    ("--uniform-bits", args.uniform_bits is not None,
+                     "the fake-quant graph serves it")):
+                if on:
+                    raise ValueError(
+                        f"{flag} needs the whole float32 tree ({why}), "
+                        "which --site-by-site never builds")
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
 
     dev = resolve_device(args.device)
-    params = lm.init_params(cfg, seed=scfg.seed, device=dev)
+    source = None
+    if args.site_by_site:
+        params, source = lm.site_source(cfg, scfg.seed, dev)
+    else:
+        if dev.type == "cuda":
+            try:
+                check_whole_tree_fits(
+                    cfg, torch.cuda.get_device_properties(dev).total_memory)
+            except ValueError as e:
+                raise SystemExit(str(e))
+        params = lm.init_params(cfg, seed=scfg.seed, device=dev)
     # paged serving shares half the prompt across requests, so the run
     # exercises prefix remapping and not only the page pool
     share = scfg.prompt_len // 2 if scfg.kv_layout == "paged" else 0
@@ -1192,7 +1266,8 @@ def main(argv=None):
             return serve_fake_quant(args, scfg, cfg, params, reqs, dev)
         if scfg.elastic:
             return serve_elastic(args, scfg, cfg, params, reqs, dev)
-        return serve_packed(args, scfg, cfg, params, reqs, dev)
+        return serve_packed(args, scfg, cfg, params, reqs, dev,
+                            site_source=source)
 
 
 if __name__ == "__main__":

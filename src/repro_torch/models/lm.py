@@ -140,6 +140,32 @@ def site_params(params, site: LayerSite):
     return _select(params[seg][idx], site.unit if seg == "body" else None)
 
 
+def site_source(cfg: ModelConfig, seed: int = 0, device=None, prep=None):
+    """(the params outside the body and suffix sites, a site source) for
+    ``QuantizedSession(site_source=...)``: the embedding (and a vision
+    config's image projection), the prefix layers (deepseek's dense first
+    layer), the final norm and the untied head made at once by
+    ``init_params`` of the prefix-deep config at ``seed``; each other
+    site's params drawn by ``layer_init`` from one generator seeded ``seed
+    + 1`` when the session asks for it (``iter_sites`` order) and handed to
+    ``prep(params)`` first. So a float32 tree too large for the device
+    beside its packing never exists whole."""
+    n_prefix = len(build_schedule(cfg).prefix)
+    outer = init_params(cfg.scaled(n_layers=n_prefix), seed=seed,
+                        device=device)
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed + 1)
+
+    def source(site: LayerSite):
+        if site.segment.startswith("prefix."):
+            return site_params(outer, site)
+        p = layer_init(gen, cfg, site.kind, device=device)
+        if prep is not None:
+            prep(p)
+        return p
+
+    return outer, source
+
+
 def _layer_ff(cfg: ModelConfig, kind: str) -> int:
     """The MLP width of a ``kind`` layer: a MoE config's leading dense
     layers take ``moe.dense_d_ff``."""
