@@ -112,8 +112,8 @@ In order:
    once with activations unquantized, every kernel against its plain
    version; once with them quantized, the fake-quant kernels against their
    plain versions and the flash kernel on both sides, so that every
-   quantizer code is the same on both sides; the full-depth differences
-   with every kernel against its plain version are printed, not gated;
+   quantizer code is the same on both sides (the full-depth differences,
+   which part on code flips, are cut for the time limit);
 8. RWKV serve phase: rwkv6-7b at its published widths and depth (32
    layers, d_model 4096, 64 heads of 64, d_ff 14336, vocab 65536, untied
    head; seeded random weights, 7.58 B parameters, 30.3 GB in float32)
@@ -128,8 +128,8 @@ In order:
    engines run plain, the float64 control in float64 throughout), gated
    at the same widths with 2 layers (as gate (e): at 32 layers the float32
    and float64 evaluations part on confident steps, so none is decisive;
-   the 32-layer comparison is cut for the time limit, the prefill logits
-   are printed at 32); (c)
+   the 32-layer comparison and its printed prefill logits are cut for the
+   time limit); (c)
    packed bytes within 5%; (d) no host synchronisation inside a decode step
    (``set_sync_debug_mode("error")``); (e) a profiled 256-token prefill
    runs the ``wkv`` kernel once per layer (its device time printed, and the
@@ -170,8 +170,10 @@ In order:
     directory under the git-ignored ``build/``. Gates: ``peek_serving_policy``
     returns the policy; ``QuantizedSession.from_checkpoint`` on the card
     packs code bytes bit for bit the in-memory session's; both serve the
-    serve phase's first 4 requests with the same greedy tokens, bit for bit,
-    through the matmul and ring attention kernels. The save and load seconds
+    serve phase's first wave (4 requests of ``WAVE_GEN`` new tokens; 32
+    before the per-channel and vision-train phases, cut for the time limit)
+    with the same greedy tokens, bit for bit, through the matmul and ring
+    attention kernels. The save and load seconds
     and the bundle's size are printed, and the directory is removed;
 11. elastic phases, ring and paged: ``repro_torch.launch.serve.main`` at
     Qwen3-0.6B full width (28 layers, 4 slots) with ``--elastic
@@ -202,8 +204,11 @@ In order:
     layers, d_model 4608, 36 / 4 heads of 128 -- 9 query heads per kv head,
     two query groups of the attention kernel --, d_ff 18432, its 4096-row
     sliding window, vocab 49152; seeded random weights, 7.40 B parameters,
-    29.6 GB in float32) under ``demo_mixed_policy``, the serve phase's 8
-    requests over 4 slots and a 320-row ring. Gates: (a) every ring kernel
+    29.6 GB in float32) under ``demo_mixed_policy``, the serve phase's
+    first wave (4 requests of ``WAVE_GEN`` new tokens; 8 of 32 before the
+    per-channel and vision-train phases, cut for the time limit; the
+    2-layer gates (b) keep 8 of 32) over 4 slots and a 320-row ring.
+    Gates: (a) every ring kernel
     launched, no kernel-eligible projection on dequant-fp, the attention
     route fused; one decode step launches ``decode_attn_quant`` once per
     layer (32); (c) packed bytes within 5%; (b) at the same widths with 2
@@ -212,9 +217,10 @@ In order:
     and greedy tokens equal to the fake-quant reference's on every decisive
     step in the run whose attention is the kernel and whose matmuls take
     the dequant-fp route. The exact-sum runs (every kernel, the plain
-    matmuls, the dequant-fp route with float64 sums) against that
-    reference are printed, not gated: at these widths the reference's
-    float32 sums part from exact ones on near-ties (ROADMAP 3).
+    matmuls) against that reference are printed, not gated: at these
+    widths the reference's float32 sums part from exact ones on near-ties
+    (ROADMAP 3; a third, the dequant-fp route with float64 sums, is cut
+    for the time limit).
 13. hybrid phase: recurrentgemma-2b at its published widths and depth (26
     layers: 8 x (rec, rec, attn) and a (rec, rec) suffix; d_model 2560,
     RG-LRU width 2560, conv1d width 4, 10 query heads on one kv head of
@@ -258,7 +264,7 @@ In order:
     head's weight and activation) and 48 ``flash_fwd`` launches at hd 80,
     no serving kernel; (b)-(d) as phase 3; (e) one QAT pass through the
     kernels against the plain versions, as gate (e) of phase 7, at 2
-    layers (printed at 48); (f) remat bit for bit (1156 / 580 / 96
+    layers; (f) remat bit for bit (1156 / 580 / 96
     launches with it). Printed: ms per importance and QAT step and
     frames/s, the ILP's ms, peak device memory, one profiled QAT step
     with ``flash_fwd_kernel`` watched. The weights are freed before the
@@ -340,7 +346,7 @@ In order:
     evaluation batch. Gates (a)-(d) of phase 3, with 77 fake-quant launches
     each way a pass, 18 of them (each expert stack's weight and input)
     with 64 scales, and 4 ``flash_fwd`` at G 1, hd 128; then gate (e) at 3
-    layers, printed at 4. Printed: step ms, the ILP's ms, peak memory, a
+    layers. Printed: step ms, the ILP's ms, peak memory, a
     profiled QAT step.
 19. vision phase: llama-3.2-vision-11b at its published widths and depth
     (48 sites: 8 x (5 self-attention layers, then a gated cross-attention
@@ -354,9 +360,11 @@ In order:
     (``lm.site_source``). First the kernel rows at its shapes: both matmuls
     at M = 4 on its decode projections, the int8 one at M = 1600 on the
     image K/V projection, decode attention at KV 8, G 4 over the 320-row
-    ring. Then the serve phase's 8 requests over 4 slots and a 320-row
-    ring, each carrying one of two seeded (1600, 1280) patch-embedding
-    images (slots serve both in turn). Gates: (a) the ring kernels and
+    ring. Then the serve phase's first wave (4 requests of ``WAVE_GEN``
+    new tokens; 8 of 32 before the per-channel and vision-train phases,
+    cut for the time limit; gate (f) keeps 8 of 32) over 4 slots and a
+    320-row ring, each carrying one of two seeded (1600, 1280)
+    patch-embedding images (slots serve both in turn). Gates: (a) the ring kernels and
     the pinned fake-quant launched, no other layout's, no kernel-eligible
     projection on dequant-fp; one prefill launches a matmul kernel per
     projection (336: the cross layers' wk / wv on the image, at M = 1600)
@@ -457,6 +465,44 @@ In order:
     Printed for each arch beside the card: init + pack seconds (from the
     call to ``build_session``'s return), prefill and decode step p50,
     tok/s, peak device memory.
+22. per-channel phase (run right after phase 4, on its params and policy):
+    Qwen3-0.6B at full width (28 layers) packed with
+    ``QuantizedSession(per_channel=True)`` -- statistics scales, ``max|w| /
+    qmax`` per output channel, instead of the trained per-tensor bank
+    scales -- and served over the 320-row int8 ring: phase 4's first wave,
+    4 requests of ``WAVE_GEN`` new tokens, continuous batching, greedy.
+    Gates: (a) every packed projection resolves to dequant-fp (the matmul
+    kernels' epilogue takes one weight scale; each projection's per-tensor
+    twin in phase 4's session is kernel-eligible), ``quant_matmul`` and
+    ``quant_matmul_w4`` launched 0 times, ``decode_attn_quant`` 28 times a
+    decode step; (b) at every packed site a saturation rate of exactly 0
+    and a scale utilization of at most 1 + 1e-6 (the reference's oracle,
+    ``tests/test_health.py``); (c) packed code bytes exactly phase 4's
+    session's: only the scales differ; (d) greedy tokens equal those of
+    the same session run on the kernels' plain versions
+    (``ops.plain_on_cuda()``) on every decisive step of it (top-2 margin
+    above 1e-2, ``engine.decisive_prefix``). Printed: the scale bytes of
+    both sessions, the summed squared dequantization error of both trees
+    against the float32 weights, step p50 and tok/s beside phase 4's, and
+    one profiled decode step's launches.
+23. vision-train phase (run after phase 18): the paper pipeline of phase 3
+    on llama-3.2-vision-11b at its published widths (d_model 4096, 32 / 8
+    heads of 128, gated-silu d_ff 14336, vocab 128256 untied, 1600 image
+    tokens of 1280 from the data module through the 8-bit pinned image
+    projection) cut to one unit of its pattern (``VISION_CUT``: 5
+    self-attention layers and a gated cross layer, 42 searchable
+    projections, 2.36 B parameters), B=1, S=2048, float32, every cross
+    gate set to ``VISION_GATE`` before the first step (at the reference's
+    init, 0, the cross site's 14 bank leaves get a gradient of exactly 0,
+    so no importance step could move them): 2 importance steps, the
+    indicators, the ILP, 3 QAT steps, an evaluation batch. Gates (a)-(d)
+    of phase 3, with 89 fake-quant launches each way a pass (two per
+    projection, the untied head's weight and input, the token table, and
+    the image projection's weight and input) and 5 ``flash_fwd`` (the self
+    layers; the cross layer attends directly, as in the reference); then
+    gate (e) at the same depth, the least that holds a cross layer.
+    Printed: importance- and QAT-step ms, tokens/s, launches, the ILP's
+    ms, peak device memory, a profiled QAT step.
 
 For the vision phase's time, earlier phases were cut (each named where it
 applies): the kernel rows' timed launches (``KERNEL_REPS``, 40 to 20),
@@ -469,7 +515,13 @@ run serves the first wave (4 requests of ``WAVE_GEN`` new tokens, which
 phase 17 compares), and phase 16's 8 requests take ``WAVE_GEN`` new
 tokens; the 2-layer token gates of both keep the 8 requests of ``GEN``
 tokens. For phase 21's: its MoE runs serve 2 requests, deepseek-moe-16b's
-4 new tokens and mixtral-8x7b's 2 (``CLI_LARGE``).
+4 new tokens and mixtral-8x7b's 2 (``CLI_LARGE``). For phases 22 and
+23's: the printed comparisons of gate (e) at full depth (phases 7, 14
+and 18), of the dequant-fp graph with float64 sums (phases 12 and 21),
+and of the prefill logits against the references (phases 4 and 8); the
+kernel rows' timed launches (``KERNEL_REPS``, 20 to 10); and the
+full-depth runs of phases 12 and 19 and the bundle phase's runs serve
+the first wave (4 requests of ``WAVE_GEN`` new tokens).
 
 Every phase's seconds and the script's are printed as ``[time]`` lines.
 Any failure exits non-zero. The line before the last is a JSON object with
@@ -698,8 +750,9 @@ CLI_LARGE_BYTES = {"deepseek-moe-16b": 7_967_162_368,
                    "mixtral-8x7b": 23_155_703_808,
                    "granite-20b": 9_798_942_720, "yi-9b": 4_150_001_664}
 SPIN_CYCLES = 2_000_000         # ~1 ms of torch.cuda._sleep at H100 clocks
-# event-timed launches of a kernel row (cut for the script's time limit)
-KERNEL_REPS = 20
+# event-timed launches of a kernel row (cut for the script's time limit:
+# 40, then 20, then 10)
+KERNEL_REPS = 10
 # gate (e), kernels vs plain versions through one loss_fn + backward at 2
 # layers: loss rtol, and per-gradient-leaf relative L2, the reference's ds
 # rtol 1e-3 (tests/test_kernels.py:55). It holds only while every quantizer
@@ -880,8 +933,7 @@ def matmul_row(torch, ops, ref, flush, dev, w4: bool, M: int, K: int,
         name=name, shape=f"M={M} K={K} N={N}", max_abs_err=err,
         clean_l2_ms=clean_ms,
         ms=cuda_ms(torch, lambda: kern(x, w, s_x, s_w), flush),
-        plain_ms=cuda_ms(torch, lambda: plain(x, w, s_x, s_w), flush,
-                         reps=KERNEL_REPS if K * N < 1 << 24 else 10),
+        plain_ms=cuda_ms(torch, lambda: plain(x, w, s_x, s_w), flush),
         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         main=(M == 4 and (K, N) == MAIN_KN))
     print(f"[kernel] {name:16s} M={M:<3d} K={K:<4d} N={N:<4d} "
@@ -1693,10 +1745,12 @@ def pinned_fq(cfg) -> int:
     """Fake-quant launches of the pinned layers in one pass: a tied token
     table is read twice (the lookup and the head), an untied one once; an
     untied head quantizes its weight and its activation; the audio
-    frontend quantizes its weight and the frames."""
+    frontend quantizes its weight and the frames, the vision frontend's
+    image projection its weight and the patch embeddings."""
     if cfg.frontend == "audio_stub":
         return 2 + 2 * (not cfg.tie_embeddings)
-    return 2 if cfg.tie_embeddings else 3
+    return (2 if cfg.tie_embeddings else 3) + 2 * (cfg.frontend ==
+                                                   "vision_stub")
 
 
 @contextlib.contextmanager
@@ -1739,11 +1793,12 @@ def train_batches(torch, cfg, dev):
 
 
 def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
-                hawq=True, remat=True, n_layers=None):
+                hawq=True, remat=True, n_layers=None, prep=None):
     """The paper pipeline on ``arch`` at full width and depth (``n_layers``
     cuts the depth; ``label`` prefixes its lines; ``remat`` adds the remat
-    check, ``hawq`` the HAWQ baseline). Returns (launch counts of the run,
-    results, the final params, the searched policy)."""
+    check, ``hawq`` the HAWQ baseline; ``prep(params)`` edits the seeded
+    params in place before the first step). Returns (launch counts of the
+    run, results, the final params, the searched policy)."""
     from repro_torch import optim, training
     from repro_torch.configs import get_config
     from repro_torch.core import importance as imp
@@ -1768,6 +1823,8 @@ def train_phase(torch, ops, dev, arch="qwen3-0.6b", label="train",
     unit = "frames" if cfg.frontend == "audio_stub" else "tok"
 
     params = lm.init_params(cfg, seed=0, device=dev)
+    if prep is not None:
+        prep(params)
     # the initial values, kept on the host: at full width a tree is
     # gigabytes of device memory
     p0 = {k: t.detach().to("cpu", copy=True) for k, t in _tree_leaves(params)}
@@ -2128,10 +2185,13 @@ def print_profile(label: str, what: str, res: dict) -> None:
 
 
 def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
-                    plain=TRAIN_KERNELS, arch="qwen3-0.6b", label="train"):
+                    plain=TRAIN_KERNELS, arch="qwen3-0.6b", label="train",
+                    prep=None, quantize=True):
     """One loss_fn + backward of ``arch`` at full width, S=2048, 4-bit
-    uniform, through the kernels and through the plain versions of the
-    kernels ``plain`` (the others launch on both sides). Returns the
+    uniform (``quantize=False``: no quantizer at all, so only the flash
+    kernel launches), through the kernels and through the plain versions
+    of the kernels ``plain`` (the others launch on both sides), on the
+    seeded params (``prep(params)`` edits them first). Returns the
     differences: loss rtol and per-leaf relative L2 of the gradients (max
     over banks, max over the rest)."""
     import dataclasses
@@ -2144,10 +2204,12 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
     if n_layers is not None:
         cfg = cfg.scaled(n_layers=n_layers)
     params = lm.init_params(cfg, seed=0, device=dev)
+    if prep is not None:
+        prep(params)
     ctx = dataclasses.replace(
         QuantContext.make(cfg.bits, cfg.quant_act_signed,
                           compute_dtype=torch.float32),
-        quantize_acts=quantize_acts)
+        quantize_acts=quantize_acts, enabled=quantize)
     batch = train_batches(torch, cfg, dev)(7)
     bits = lm.bits_uniform(cfg, 2)
 
@@ -2162,21 +2224,24 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
     lk, gk, nk = once()
     with ops.plain_on_cuda(*plain):
         lp, gp, np_ = once()
-    gate(all(nk[k] > 0 for k in TRAIN_KERNELS)
+    gate(all(nk[k] > 0 for k in (TRAIN_KERNELS if quantize
+                                 else ("flash_fwd",)))
          and all(np_[k] == (0 if k in plain else nk[k])
                  for k in TRAIN_KERNELS),
          f"kernel pass launched {nk}, plain pass {np_} (plain: {plain})")
     rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30))
            for k in gp}
     d = dict(layers=cfg.n_layers, quantize_acts=quantize_acts,
-             plain=list(plain), launches={k: nk[k] for k in TRAIN_KERNELS},
+             quantize=quantize, plain=list(plain), launches={k: nk[k] for k in TRAIN_KERNELS},
              loss_kernel=lk, loss_plain=lp,
              loss_rtol=abs(lk - lp) / abs(lp),
              bank_rel_max=max(v for k, v in rel.items() if _is_bank(k)),
              weight_rel_max=max(v for k, v in rel.items() if not _is_bank(k)),
              worst=sorted(rel.items(), key=lambda kv: -kv[1])[:4])
+    what = ("quantization off" if not quantize else "activations "
+            + ("quantized" if quantize_acts else "unquantized"))
     print(f"[{label}] kernels vs plain {list(plain)}, {cfg.n_layers} layers, "
-          f"activations {'quantized' if quantize_acts else 'unquantized'}: loss "
+          f"{what}: loss "
           f"{lk:.6f} vs {lp:.6f} (rtol {d['loss_rtol']:.2e}), gradient "
           f"relative L2 max {d['bank_rel_max']:.2e} (banks) / "
           f"{d['weight_rel_max']:.2e} (weights, norms); worst "
@@ -2184,28 +2249,37 @@ def kernel_vs_plain(torch, ops, dev, n_layers=None, quantize_acts=True,
     return d
 
 
-def vs_plain_gates(torch, ops, dev, arch, cut, label, full=None):
+def vs_plain_gates(torch, ops, dev, arch, cut, label, prep=None,
+                   flash_alone=False):
     """Gate (e) of ``arch``: one train pass through the kernels against
     their plain versions, gated at ``cut`` layers (activations unquantized,
     every kernel against its plain version; then quantized, the flash
-    kernel on both sides) and printed at full depth (``full`` layers where
-    the phase trains at a cut depth)."""
+    kernel on both sides). ``prep(params)`` edits the seeded params of
+    each pass. (The full-depth comparison that was printed beside it is
+    cut for the script's time limit: it parts on code flips, ROADMAP 3.)
+
+    The first run holds only while every quantizer code is the same on
+    both sides (``TRAIN_TOL``). An untied head quantizes its input at 8
+    bits whatever ``quantize_acts`` says, behind the attention: where a
+    last bit of the flash output flips some of those codes at the cut
+    depth (``flash_alone``), the first run holds the flash kernel alone
+    with quantization off, and the second, whose codes are equal by
+    construction, holds the fake-quant kernels."""
     out = {}
-    for key, kw, tol in (
-            ("acts_unquantized", dict(n_layers=cut, quantize_acts=False),
-             TRAIN_TOL),
-            ("acts_quantized", dict(n_layers=cut, plain=("fake_quant_fwd",
-                                                         "fake_quant_bwd")),
-             TRAIN_TOL),
-            ("full_depth", dict(n_layers=full), None)):
+    first = (dict(n_layers=cut, quantize=False, plain=("flash_fwd",))
+             if flash_alone else dict(n_layers=cut, quantize_acts=False))
+    for key, kw in (("quant_off" if flash_alone else "acts_unquantized",
+                     first),
+                    ("acts_quantized",
+                     dict(n_layers=cut, plain=("fake_quant_fwd",
+                                               "fake_quant_bwd")))):
         d = out[key] = kernel_vs_plain(torch, ops, dev, arch=arch,
-                                       label=label, **kw)
-        if tol is not None:
-            gate(d["loss_rtol"] <= tol["loss_rtol"]
-                 and d["bank_rel_max"] <= tol["grad_rel"]
-                 and d["weight_rel_max"] <= tol["grad_rel"],
-                 f"[{label}] train pass through the kernels differs from the "
-                 f"plain versions beyond {tol}: {d}")
+                                       label=label, prep=prep, **kw)
+        gate(d["loss_rtol"] <= TRAIN_TOL["loss_rtol"]
+             and d["bank_rel_max"] <= TRAIN_TOL["grad_rel"]
+             and d["weight_rel_max"] <= TRAIN_TOL["grad_rel"],
+             f"[{label}] train pass through the kernels differs from the "
+             f"plain versions beyond {TRAIN_TOL}: {d}")
         torch.cuda.empty_cache()
     return out
 
@@ -2372,7 +2446,9 @@ def bundle_phase(torch, ops, dev, params, policy):
     from repro_torch.runtime.session import QuantizedSession
 
     cfg = get_config("qwen3-0.6b")
-    reqs = serve_requests(cfg, 4)
+    # the first wave, 4 requests of WAVE_GEN new tokens (cut from GEN for
+    # the script's time limit)
+    reqs = [r._replace(max_new=WAVE_GEN) for r in serve_requests(cfg, 4)]
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     d = tempfile.mkdtemp(prefix="bundle.", dir=build)
@@ -2664,12 +2740,6 @@ def serve_phase(torch, ops, dev):
           f"step in rids {unstable}", flush=True)
     gate(not bad, f"greedy tokens diverged on decisive steps: rids {bad}")
     gate(compared > 0, "no decisive step to compare")
-    # how far two correct float evaluations of one graph part: max |logit
-    # difference| at prefill on identical prompts (no gate; see
-    # check_greedy); three of the prompts, for the time limit
-    with ops.plain_on_cuda():
-        noise = prefill_noise(torch, cfg, params, policy, sess,
-                              [reqs[0], reqs[1], reqs[4]], dev)
     # (c) packed bytes vs the policy's accounting
     s = summarize(sess)
     print(f"[serve] packed weights {s['packed_bytes']} B vs policy "
@@ -2679,15 +2749,144 @@ def serve_phase(torch, ops, dev):
          f"packed bytes off the policy accounting by x{s['packed_vs_policy']}")
     step = profile_decode_step(torch, sess, dev)
     return (reqs, out, eng), launches, dict(
-        prefill_noise=noise, decode_step_profile=step, wall_s=wall,
+        decode_step_profile=step, wall_s=wall,
         prefill_p50_ms=d["prefill_p50_ms"],
         decode_step_p50_ms=d["decode_step_p50_ms"],
         decode_tokens_per_s=st.decode_tokens_per_s,
         decode_steps=st.decode_steps, tokens=st.tokens_generated,
         prefill_tokens=st.prefill_tokens,
         decisive_compared=compared, reference_unstable_rids=unstable,
-        packed_bytes=s["packed_bytes"],
-        policy_bytes=s["policy_bytes"])
+        packed_bytes=s["packed_bytes"], scale_bytes=s["scale_bytes"],
+        policy_bytes=s["policy_bytes"]), (params, policy, sess)
+
+
+def per_channel_phase(torch, ops, dev, params, policy, base_sess, base_res):
+    """The serve phase's Qwen3-0.6B params and policy packed per channel
+    (``QuantizedSession(per_channel=True)``) and served over the ring: its
+    first wave, 4 requests of ``WAVE_GEN`` new tokens (module docstring,
+    phase 22). ``base_sess`` is the serve phase's per-tensor session,
+    ``base_res`` its results. Returns (launches, results)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.session import QuantizedSession
+
+    cfg = get_config("qwen3-0.6b")
+    reqs = [r._replace(max_new=WAVE_GEN) for r in serve_requests(cfg)[:SLOTS]]
+    t0 = time.perf_counter()
+    sess = QuantizedSession(cfg, params, policy, base_sess.ctx,
+                            per_channel=True)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    leaves = _packed_by_path(sess.params)
+    base_leaves = _packed_by_path(base_sess.params)
+    gate(len(leaves) == len(sess.qlayers) and leaves.keys() ==
+         base_leaves.keys() and all(pl.per_channel for pl in leaves.values()),
+         f"[per-channel] {len(leaves)} packed leaves, not all per channel")
+
+    ops.reset_launches()                         # counts: the main path only
+    eng, out, wall = packed_engine(torch, sess, dev, reqs)
+    launches = {k: ops.launches[k] for k in SERVE_KERNELS}
+    st = eng.stats
+    d = st.as_dict()
+    routes = sess.route_counts.routes
+    print(f"[per-channel] {cfg.name}: {cfg.n_layers} layers, "
+          f"{len(leaves)} projections packed per channel in {pack_s:.2f}s; "
+          f"{len(out)} requests of {WAVE_GEN} new tokens in {wall:.2f}s "
+          f"wall: prefill p50 {d['prefill_p50_ms']:.2f} ms, decode step p50 "
+          f"{d['decode_step_p50_ms']:.2f} ms, {st.decode_tokens_per_s:.1f} "
+          f"tok/s ({st.decode_steps} steps) beside the per-tensor serve "
+          f"phase's {base_res['decode_step_p50_ms']:.2f} ms, "
+          f"{base_res['decode_tokens_per_s']:.1f} tok/s (8 requests of "
+          f"{GEN}); launches {launches}; routes {routes}", flush=True)
+    # (a) every packed projection on dequant-fp, no matmul kernel launched,
+    # decode attention fused: one launch a layer and decode step
+    eqn = "btk,kn->btn"
+    gate(all(dispatch.resolve(eqn, pl, dev) == "dequant-fp"
+             for pl in leaves.values())
+         and all(dispatch.kernel_eligible(eqn, base_leaves[k]) is not None
+                 for k in leaves),
+         "[per-channel] a per-channel projection resolves to a kernel, or "
+         "its per-tensor twin does not")
+    gate(set(routes["matmul"]) == {"dequant-fp"}
+         and sess.route_counts.eligible_fp == 0
+         and set(routes["decode_attn"]) == {"fused"},
+         f"[per-channel] routes {routes}, {sess.route_counts.eligible_fp} "
+         "eligible on dequant-fp")
+    gate(launches["quant_matmul"] == 0 and launches["quant_matmul_w4"] == 0
+         and launches["decode_attn_quant"] == cfg.n_layers * st.decode_steps
+         and launches["decode_attn_quant_paged"] == 0,
+         f"[per-channel] launches {launches}, expected no matmul kernel and "
+         f"{cfg.n_layers} x {st.decode_steps} decode attention")
+    for r in reqs:
+        toks = out[r.rid].tokens
+        gate(len(toks) == WAVE_GEN and all(0 <= t < cfg.vocab for t in toks),
+             f"[per-channel] request {r.rid}: bad tokens {toks[:8]}...")
+    # (b) the statistics scales saturate nothing (tests/test_health.py's
+    # oracle)
+    sat = max(h["saturation_rate"] for h in sess.pack_health.values())
+    util = max(h["scale_utilization"] for h in sess.pack_health.values())
+    base_sat = max(h["saturation_rate"]
+                   for h in base_sess.pack_health.values())
+    gate(len(sess.pack_health) == len(leaves) and sat == 0.0
+         and util <= 1.0 + 1e-6,
+         f"[per-channel] pack health: saturation max {sat}, scale "
+         f"utilization max {util}")
+    # (c) the same code bytes as the per-tensor pack: only the scales differ
+    pb, sb = sess.packed_bytes(), sess.scale_bytes()
+    gate(pb == base_res["packed_bytes"],
+         f"[per-channel] packed code bytes {pb} != the per-tensor "
+         f"session's {base_res['packed_bytes']}")
+    # the squared dequantization error of both trees against the float32
+    # weights (printed)
+    err = {"per_channel": 0.0, "per_tensor": 0.0}
+    for site in sess.sites:
+        src = lm.site_params(params, site)
+        key = lm.site_key(site.gidx)
+        for q in sess.qlayers:
+            if (q.segment, q.unit) != (site.segment, site.unit):
+                continue
+            w = src
+            for k in q.path:
+                w = w[k]
+            w = w["w"].to(torch.float64)
+            path = "/".join(("sites", key) + q.path)
+            for name, pl in (("per_channel", leaves[path]),
+                             ("per_tensor", base_leaves[path])):
+                err[name] += float(((pl.dequant().to(torch.float64) - w)
+                                    ** 2).sum())
+    print(f"[per-channel] pack health: saturation max {sat} (per-tensor "
+          f"{base_sat:.3e}), scale utilization max {util:.6f}; code bytes "
+          f"{pb} (the per-tensor session's); scale bytes {sb} (per-tensor "
+          f"{base_res['scale_bytes']}); summed squared dequantization error "
+          f"{err['per_channel']:.6e} per channel, {err['per_tensor']:.6e} "
+          f"per tensor", flush=True)
+    # (d) the same session on the kernels' plain versions: the same greedy
+    # tokens on every decisive step of it (top-2 margin above 1e-2)
+    with ops.plain_on_cuda(), fresh_route_counts(sess):
+        p_eng, p_out, _ = packed_engine(torch, sess, dev, reqs)
+    same, total, compared, bad = serve.compare_spec(out, p_eng, p_out)
+    print(f"[per-channel] greedy tokens vs the same session on the plain "
+          f"versions: {same} of {total} equal, {compared} "
+          f"decisive steps compared, parted on rids {bad}", flush=True)
+    gate(not bad and compared > 0,
+         f"[per-channel] greedy tokens part from the plain run on a decisive "
+         f"step: rids {bad} ({compared} compared)")
+    step = profile_decode_step(torch, sess, dev, label="per-channel")
+    res = dict(pack_s=pack_s, wall_s=wall,
+               prefill_p50_ms=d["prefill_p50_ms"],
+               decode_step_p50_ms=d["decode_step_p50_ms"],
+               decode_tokens_per_s=st.decode_tokens_per_s,
+               decode_steps=st.decode_steps, routes=routes,
+               saturation_max=sat, scale_utilization_max=util,
+               per_tensor_saturation_max=base_sat, packed_bytes=pb,
+               scale_bytes=sb, per_tensor_scale_bytes=base_res["scale_bytes"],
+               dequant_sq_err=err, tokens_equal=same,
+               decisive_compared=compared, decode_step_profile=step)
+    del sess, eng, p_eng
+    torch.cuda.empty_cache()
+    return launches, res
 
 
 def paged_serve_phase(torch, ops, dev, ring_prefill_tokens):
@@ -3368,8 +3567,9 @@ def exact_sum_gates(torch, ops, dev, cfg, reqs, tag):
     matmuls on their plain versions, and the run with the matmuls on
     dequant-fp (the attention kernel kept) equal to the fake-quant
     reference on every decisive step (``serve.check_greedy``'s rule); the
-    exact-sum runs against the reference printed. Lines start with
-    ``tag``. Returns (the cut config, each run's greedy comparison, the
+    exact-sum runs (the kernels, their plain versions) against the
+    reference printed (a third, the dequant-fp graph with float64 sums, is
+    cut for the script's time limit). Lines start with ``tag``. Returns (the cut config, each run's greedy comparison, the
     rids where the reference's float32 and float64 evaluations part)."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -3400,12 +3600,10 @@ def exact_sum_gates(torch, ops, dev, cfg, reqs, tag):
         out_plain, n_plain = served("matmuls on their plain versions")
     with dispatch.force_route("matmul", "dequant-fp"):
         out_attn, n_attn = served("matmuls dequant-fp")
-        with float64_sums(torch, dispatch):
-            out_f64, n_f64 = served("matmuls dequant-fp, float64 sums")
     gate(all(n_kern[k] > 0 for k in mm)
-         and not any(n[k] for n in (n_plain, n_attn, n_f64) for k in mm),
+         and not any(n[k] for n in (n_plain, n_attn) for k in mm),
          f"matmul launches: every kernel {n_kern}, controls {n_plain} / "
-         f"{n_attn} / {n_f64}")
+         f"{n_attn}")
     same_plain = [r.rid for r in reqs
                   if out_kern[r.rid].tokens == out_plain[r.rid].tokens]
     print(f"{tag} {cut.n_layers} layers: every kernel vs the matmuls' "
@@ -3421,8 +3619,7 @@ def exact_sum_gates(torch, ops, dev, cfg, reqs, tag):
     greedy = {}
     for label, o in (("attention kernel, matmuls dequant-fp", out_attn),
                      ("every kernel", out_kern),
-                     ("matmuls plain", out_plain),
-                     ("matmuls dequant-fp, float64 sums", out_f64)):
+                     ("matmuls plain", out_plain)):
         compared, bad = serve.compare_greedy(o, ref, ref_out, ctrl, ctrl_out)
         same = sum(o[r.rid].tokens == ref_out[r.rid].tokens for r in reqs)
         greedy[label] = dict(compared=compared, diverged=bad, identical=same)
@@ -3456,7 +3653,11 @@ def starcoder_serve_phase(torch, ops, dev):
     params = lm.init_params(cfg, seed=0, device=dev)
     n_params = lm.param_count(params)
     policy = serve.demo_mixed_policy(cfg)
+    # the full-depth run serves the first wave (4 requests of WAVE_GEN new
+    # tokens), cut for the script's time limit; the 2-layer token gates
+    # keep all of the serve phase's requests
     reqs = serve_requests(cfg)
+    wave = [r._replace(max_new=WAVE_GEN) for r in reqs[:SLOTS]]
     kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prefill_chunk=PREFILL_CHUNK,
               device=dev)
     torch.cuda.synchronize()
@@ -3471,7 +3672,7 @@ def starcoder_serve_phase(torch, ops, dev):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                         # counts: the main path only
     t0 = time.perf_counter()
-    sess, eng, out = serve.serve_quantized(cfg, params, policy, reqs, **kw)
+    sess, eng, out = serve.serve_quantized(cfg, params, policy, wave, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: ops.launches[k] for k in SERVE_KERNELS}
@@ -3495,9 +3696,9 @@ def starcoder_serve_phase(torch, ops, dev):
          "dequant-fp")
     gate(set(sess.route_counts.routes["decode_attn"]) == {"fused"},
          f"decode attention routes {sess.route_counts.routes['decode_attn']}")
-    for r in reqs:
+    for r in wave:
         toks = out[r.rid].tokens
-        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+        gate(len(toks) == WAVE_GEN and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     # one decode step: the attention kernel once per layer
     step = step_launches(torch, ops, sess, dev)
@@ -3524,9 +3725,8 @@ def starcoder_serve_phase(torch, ops, dev):
     # own op chain. Against that reference the exact-sum runs are printed:
     # at StarCoder2's widths (K up to 18432) the float32 sums of the
     # reference part from exact ones by enough to flip activation codes,
-    # so every exact-sum evaluation -- the kernels, their plain versions,
-    # and the dequant-fp graph with float64 sums -- parts from it on
-    # near-ties (ROADMAP 3)
+    # so every exact-sum evaluation -- the kernels, their plain versions
+    # -- parts from it on near-ties (ROADMAP 3)
     del sess, eng, params
     torch.cuda.empty_cache()
     cut, greedy, unstable = exact_sum_gates(torch, ops, dev, cfg, reqs,
@@ -3614,12 +3814,9 @@ def rwkv_serve_phase(torch, ops, dev):
     # of two float evaluations into code steps that the wkv state carries
     # to every later token, and the float32 reference and its float64
     # control part on confident steps of every request, so no step was
-    # decisive there (PRs 15-25). The 32-layer comparison (~86 s of
-    # reference engines) is cut to the gate's depth for the script's time
-    # limit; the prefill logits are compared at 32 layers
-    with ops.plain_on_cuda(*ops.PLAIN_KERNELS):     # the reference, plain
-        noise = prefill_noise(torch, cfg, params, policy, sess,
-                              [reqs[0], reqs[1], reqs[4]], dev)
+    # decisive there. The 32-layer comparison (~86 s of reference
+    # engines) is cut to the gate's depth for the script's time limit, and
+    # so is its printed prefill-logit comparison at 32 layers
     print(f"[rwkv] cut: the {cfg.n_layers}-layer greedy-token comparison "
           "with the fake-quant reference runs at 2 layers (below; the "
           "script's time limit)", flush=True)
@@ -3704,7 +3901,7 @@ def rwkv_serve_phase(torch, ops, dev):
         prefill_tokens=st.prefill_tokens, peak_mem_gb=peak_gb,
         chunked_prefills=chunked, decode_step_launches=step_launches,
         decisive_compared=compared, reference_unstable_rids=unstable,
-        prefill_noise=noise, cut_layers=cut.n_layers,
+        cut_layers=cut.n_layers,
         cut_decisive_compared=compared_cut,
         cut_reference_unstable_rids=unstable_cut,
         packed_bytes=s["packed_bytes"], policy_bytes=s["policy_bytes"])
@@ -4606,7 +4803,32 @@ def moe_train_phase(torch, ops, dev):
     del params
     torch.cuda.empty_cache()
     res["vs_plain"] = vs_plain_gates(torch, ops, dev, MOE_ARCH, MOE_TRAIN_CUT,
-                                     "moe-train", full=MOE_TRAIN_LAYERS)
+                                     "moe-train")
+    return launches, res
+
+
+def vision_train_phase(torch, ops, dev):
+    """The paper pipeline on llama-3.2-vision-11b at full width, cut to one
+    unit of its pattern (``VISION_CUT``: 5 self-attention layers and a gated
+    cross layer; module docstring, phase 23), then gate (e) at that depth,
+    the least that holds a cross layer. Every cross gate is set to
+    ``VISION_GATE`` first: at the reference's init (0) the cross site's 14
+    bank leaves get a gradient of exactly 0, so the importance steps could
+    not move them (gate (c)). Returns (launch counts of the pipeline's run,
+    results)."""
+    def gates(params):
+        with torch.no_grad():
+            set_cross_gates(params)
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, res, params, _ = train_phase(
+        torch, ops, dev, arch=VISION_ARCH, label="vision-train", hawq=False,
+        remat=False, n_layers=VISION_CUT, prep=gates)
+    del params
+    torch.cuda.empty_cache()
+    res["vs_plain"] = vs_plain_gates(torch, ops, dev, VISION_ARCH, VISION_CUT,
+                                     "vision-train", prep=gates,
+                                     flash_alone=True)
     return launches, res
 
 
@@ -4706,8 +4928,12 @@ def vision_serve_phase(torch, ops, ref, dev, card):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     del outer
+    # the full-depth run serves the first wave (4 requests of WAVE_GEN new
+    # tokens, both images), cut for the script's time limit; the token
+    # gates at one unit keep all 8 requests
+    wave = [r._replace(max_new=WAVE_GEN) for r in reqs[:SLOTS]]
     with fresh_route_counts(sess) as routes:
-        eng, out, wall = packed_engine(torch, sess, dev, reqs)
+        eng, out, wall = packed_engine(torch, sess, dev, wave)
     launches = {k: ops.launches[k] for k in SERVE_KERNELS
                 + ("fake_quant_fwd",)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4732,9 +4958,9 @@ def vision_serve_phase(torch, ops, ref, dev, card):
          f"{routes.eligible_fp} kernel-eligible matmuls ran dequant-fp")
     gate(set(routes.routes["decode_attn"]) == {"fused"},
          f"decode attention routes {routes.routes['decode_attn']}")
-    for r in reqs:
+    for r in wave:
         toks = out[r.rid].tokens
-        gate(len(toks) == GEN and all(0 <= t < cfg.vocab for t in toks),
+        gate(len(toks) == WAVE_GEN and all(0 <= t < cfg.vocab for t in toks),
              f"request {r.rid}: bad tokens {toks[:8]}...")
     # (e) packed bytes exactly the policy's
     s = summarize(sess)
@@ -5320,8 +5546,16 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     lap("bundle")
-    ring_run, serve_launches, serve_res = serve_phase(torch, ops, dev)
+    ring_run, serve_launches, serve_res, (qwen, policy, base_sess) = \
+        serve_phase(torch, ops, dev)
     torch.cuda.empty_cache()
+    lap("serve")
+    pc_launches, pc_res = per_channel_phase(torch, ops, dev, qwen, policy,
+                                            base_sess, serve_res)
+    pc_res["launches"] = pc_launches
+    del qwen, policy, base_sess
+    torch.cuda.empty_cache()
+    lap("per-channel")
     paged_run, paged_launches, paged_res = paged_serve_phase(
         torch, ops, dev, serve_res["prefill_tokens"])
     torch.cuda.empty_cache()
@@ -5331,7 +5565,7 @@ def main() -> int:
     spec_paged_launches, spec_paged_res = spec_serve_phase(
         torch, ops, dev, "paged", paged_run)
     torch.cuda.empty_cache()
-    lap("serve, paged, spec")
+    lap("paged, spec")
     cli_res = serve_cli_phase(torch, ops, dev, card)
     torch.cuda.empty_cache()
     lap("cli")
@@ -5345,8 +5579,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_res["self_draft"] = self_draft_check(torch, ops, dev, reqs)
     torch.cuda.empty_cache()
-    # (e) kernels vs plain versions through one train pass: gated at 2
-    # layers, printed at full depth
+    # (e) kernels vs plain versions through one train pass, at 2 layers
     train_res["vs_plain"] = vs_plain_gates(torch, ops, dev, "qwen3-0.6b", 2,
                                            "train")
     torch.cuda.empty_cache()
@@ -5391,6 +5624,10 @@ def main() -> int:
     mt_res["launches"] = mt_launches
     torch.cuda.empty_cache()
     lap("moe-train")
+    vt_launches, vt_res = vision_train_phase(torch, ops, dev)
+    vt_res["launches"] = vt_launches
+    torch.cuda.empty_cache()
+    lap("vision-train")
     vision_rows, vision_launches, vision_res = vision_serve_phase(
         torch, ops, ref, dev, card)
     rows += vision_rows
@@ -5448,6 +5685,11 @@ def main() -> int:
                       f"moe-spec-{layout}": ms_res[layout]["launches"][k]}
     for k in TRAIN_KERNELS:
         by_path[k]["moe-train"] = mt_launches[k]
+        by_path[k]["vision-train"] = vt_launches[k]
+    # the Qwen ring run packed per channel: no matmul kernel, every
+    # projection on dequant-fp
+    for k in RING_KERNELS:
+        by_path[k]["per-channel"] = pc_launches[k]
     # the vision family's serving path: the ring kernels, and the pinned
     # image projection's and head's fake-quant
     for k in RING_KERNELS + ("fake_quant_fwd",):
@@ -5482,7 +5724,8 @@ def main() -> int:
          "starcoder_serve": starcoder_res, "hybrid_serve": hybrid_res,
          "audio_train": audio_res, "moe_serve": moe_res,
          "moe_paged_serve": mp_res, "moe_spec_serve": ms_res,
-         "moe_train": mt_res, "vision_serve": vision_res,
+         "moe_train": mt_res, "vision_train": vt_res,
+         "vision_serve": vision_res, "per_channel": pc_res,
          "mixtral_serve": mixtral_res,
          "cli_large": cli_large_res,
          "bundle": bundle_res,

@@ -13,7 +13,7 @@ resolves which execution route serves it:
   kernel runs int8 x int8 -> int32.
 * ``dequant-fp`` -- dequantize the codes and run the same fp einsum as the
   fake-quant graph, bit for bit; what CPU tensors and layers the kernels
-  cannot take run.
+  cannot take (expert stacks, per-channel scales) run.
 
 Resolution follows the tensors: on a CUDA device a kernel-eligible layer
 takes its kernel route (and a kernel that cannot launch raises); on the CPU
@@ -293,6 +293,10 @@ def _impl_dequant_fp(eqn: str, x: torch.Tensor, pl: PackedLinear, ctx
 
 def _kernel_call(x: torch.Tensor, pl: PackedLinear, ctx, matmul
                  ) -> torch.Tensor:
+    if pl.per_channel:
+        raise ValueError(
+            "a per-channel packed weight has no kernel route: the matmul "
+            "kernels' epilogue takes one weight scale (pl.scale[:1])")
     xq, s_x = act_codes(x, pl, ctx)
     m2 = xq.reshape(-1, xq.shape[-1])
     out = matmul(m2, s_x)
@@ -331,6 +335,10 @@ def kernel_eligible(eqn: str, pl: PackedLinear) -> Optional[str]:
     expert stack, rank 3 with a per-expert scale, takes dequant-fp, as in
     the reference, whose expert einsums run outside any Pallas kernel)."""
     if len(pl.shape) != 2 or not _kernel_form(eqn):
+        return None
+    if pl.per_channel:
+        # the epilogue reads pl.scale[:1]: channel 0's scale would stand in
+        # for every channel
         return None
     if not pl.a_signed and pl.a_bits > 7:
         return None     # unsigned 8-bit grid (qmax 255) overflows int8 codes

@@ -16,10 +16,13 @@ padding. Layouts (byte for byte those of ``repro.runtime.packing``):
                    row-major flattened codes, 1-D uint8.
 
 Codes are stored offset-binary (``u = q - qmin``) so packed bytes are
-unsigned; ``unpack_*`` restores the signed grid exactly. This slice packs
-unsharded with the trained per-tensor scale broadcast per channel, or, for
+unsigned; ``unpack_*`` restores the signed grid exactly. Packing is
+unsharded, with the trained per-tensor scale broadcast per channel, or, for
 an expert stack, the trained per-expert scale in its ``(E, 1, 1)``
-broadcast form (bit-exact with the trained fake-quant graph either way).
+broadcast form (bit-exact with the trained fake-quant graph either way);
+or with ``per_channel=True`` on statistics scales, ``max|w| / qmax`` per
+output channel (``channel_scales``), on which no weight saturates and
+that bitwise parity is given up.
 """
 from __future__ import annotations
 
@@ -142,6 +145,9 @@ class PackedLinear:
     a_signed: bool = True
     layout: str = "int8"
     shape: Tuple[int, ...] = ()
+    # statistics scales (``channel_scales``) instead of the trained bank's:
+    # the dequant-fp route only, the kernels' epilogue takes one scale
+    per_channel: bool = False
     # activation-reuse group: projections with the same input and the same
     # (a_bits, a_signed, trained bank-scale values) share a tag, so dispatch
     # quantizes their common activation once per forward ("" = never reuse)
@@ -207,23 +213,40 @@ def quantize_to_grid(w: torch.Tensor, bits: int,
     return torch.round(torch.clamp(w.to(torch.float32) / s, qmin, qmax))
 
 
+def channel_scales(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Statistics per-channel scales over the last (output) dim: ``max|w| /
+    qmax`` reduced over every other axis, floored at ``SCALE_EPS``."""
+    _, qmax = bit_range(bits, True)
+    red = tuple(range(w.dim() - 1))
+    s = torch.amax(torch.abs(w.to(torch.float32)), dim=red) / float(qmax)
+    return torch.clamp(s, min=SCALE_EPS)
+
+
 def pack_linear(w: torch.Tensor, w_bits: int, s_w, a_bits: int, s_a, *,
-                a_signed: bool = True) -> PackedLinear:
+                a_signed: bool = True,
+                per_channel: bool = False) -> PackedLinear:
     """Quantize ``w`` onto its searched grid and bit-pack the codes.
 
     ``s_w`` is the trained scale (the selected indicator-bank entry): a
     scalar for a plain projection, or, for an expert stack whose bank
     selects per expert, the ``(E, 1, 1)`` trailing-ones form against ``(E,
-    K, N)``, kept as it is; ``s_a`` is ``()`` or per expert ``(E,)``."""
-    s = torch.clamp(torch.as_tensor(s_w, device=w.device).to(torch.float32),
-                    min=SCALE_EPS)
-    if s.dim() == w.dim() and s.numel() > 1:
-        scale = s.contiguous()
-    elif s.numel() == 1:
-        scale = s.reshape(()).expand(w.shape[-1]).contiguous()
+    K, N)``, kept as it is; ``s_a`` is ``()`` or per expert ``(E,)``. With
+    ``per_channel=True`` ``s_w`` is ignored and :func:`channel_scales`
+    (``(N,)``, an expert stack's too) are packed instead: not bit-exact
+    against the trained fake-quant graph."""
+    if per_channel:
+        scale = channel_scales(w, w_bits)
     else:
-        raise ValueError(f"scale {tuple(s.shape)} is neither per-tensor nor "
-                         f"per-expert against weight {tuple(w.shape)}")
+        s = torch.clamp(torch.as_tensor(s_w, device=w.device).to(
+            torch.float32), min=SCALE_EPS)
+        if s.dim() == w.dim() and s.numel() > 1:
+            scale = s.contiguous()
+        elif s.numel() == 1:
+            scale = s.reshape(()).expand(w.shape[-1]).contiguous()
+        else:
+            raise ValueError(
+                f"scale {tuple(s.shape)} is neither per-tensor nor "
+                f"per-expert against weight {tuple(w.shape)}")
     s_a = torch.as_tensor(s_a, device=w.device).to(torch.float32)
     q = quantize_to_grid(w, w_bits, scale)
     layout = _layout_for(w_bits)
@@ -239,7 +262,8 @@ def pack_linear(w: torch.Tensor, w_bits: int, s_w, a_bits: int, s_a, *,
         codes=codes, scale=scale,
         s_a=s_a.reshape(()) if s_a.numel() == 1 else s_a.contiguous(),
         w_bits=int(w_bits), a_bits=int(a_bits), a_signed=bool(a_signed),
-        layout=layout, shape=tuple(int(d) for d in w.shape))
+        layout=layout, shape=tuple(int(d) for d in w.shape),
+        per_channel=bool(per_channel))
 
 
 # ---------------------------------------------------------------------------

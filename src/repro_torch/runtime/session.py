@@ -44,7 +44,11 @@ stack, in the ``(E, 1, 1)`` broadcast form), the dequantized weights and the
 on-the-fly activation fake-quant reproduce the fake-quant graph *bitwise*
 on the dequant-fp route, so its greedy tokens equal an ``LMAdapter``
 reference engine's -- with int8 KV slots too, whose reference is
-``kv_quant="fake"``.
+``kv_quant="fake"``. ``per_channel=True`` packs every tree of a session
+(a speculative draft and each elastic variant too) on statistics scales
+per output channel instead (``packing.channel_scales``): no weight
+saturates, there is no bitwise parity, and the leaves take the dequant-fp
+route, since the matmul kernels' epilogue takes one weight scale.
 """
 from __future__ import annotations
 
@@ -107,9 +111,15 @@ class QuantizedSession:
 
     def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
                  ctx: Optional[QuantContext] = None, *,
-                 kv_quant: str = "int8", site_source=None):
+                 kv_quant: str = "int8", site_source=None,
+                 per_channel: bool = False):
         lm.check_decodes(cfg)
         self.cfg = cfg
+        # per-channel statistics scales saturate no weight but break
+        # bitwise parity with the trained per-tensor indicator scales (the
+        # token-identity gates need the default False); such leaves take
+        # the dequant-fp route
+        self.per_channel = bool(per_channel)
         # where each site's param subtree comes from: the site's slice of
         # ``params`` (None), or ``site_source(site)``, called once per site
         # and packed tree, so that a tree too large for the device beside
@@ -173,7 +183,9 @@ class QuantizedSession:
                     pl = packing.pack_linear(
                         leaf["w"], wb, s_w, int(policy.a_bits[q.name]),
                         leaf["s_a"][..., a_idx],
-                        a_signed=self.cfg.quant_act_signed)
+                        a_signed=self.cfg.quant_act_signed,
+                        per_channel=self.per_channel)
+                    # from the scale the packing used, either kind
                     health[q.name] = obs_health.site_health(
                         leaf["w"], wb, pl.scale)
                     _set_path(sp, q.path, pl)
@@ -329,13 +341,13 @@ class SpecSession(QuantizedSession):
     def __init__(self, cfg: ModelConfig, params, policy: MPQPolicy,
                  ctx: Optional[QuantContext] = None, *,
                  kv_quant: str = "int8", draft_w_bits: int = 2,
-                 site_source=None):
+                 site_source=None, per_channel: bool = False):
         lm.check_decodes(cfg)
         self.draft_w_bits = int(draft_w_bits)
         self.policy_draft = draft_policy(policy, lm.enumerate_qlayers(cfg),
                                          cfg.bits, self.draft_w_bits)
         super().__init__(cfg, params, policy, ctx, kv_quant=kv_quant,
-                         site_source=site_source)
+                         site_source=site_source, per_channel=per_channel)
         (self.draft_params, self.draft_pack_health), = self.side_trees
 
     def _side_policies(self) -> List[MPQPolicy]:
@@ -400,7 +412,7 @@ class ElasticSession(QuantizedSession):
                  variants: Mapping[str, MPQPolicy],
                  ctx: Optional[QuantContext] = None, *,
                  active: Optional[str] = None, mode: str = "packed",
-                 kv_quant: str = "int8"):
+                 kv_quant: str = "int8", per_channel: bool = False):
         lm.check_decodes(cfg)
         if mode != "packed":
             raise ValueError(
@@ -424,7 +436,8 @@ class ElasticSession(QuantizedSession):
         if active not in by_id:
             raise ValueError(
                 f"active variant {active!r} not in bank {sorted(by_id)}")
-        super().__init__(cfg, params, by_id[active], ctx, kv_quant=kv_quant)
+        super().__init__(cfg, params, by_id[active], ctx, kv_quant=kv_quant,
+                         per_channel=per_channel)
         self.family = family
         self.active_policy = active
         self.variant_policies: Dict[str, MPQPolicy] = by_id
